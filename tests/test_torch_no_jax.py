@@ -1,0 +1,57 @@
+"""The PyTorch port never imports jax: not directly, not through the JAX
+package. Checked in a fresh interpreter (this test process has jax loaded
+by the suite's conftest) and by reading every source file."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
+JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
+
+
+def _sources():
+    out = []
+    for d, _, files in os.walk(os.path.join(REPO, PKG)):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out) + [os.path.join(REPO, "apvt_lora_torch", "__init__.py"),
+                          os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"import {PKG} as pkg, apvt_lora_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "names = [n for n in names if not n.endswith('__main__')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        f"or m.startswith('{JAX_PKG}') or m == 'apvt_lora')\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 20, names\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=180)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_has_no_jax_import(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", JAX_PKG,
+                                           "apvt_lora"), f"{path}: imports {n}"
