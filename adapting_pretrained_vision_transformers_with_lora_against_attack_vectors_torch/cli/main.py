@@ -1,15 +1,18 @@
 """CLI: argparse subcommands over the library modules.
 
 Counterpart of the JAX package's ``cli/main.py`` for the stages ported so
-far (``synth-data``, ``attack``), with its flags, defaults and paths:
+far (``synth-data``, ``attack``, ``eval-compose``), with its flags, defaults
+and paths:
 
 * base checkpoints: ``{out}/{model}/{source}/{model}_best_model_finetuned.safetensors``
   + ``class_mappings.txt`` (as the JAX ``train`` stage writes them)
 * adversarial data: ``{adv_root}/{model}/{source}/{split}/{attack}/images``
   + ``metadata.csv``
+* adapters: ``{lora_root}/{model}/{source}/{attack}/rank{r}_best_adapter``
+  (PEFT format); the composability matrix: ``{output_dir}/test_results.json``
 
 There is no kernel switch: a model on a CUDA device always runs the CUDA
-attention kernel, a model on the CPU its plain version.
+attention kernels, a model on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -53,8 +56,9 @@ def _build_vocab(args, splits=("train", "val", "test")):
     return LabelVocabulary.from_metadata_frames(frames)
 
 
-def _load_model(args, device):
-    """Checkpoint (written by either package) -> (entry, cfg, model, vocab)."""
+def _load_checkpoint(args, device, *, auto_dtype: str):
+    """Checkpoint (written by either package) -> (entry, cfg, tree, vocab);
+    float leaves in ``--param_dtype`` (``auto_dtype`` for "auto"), on ``device``."""
     import torch
 
     from ..models.registry import get_model
@@ -70,29 +74,28 @@ def _load_model(args, device):
     entry = get_model(args.model)
     cfg = entry.config(len(vocab))
     tree, _ = ckpt.load_pytree(args.model_path)
-    # "auto": bf16 params on CUDA (the attack path's working dtype), f32 on CPU
-    pdt = args.param_dtype
-    if pdt == "auto":
-        pdt = "bf16" if device.type == "cuda" else "f32"
+    pdt = auto_dtype if args.param_dtype == "auto" else args.param_dtype
     target = torch.bfloat16 if pdt == "bf16" else torch.float32
     tree = trees.map_leaves(
-        lambda t: t.to(target) if t.is_floating_point() else t, tree)
-    model = entry.from_tree(tree, cfg).to(device)
-    return entry, cfg, model, vocab
+        lambda t: t.to(device, target) if t.is_floating_point() else t.to(device), tree)
+    return entry, cfg, tree, vocab
+
+
+def _eval_loader(meta, vocab, *, root_dir, sources=None, batch_size, image_size):
+    from ..data.loader import Loader, MetadataIndex
+
+    return Loader(MetadataIndex(meta, vocab, root_dir=root_dir, sources=sources),
+                  batch_size=batch_size, image_size=image_size,
+                  resize=_eval_resize(image_size))
 
 
 def _loaders_for(args, vocab, splits, *, batch_size, image_size):
-    from ..data.loader import Loader, MetadataIndex
-
     out = {}
     for split in splits:
         meta = os.path.join(args.data_root, split, "metadata.csv")
-        if not os.path.exists(meta):
-            out[split] = None
-            continue
-        idx = MetadataIndex(meta, vocab, root_dir=args.data_root, sources=args.sources)
-        out[split] = Loader(idx, batch_size=batch_size, image_size=image_size,
-                            resize=_eval_resize(image_size))
+        out[split] = (_eval_loader(meta, vocab, root_dir=args.data_root, sources=args.sources,
+                                   batch_size=batch_size, image_size=image_size)
+                      if os.path.exists(meta) else None)
     return out
 
 
@@ -114,7 +117,10 @@ def cmd_attack(args):
     from ..models.registry import get_normalization
 
     device = _device(args)
-    entry, cfg, model, vocab = _load_model(args, device)
+    # "auto": bf16 params on CUDA (the attack path's working dtype), f32 on CPU
+    entry, cfg, tree, vocab = _load_checkpoint(
+        args, device, auto_dtype="bf16" if device.type == "cuda" else "f32")
+    model = entry.from_tree(tree, cfg)
     normalize = Normalizer(*get_normalization(args.model))
     source = "_".join(args.sources) if args.sources else "all"
 
@@ -147,7 +153,60 @@ def cmd_attack(args):
             print(f"{name} {split}: {len(meta)} adversarial images -> {out_dir}")
 
 
+def cmd_eval_compose(args):
+    from ..attacks.common import Normalizer
+    from ..eval import compose
+    from ..models.registry import get_normalization
+
+    device = _device(args)
+    # "auto": f32 params on every device for this stage (accuracy parity);
+    # the compute dtype stays the model config's
+    entry, cfg, tree, vocab = _load_checkpoint(args, device, auto_dtype="f32")
+    source = "_".join(args.sources) if args.sources else "all"
+    loader_args = dict(batch_size=args.batch_size, image_size=cfg.image_size)
+
+    # clean test loader + auto-discovered attack test sets
+    loaders = {}
+    clean_meta = os.path.join(args.data_root, "test", "metadata.csv")
+    if os.path.exists(clean_meta):
+        loaders["clean"] = _eval_loader(clean_meta, vocab, root_dir=args.data_root,
+                                        sources=args.sources, **loader_args)
+    adv_base = os.path.join(args.adv_root, args.model, source, "test")
+    if os.path.isdir(adv_base):
+        for attack in sorted(os.listdir(adv_base)):
+            meta = os.path.join(adv_base, attack, "metadata.csv")
+            if os.path.exists(meta):
+                loaders[attack] = _eval_loader(meta, vocab, root_dir=os.path.join(adv_base, attack),
+                                               **loader_args)
+
+    adapters = compose.find_lora_adapters(
+        os.path.join(args.lora_root, args.model, source), args.attacks, args.rank)
+    if not adapters:
+        print("warning: no adapters found; evaluating base only")
+    missing = [a for a in args.attacks if a not in adapters]
+    if missing and adapters:
+        print(f"warning: no adapter for {missing} — every variant "
+              f"containing them is omitted from the matrix")
+
+    results = compose.run_composability_eval(
+        entry, tree, adapters, loaders, len(vocab), test_mode=args.test_mode,
+        normalize=Normalizer(*get_normalization(args.model)), cfg=cfg, device=device,
+        out_path=os.path.join(args.output_dir, "test_results.json"))
+    print(compose.format_summary_table(results))
+
+
 # --- parser ------------------------------------------------------------------
+
+def _model_args(sp, auto_help: str) -> None:
+    """Data, checkpoint and batch flags shared by the stages that load a model."""
+    _common_data_args(sp)
+    sp.add_argument("--model", default="google_vit")
+    sp.add_argument("--model_path", required=True, help="base checkpoint (.safetensors)")
+    sp.add_argument("--batch_size", type=int, default=32)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--param_dtype", default="auto", choices=("auto", "f32", "bf16"),
+                    help=f"model parameter dtype. {auto_help}")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -168,13 +227,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_synth_data)
 
     sp = sub.add_parser("attack", help="FGSM/PGD adversarial generation")
-    _common_data_args(sp)
-    sp.add_argument("--model", default="google_vit")
-    sp.add_argument("--model_path", required=True, help="base checkpoint (.safetensors)")
-    sp.add_argument("--batch_size", type=int, default=32)
-    sp.add_argument("--seed", type=int, default=42)
-    sp.add_argument("--param_dtype", default="auto", choices=("auto", "f32", "bf16"),
-                    help="model parameter dtype. auto = bf16 on CUDA, f32 on CPU")
+    _model_args(sp, "auto = bf16 on CUDA, f32 on CPU")
     sp.add_argument("--output_dir", default="./adv")
     sp.add_argument("--attacks", nargs="+", default=["fgsm", "pgd"],
                     choices=["fgsm", "pgd"])
@@ -183,6 +236,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--alpha", type=float, default=3 / 255)
     sp.add_argument("--steps", type=int, default=30)
     sp.set_defaults(fn=cmd_attack)
+
+    sp = sub.add_parser("eval-compose", help="LoRA composability matrix")
+    _model_args(sp, "auto = f32 on every device (the compute dtype stays the "
+                    "model config's)")
+    sp.add_argument("--adv_root", default="./adv")
+    sp.add_argument("--lora_root", default="./loras")
+    sp.add_argument("--output_dir", default="./eval_out")
+    sp.add_argument("--attacks", nargs="+", default=["fgsm", "pgd"])
+    sp.add_argument("--rank", type=int, default=8)
+    sp.add_argument("--test_mode", default="all",
+                    choices=["all", "base_only", "individual_only", "combinations_only"])
+    sp.set_defaults(fn=cmd_eval_compose)
     return p
 
 

@@ -11,6 +11,12 @@ backend (bit-exact with the torchvision eval pipeline):
   padding rows of the last batch) and prefetches ahead of the consumer.
   Shuffling comes with the training stages. Batches go to the device as
   uint8; the conversion to [0,1] floats happens there.
+* :class:`CachedLoader` decodes an unshuffled loader once and replays its
+  batches from host memory, for consumers that sweep a split many times.
+
+pandas and PIL are imported where an index is built or an image decoded,
+so code that only consumes batches (the eval stage fed from memory) runs
+without them.
 """
 
 from __future__ import annotations
@@ -20,15 +26,14 @@ import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import TYPE_CHECKING, Iterator, Optional, Sequence
 
 import numpy as np
-import pandas as pd
-from PIL import Image
 
 from ..utils.vocab import LabelVocabulary
-from .io import filter_metadata, read_metadata, resolve_image_path
-from .transforms import eval_transform_pil
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 @dataclass
@@ -47,6 +52,8 @@ class MetadataIndex:
 
     def __init__(self, metadata: str | pd.DataFrame, vocab: LabelVocabulary, *,
                  root_dir: str = ".", sources: Optional[Sequence[str]] = None):
+        from .io import filter_metadata, read_metadata, resolve_image_path
+
         df = read_metadata(metadata) if isinstance(metadata, str) else metadata
         meta_dir = os.path.dirname(os.path.abspath(metadata)) if isinstance(metadata, str) else root_dir
         df = filter_metadata(df, sources)
@@ -94,6 +101,10 @@ class Loader:
         return (len(self.index) + self.batch_size - 1) // self.batch_size
 
     def _decode(self, i: int) -> np.ndarray:
+        from PIL import Image
+
+        from .transforms import eval_transform_pil
+
         with Image.open(self.index.paths[i]) as img:
             return eval_transform_pil(img, resize=self.resize, crop=self.image_size)
 
@@ -156,3 +167,42 @@ class Loader:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+
+class CachedLoader:
+    """Replayable wrapper: decode the underlying loader once, then serve its
+    batches from host memory on every later pass.
+
+    For consumers that sweep the same split many times (the eval stage runs
+    one pass per variant and dataset). Caches only when the loader does not
+    shuffle (a shuffling loader yields a different order each pass) and the
+    decoded split fits ``max_bytes``; otherwise it passes batches through.
+    The cache is published only after a complete first pass, so an
+    interrupted pass leaves no partial cache behind. ``max_bytes`` and the
+    shuffle rule mirror the JAX class; the port's :class:`Loader` does not
+    shuffle yet, so that rule waits for the training loader.
+    """
+
+    def __init__(self, loader: Loader, *, max_bytes: int = 4 << 30):
+        self.loader = loader
+        est = len(loader.index) * loader.image_size * loader.image_size * 3
+        self._cache: Optional[list[Batch]] = (
+            [] if (not getattr(loader, "shuffle", False) and est <= max_bytes) else None)
+        self._filled = False
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[Batch]:
+        if self._cache is None:
+            yield from self.loader
+            return
+        if self._filled:
+            yield from self._cache
+            return
+        fill: list[Batch] = []
+        for b in self.loader:
+            fill.append(b)
+            yield b
+        self._cache = fill
+        self._filled = True

@@ -5,7 +5,8 @@
 ``.gitignore`` lists), or into ``$APVT_TORCH_BUILD_DIR``. The library name
 carries a hash of the source, so an edited kernel is never served from a
 stale build. ptxas' per-kernel report (registers, spills) is kept in
-``BUILD_LOG``. Nothing here runs at import time.
+``BUILD_LOG``. :func:`load_all` builds several sources in parallel. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -70,3 +71,16 @@ def load(source: str) -> ctypes.CDLL:
         BUILD_SECONDS[source] = time.perf_counter() - t0
     _LOADED[source] = ctypes.CDLL(lib)
     return _LOADED[source]
+
+
+def load_all(sources) -> list[ctypes.CDLL]:
+    """:func:`load` for several sources at once: one nvcc each, started together.
+
+    A run that needs every kernel (``chip_smoke.py``) then waits for the
+    slowest nvcc instead of their sum, which keeps its time bounded as
+    sources are added.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(load, sources))

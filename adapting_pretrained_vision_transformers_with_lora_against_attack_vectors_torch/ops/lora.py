@@ -5,7 +5,8 @@ so one adapter means the same thing to both packages:
 
 * an adapter is ``{target_path: {"a": ..., "b": ...}}`` keyed by the JAX
   param paths (``"blocks/attn/q"``...); with stacked encoder blocks the
-  factors carry a leading depth axis;
+  factors carry the leading stack axes (depth for ViT, ``(pairs, 2)`` for
+  Swin), which ``torch.matmul`` broadcasts over;
 * ``W`` is ``(in, out)``, so ``a`` is ``(*lead, in, r)`` and ``b`` is
   ``(*lead, r, out)``;
 * :func:`attach` inserts the factors for the unmerged path of
@@ -34,6 +35,9 @@ class LoRAConfig:
     rank: int = 8
     alpha: float = 16.0
     targets: tuple[str, ...] = ()  # '/'-joined paths of dense subtrees
+    # carried so that adapter_config.json round-trips; dropout itself comes
+    # with the training stages
+    dropout: float = 0.0
 
     @property
     def scale(self) -> float:

@@ -6,11 +6,13 @@ unmerged LoRA factors ``lora_a`` ``(in, r)``, ``lora_b`` ``(r, out)`` and the
 scalar ``lora_s`` = alpha / r that :func:`..ops.lora.attach` inserts, in
 which case :func:`dense` computes ``x @ W + s * (x @ A) @ B + b``.
 
-Matmuls run in the compute dtype with f32 accumulation. The bias is added
-before the single rounding to the compute dtype: in f32 that is the JAX
-order exactly; in bf16 the plain layer fuses the bias into the GEMM
-(``F.linear``), whose epilogue adds it in f32 before rounding the output once.
-LoRA dropout comes with the training stages.
+Matmuls take operands in the compute dtype and accumulate in f32; the
+output is rounded to the compute dtype once, at the end, as the JAX
+``dense`` does with ``preferred_element_type``. The plain layer fuses the
+bias into the GEMM (``F.linear``), whose epilogue adds it in f32 before that
+single rounding. With unmerged LoRA factors, ``x @ W``, the LoRA branch and
+the bias are summed in f32 and rounded once. LoRA dropout comes with the
+training stages.
 """
 
 from __future__ import annotations
@@ -33,9 +35,18 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
 
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the operands' dtype (f32 accumulation inside the GEMM),
-    widened to f32 for the sums that follow."""
-    return torch.matmul(x, w).float()
+    """``x @ w`` as an f32 result, never rounded to the operands' dtype.
+
+    On CUDA the GEMM writes its f32 accumulator (``out_dtype``); on the CPU
+    the operands are widened first, which is the same math: a product of two
+    bf16 values is exact in f32."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x2d, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2d.float(), w.float())
+    return y.reshape(*lead, w.shape[-1])
 
 
 def dense(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:

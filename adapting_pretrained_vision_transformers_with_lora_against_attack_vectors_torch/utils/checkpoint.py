@@ -12,7 +12,10 @@ Files are interchangeable with the JAX package's ``utils/checkpoint.py``
 * bfloat16 leaves are bit-cast to uint16 and listed under ``__bf16__`` in
   that metadata, as the JAX package does.
 
-Writes are atomic (temp file in the same directory, then ``os.replace``).
+:func:`save_tensors` / :func:`load_tensors` read and write a flat map of
+named tensors in the same format (bf16 under the format's own ``BF16`` tag),
+for files such as PEFT adapters. Writes are atomic (temp file in the same
+directory, then ``os.replace``).
 Every leaf is made C-contiguous before its raw bytes are written: a strided
 view would otherwise be written as the wrong matrix.
 """
@@ -23,7 +26,7 @@ import json
 import os
 import struct
 import tempfile
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -43,7 +46,7 @@ _DTYPE_OF = {tag: dt for dt, tag in _TAG_OF.items()}
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
-    """Leaf -> (C-contiguous array, was_bf16)."""
+    """Leaf -> (C-contiguous array, was_bf16); bf16 comes back as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -54,26 +57,26 @@ def _to_numpy(leaf) -> tuple[np.ndarray, bool]:
     return np.array(arr, order="C", copy=not arr.flags.c_contiguous), False
 
 
-def save_pytree(tree, path: str, *, meta: Optional[dict] = None) -> None:
-    """Save a dict tree of tensors/arrays to ``path`` (.safetensors) atomically."""
-    flat = trees.flatten_with_paths(tree)
-    arrays, bf16_paths = {}, []
-    for p, leaf in flat.items():
-        arrays[p], is_bf16 = _to_numpy(leaf)
+def save_tensors(tensors: Mapping[str, Any], path: str, *,
+                 metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Write a flat ``{name: tensor or array}`` map as a safetensors file,
+    atomically. bf16 tensors are stored under the format's own ``BF16`` tag."""
+    arrays, tags = {}, {}
+    for name, leaf in tensors.items():
+        arrays[name], is_bf16 = _to_numpy(leaf)
         if is_bf16:
-            bf16_paths.append(p)
-    sidecar = dict(meta or {})
-    if bf16_paths:
-        sidecar[_BF16_TAG] = bf16_paths
-
-    header: dict[str, Any] = {
-        "__metadata__": {_META_KEY: json.dumps(sidecar, default=str)}}
+            tags[name] = "BF16"
+        elif arrays[name].dtype in _TAG_OF:
+            tags[name] = _TAG_OF[arrays[name].dtype]
+        else:
+            raise TypeError(f"{name}: dtype {arrays[name].dtype} has no safetensors tag")
+    header: dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
     offset = 0
     for name in sorted(arrays):
         a = arrays[name]
-        if a.dtype not in _TAG_OF:
-            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors tag")
-        header[name] = {"dtype": _TAG_OF[a.dtype], "shape": list(a.shape),
+        header[name] = {"dtype": tags[name], "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
         offset += a.nbytes
     blob = json.dumps(header, separators=(",", ":")).encode()
@@ -94,24 +97,43 @@ def save_pytree(tree, path: str, *, meta: Optional[dict] = None) -> None:
             os.unlink(tmp)
 
 
-def load_pytree(path: str) -> tuple[Any, dict]:
-    """Load ``(tree, meta)``; leaves are CPU torch tensors (bf16 restored)."""
+def load_tensors(path: str) -> tuple[dict[str, torch.Tensor], dict[str, str]]:
+    """Read a safetensors file: ``({name: CPU tensor}, metadata)``."""
     with open(path, "rb") as f:
         data = f.read()
     (n,) = struct.unpack("<Q", data[:8])
     header = json.loads(data[8:8 + n])
     base = 8 + n
-    raw_meta = header.pop("__metadata__", None) or {}
-    meta = json.loads(raw_meta[_META_KEY]) if _META_KEY in raw_meta else {}
-    bf16 = set(meta.pop(_BF16_TAG, []))
+    metadata = header.pop("__metadata__", None) or {}
     flat = {}
     for name, info in header.items():
         start, end = info["data_offsets"]
-        dt = _DTYPE_OF[info["dtype"]]
+        bf16 = info["dtype"] == "BF16"
+        dt = np.dtype(np.uint16) if bf16 else _DTYPE_OF[info["dtype"]]
         arr = np.frombuffer(data, dtype=dt, count=(end - start) // dt.itemsize,
                             offset=base + start).reshape(info["shape"]).copy()
         t = torch.from_numpy(arr)
-        if name in bf16:
-            t = t.view(torch.bfloat16)
-        flat[name] = t
+        flat[name] = t.view(torch.bfloat16) if bf16 else t
+    return flat, metadata
+
+
+def save_pytree(tree, path: str, *, meta: Optional[dict] = None) -> None:
+    """Save a dict tree of tensors/arrays to ``path`` (.safetensors) atomically."""
+    arrays, bf16_paths = {}, []
+    for p, leaf in trees.flatten_with_paths(tree).items():
+        arrays[p], is_bf16 = _to_numpy(leaf)
+        if is_bf16:
+            bf16_paths.append(p)
+    sidecar = dict(meta or {})
+    if bf16_paths:
+        sidecar[_BF16_TAG] = bf16_paths
+    save_tensors(arrays, path, metadata={_META_KEY: json.dumps(sidecar, default=str)})
+
+
+def load_pytree(path: str) -> tuple[Any, dict]:
+    """Load ``(tree, meta)``; leaves are CPU torch tensors (bf16 restored)."""
+    flat, raw_meta = load_tensors(path)
+    meta = json.loads(raw_meta[_META_KEY]) if _META_KEY in raw_meta else {}
+    for name in meta.pop(_BF16_TAG, []):
+        flat[name] = flat[name].view(torch.bfloat16)
     return trees.unflatten_from_paths(flat), meta

@@ -114,7 +114,9 @@ def test_cpu_dispatch_takes_plain_version_and_kernel_refuses_cpu():
 def test_import_compiles_nothing(tmp_path):
     code = ("import os, sys\n"
             "from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import attention, _build\n"
-            "from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import vit\n"
+            "from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import window_attention\n"
+            "from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import swin, vit\n"
+            "from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.eval import compose\n"
             "assert _build._LOADED == {} and _build.BUILD_SECONDS == {}\n"
             "assert not os.path.exists(os.environ['APVT_TORCH_BUILD_DIR'])\n"
             "assert 'triton' not in sys.modules\n")

@@ -1,16 +1,23 @@
-"""The port's CLI (``synth-data``, ``attack``) against the JAX CLI.
+"""The port's CLI (``synth-data``, ``attack``, ``eval-compose``) against the
+JAX CLI.
 
 Both CLIs attack the same checkpoint, written by the JAX package, on the
-CPU. The JAX loader is pinned to its PIL decode backend (``APVT_NATIVE=0``)
-so both sides see the same pixels; FGSM PNGs must then agree on >= 99% of
-pixels within 1 LSB (a near-zero gradient may take the other sign).
+CPU (``vit_test`` and ``swin_test``). The JAX loader is pinned to its PIL
+decode backend (``APVT_NATIVE=0``) so both sides see the same pixels; FGSM
+PNGs must then agree on >= 99% of pixels within 1 LSB (a near-zero gradient
+may take the other sign). ``eval-compose`` runs in both CLIs over the same
+checkpoint, adversarial PNGs and JAX-written adapters: accuracies equal,
+F1 and loss within rtol 1e-4.
 """
 
+import contextlib
+import json
 import os
 import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
@@ -18,8 +25,12 @@ from PIL import Image
 
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.cli import main as tmain
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.cli import main as jmain
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import swin as jswin
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import vit as jvit
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import lora as jlora
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import peft_io as jpeft
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import checkpoint as jck
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import trees as jtrees
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils.vocab import LabelVocabulary
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +66,7 @@ def runs(tmp_path_factory):
             del os.environ["APVT_NATIVE"]
         else:
             os.environ["APVT_NATIVE"] = saved
-    return {"data": data, "port": port_out, "jax": jax_out}
+    return {"data": data, "port": port_out, "jax": jax_out, "ck": ck, "params": params}
 
 
 def _split_dir(out, attack):
@@ -149,3 +160,110 @@ def test_attack_refuses_non_safetensors(tmp_path):
     with pytest.raises(SystemExit, match="safetensors"):
         tmain(["--device", "cpu", "attack", "--data_root", str(tmp_path), "--model",
                "vit_test", "--model_path", str(tmp_path / "m.pth")])
+
+
+@contextlib.contextmanager
+def _jax_pil_decode():
+    """Pin the JAX loader to its PIL decode backend, as the port decodes."""
+    saved = os.environ.get("APVT_NATIVE")
+    os.environ["APVT_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["APVT_NATIVE"]
+        else:
+            os.environ["APVT_NATIVE"] = saved
+
+
+def _jax_checkpoint(root, data, model, init):
+    vocab = LabelVocabulary.from_metadata_frames(
+        [pd.read_csv(os.path.join(data, s, "metadata.csv")) for s in ("train", "val", "test")])
+    ck_dir = root / "ck" / model / "all"
+    ck = str(ck_dir / f"{model}_best_model_finetuned.safetensors")
+    params = init(len(vocab))
+    jck.save_pytree(params, ck, meta={"epoch": 1})
+    vocab.save(str(ck_dir / "class_mappings.txt"))
+    return ck, params
+
+
+@pytest.fixture(scope="module")
+def swin_runs(runs, tmp_path_factory):
+    """``attack --model swin_test`` through both CLIs on the same data."""
+    root = tmp_path_factory.mktemp("cli_swin")
+    ck, params = _jax_checkpoint(root, runs["data"], "swin_test", lambda c: jswin.init(
+        jax.random.key(4), jswin.SWIN_TEST.with_classes(c)))
+    common = ["attack", "--data_root", runs["data"], "--model", "swin_test", "--model_path", ck,
+              "--splits", "test", "--batch_size", "8"]
+    port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
+    assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
+                  "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
+    with _jax_pil_decode():
+        assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
+                      "--attacks", "fgsm"]) == 0
+    return {"root": root, "ck": ck, "params": params, "port": port_out, "jax": jax_out}
+
+
+def test_swin_attack_fgsm_pngs_match_jax_cli(swin_runs):
+    split = lambda out: os.path.join(out, "swin_test", "all", "test", "fgsm")
+    names = sorted(os.listdir(os.path.join(split(swin_runs["jax"]), "images")))
+    assert len(names) == 15
+    load = lambda out: np.stack([np.asarray(Image.open(os.path.join(split(out), "images", n)))
+                                 for n in names]).astype(int)
+    got, want = load(swin_runs["port"]), load(swin_runs["jax"])
+    assert got.shape == want.shape == (15, 32, 32, 3)
+    assert (np.abs(got - want) <= 1).mean() >= 0.99
+    pd.testing.assert_frame_equal(
+        pd.read_csv(os.path.join(split(swin_runs["port"]), "metadata.csv")).drop(columns="image_path"),
+        pd.read_csv(os.path.join(split(swin_runs["jax"]), "metadata.csv")).drop(columns="image_path"))
+    pgd_meta = pd.read_csv(os.path.join(swin_runs["port"], "swin_test", "all", "test", "pgd",
+                                        "metadata.csv"))
+    assert len(pgd_meta) == 15 and all(os.path.exists(p) for p in pgd_meta["image_path"])
+
+
+def _jax_adapters(lora_root, model, params, targets, head_dim, classes, seed):
+    """fgsm/pgd rank-4 adapters with heads, written by the JAX peft_io."""
+    rng = np.random.default_rng(seed)
+    flat = jtrees.flatten_with_paths(params)
+    for attack in ("fgsm", "pgd"):
+        ad = {}
+        for path in targets:
+            *lead, di, do = flat[f"{path}/w"].shape
+            ad[path] = {"a": jnp.asarray(rng.standard_normal((*lead, di, 4)), jnp.float32) * 0.3,
+                        "b": jnp.asarray(rng.standard_normal((*lead, 4, do)), jnp.float32) * 0.3}
+        head = {"w": rng.standard_normal((head_dim, classes)).astype(np.float32),
+                "b": rng.standard_normal(classes).astype(np.float32)}
+        jpeft.save_peft_adapter(ad, jlora.LoRAConfig(rank=4, alpha=16.0, targets=targets),
+                                os.path.join(lora_root, model, "all", attack,
+                                             "rank4_best_adapter"), head=head)
+
+
+@pytest.mark.parametrize("model", ["vit_test", "swin_test"])
+def test_eval_compose_matches_jax_cli(model, runs, swin_runs, tmp_path):
+    """Both CLIs' composability matrices over the same checkpoint, the port's
+    adversarial PNGs and adapters written by the JAX package: accuracy and
+    support equal, F1 and loss within rtol 1e-4."""
+    if model == "swin_test":
+        ck, params, adv = swin_runs["ck"], swin_runs["params"], swin_runs["port"]
+        targets, head_dim = jswin.lora_target_paths(jswin.SWIN_TEST), 64
+    else:
+        ck, params, adv = runs["ck"], runs["params"], runs["port"]
+        targets, head_dim = jvit.LORA_TARGETS_DEFAULT, 64
+    loras = str(tmp_path / "loras")
+    classes = np.asarray(jtrees.flatten_with_paths(params)["head/w"]).shape[1]
+    _jax_adapters(loras, model, params, targets, head_dim, classes, seed=11)
+    common = ["eval-compose", "--data_root", runs["data"], "--model", model, "--model_path", ck,
+              "--adv_root", adv, "--lora_root", loras, "--rank", "4", "--batch_size", "8"]
+    assert tmain(["--device", "cpu", *common, "--output_dir", str(tmp_path / "port")]) == 0
+    with _jax_pil_decode():
+        assert jmain(["--platform", "cpu", *common, "--output_dir", str(tmp_path / "jax")]) == 0
+    got = json.load(open(tmp_path / "port" / "test_results.json"))
+    want = json.load(open(tmp_path / "jax" / "test_results.json"))
+    assert list(got) == list(want) == ["base", "lora_fgsm", "lora_pgd", "fgsm+pgd"]
+    for variant, per_ds in want.items():
+        assert list(got[variant]) == list(per_ds) == ["clean", "fgsm", "pgd"]
+        for ds, m in per_ds.items():
+            g = got[variant][ds]
+            assert g["accuracy"] == m["accuracy"] and g["support"] == m["support"] == 15
+            np.testing.assert_allclose(g["f1"], m["f1"], rtol=1e-4)
+            np.testing.assert_allclose(g["loss"], m["loss"], rtol=1e-4)

@@ -175,3 +175,70 @@ def test_lora_attach_detach_round_trip():
     det = tlora.detach(att)
     assert set(ttrees.flatten_with_paths(det)) == set(ttrees.flatten_with_paths(tp))
     assert "lora_a" not in tp["head"]
+
+
+def _bf16_pair(x):
+    """f32 numpy -> (jax bf16, torch bf16) holding the same values."""
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def test_dense_unmerged_lora_rounds_once_like_jax():
+    """x@W stays f32 until the single final rounding: 1 + 2^-8 + 2^-12 - 2^-9
+    rounds to 1.0 at bf16 (rounding x@W first gives 1.0078125)."""
+    x = np.array([[1.0, 2.0 ** -8, 2.0 ** -12]], np.float32)
+    p = {"w": np.ones((3, 1), np.float32), "b": np.array([-2.0 ** -9], np.float32),
+         "lora_a": np.zeros((3, 2), np.float32), "lora_b": np.zeros((2, 1), np.float32)}
+    jp = {k: _bf16_pair(v)[0] for k, v in p.items()}
+    tp = {k: _bf16_pair(v)[1] for k, v in p.items()}
+    jp["lora_s"], tp["lora_s"] = jnp.float32(2.0), torch.tensor(2.0)
+    want = jnn.dense(jp, _bf16_pair(x)[0])
+    got = tnn.dense(tp, _bf16_pair(x)[1])
+    assert got.dtype == torch.bfloat16
+    assert float(want[0, 0]) == 1.0 and float(got[0, 0]) == 1.0
+
+
+def test_dense_unmerged_lora_bf16_random_within_one_ulp():
+    """Random bf16 inputs: the port's unmerged-LoRA dense equals the JAX
+    dense within one bf16 ulp (f32 sums in another order may flip a tie)."""
+    rng = _rng(9)
+    p = {"w": rng.standard_normal((64, 48)).astype(np.float32) * 0.2,
+         "b": rng.standard_normal(48).astype(np.float32),
+         "lora_a": rng.standard_normal((64, 4)).astype(np.float32) * 0.2,
+         "lora_b": rng.standard_normal((4, 48)).astype(np.float32) * 0.2}
+    x = rng.standard_normal((2, 9, 64)).astype(np.float32)
+    jp = {k: _bf16_pair(v)[0] for k, v in p.items()}
+    tp = {k: _bf16_pair(v)[1] for k, v in p.items()}
+    jp["lora_s"], tp["lora_s"] = jnp.float32(4.0), torch.tensor(4.0)
+    want = np.asarray(jnn.dense(jp, _bf16_pair(x)[0]).astype(jnp.float32))
+    got = tnn.dense(tp, _bf16_pair(x)[1]).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+    assert np.mean(got == want) > 0.99
+
+
+def test_lora_merge_broadcasts_swin_pair_axes():
+    """Swin factors carry (pairs, 2) lead axes; init, merge and merge_many
+    broadcast over both, as the JAX einsum does."""
+    rng = _rng(10)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32) * 0.3
+    params = {"stages": {"0": {"blocks": {"attn": {"qkv": {"w": f(3, 2, 8, 24), "b": f(3, 2, 24)},
+                                                   "proj": {"w": f(3, 2, 8, 8)}}}}}}
+    targets = ("stages/0/blocks/attn/qkv", "stages/0/blocks/attn/proj")
+    jp, tp = _both(params)
+    ta0 = tlora.init(torch.Generator().manual_seed(0), tp, tlora.LoRAConfig(rank=4, targets=targets))
+    assert tuple(ta0[targets[0]]["a"].shape) == (3, 2, 8, 4)
+    assert tuple(ta0[targets[0]]["b"].shape) == (3, 2, 4, 24)
+    ads = [_adapter(rng, params, targets, rank=r) for r in (2, 4)]
+    cfgs = [(jlora.LoRAConfig(rank=r, alpha=16.0, targets=targets),
+             tlora.LoRAConfig(rank=r, alpha=16.0, targets=targets)) for r in (2, 4)]
+    jm = jlora.merge_many(jp, [_both_adapter(a)[0] for a in ads], [c[0] for c in cfgs])
+    tm = tlora.merge_many(tp, [_both_adapter(a)[1] for a in ads], [c[1] for c in cfgs])
+    for p, v in jtrees.flatten_with_paths(jm).items():
+        _close(ttrees.get_path(tm, p), v)
+    att = tlora.attach(tp, _both_adapter(ads[0])[1], cfgs[0][1])
+    assert att["stages"]["0"]["blocks"]["attn"]["qkv"]["lora_s"].shape == (3, 2)
+
+
+def test_lora_config_carries_dropout():
+    assert tlora.LoRAConfig().dropout == 0.0
+    assert tlora.LoRAConfig(dropout=0.1).dropout == 0.1
