@@ -11,8 +11,11 @@ and paths:
 * adapters: ``{lora_root}/{model}/{source}/{attack}/rank{r}_best_adapter``
   (PEFT format); the composability matrix: ``{output_dir}/test_results.json``
 
-There is no kernel switch: a model on a CUDA device always runs the CUDA
-attention kernels, a model on the CPU their plain versions.
+The attention kernels have no switch: a ViT or Swin on a CUDA device always
+runs its CUDA attention kernel, on the CPU the plain version. ConvNeXt's two
+kernels are opt-in config fields, as in the JAX package: ``--fused_block``
+sets ``fuse_ln_mlp`` (the LayerNorm-fused MLP kernel); ``use_dw_kernel`` (the
+depthwise 7x7 kernel) has no flag in either CLI and is set on the config.
 """
 
 from __future__ import annotations
@@ -56,6 +59,18 @@ def _build_vocab(args, splits=("train", "val", "test")):
     return LabelVocabulary.from_metadata_frames(frames)
 
 
+def _apply_kernel_flags(args, cfg):
+    """``--fused_block``: the backbone's fused-block field (ConvNeXt:
+    ``fuse_ln_mlp``); an error for a backbone that has none, as in JAX."""
+    import dataclasses
+
+    if not getattr(args, "fused_block", False):
+        return cfg
+    if not hasattr(cfg, "fuse_ln_mlp"):
+        raise SystemExit(f"--fused_block unsupported for {args.model}")
+    return dataclasses.replace(cfg, fuse_ln_mlp=True)
+
+
 def _load_checkpoint(args, device, *, auto_dtype: str):
     """Checkpoint (written by either package) -> (entry, cfg, tree, vocab);
     float leaves in ``--param_dtype`` (``auto_dtype`` for "auto"), on ``device``."""
@@ -72,7 +87,7 @@ def _load_checkpoint(args, device, *, auto_dtype: str):
     vocab = (LabelVocabulary.load(mapping) if os.path.exists(mapping)
              else _build_vocab(args))
     entry = get_model(args.model)
-    cfg = entry.config(len(vocab))
+    cfg = _apply_kernel_flags(args, entry.config(len(vocab)))
     tree, _ = ckpt.load_pytree(args.model_path)
     pdt = auto_dtype if args.param_dtype == "auto" else args.param_dtype
     target = torch.bfloat16 if pdt == "bf16" else torch.float32
@@ -206,6 +221,10 @@ def _model_args(sp, auto_help: str) -> None:
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--param_dtype", default="auto", choices=("auto", "f32", "bf16"),
                     help=f"model parameter dtype. {auto_help}")
+    sp.add_argument("--fused_block", action="store_true",
+                    help="ConvNeXt: each block's LayerNorm + pointwise MLP through the "
+                         "hand-written LN-fused MLP kernel (CUDA + bf16 compute; its plain "
+                         "version on the CPU). Off by default")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -5,8 +5,9 @@
 ``.gitignore`` lists), or into ``$APVT_TORCH_BUILD_DIR``. The library name
 carries a hash of the source, so an edited kernel is never served from a
 stale build. ptxas' per-kernel report (registers, spills) is kept in
-``BUILD_LOG``. :func:`load_all` builds several sources in parallel. Nothing
-here runs at import time.
+``BUILD_LOG``. :func:`load_all` builds several sources in parallel;
+:func:`load_text` builds an edited copy of a source for a measurement.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -44,16 +45,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` once per process (and per source hash)."""
-    if source in _LOADED:
-        return _LOADED[source]
-    src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _compile(name: str, src: str, digest: str) -> ctypes.CDLL:
+    """nvcc ``src`` into ``<build dir>/<stem>_<digest>.so`` unless it is there; load it."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"{os.path.splitext(source)[0]}_{digest}.so")
+    lib = os.path.join(out_dir, f"{os.path.splitext(name)[0]}_{digest}.so")
     if not os.path.exists(lib):
         fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
         os.close(fd)
@@ -62,15 +58,41 @@ def load(source: str) -> ctypes.CDLL:
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-            BUILD_LOG[source] = proc.stderr
+                raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+            BUILD_LOG[name] = proc.stderr
             os.replace(tmp, lib)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        BUILD_SECONDS[source] = time.perf_counter() - t0
-    _LOADED[source] = ctypes.CDLL(lib)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    return ctypes.CDLL(lib)
+
+
+def _digest(text: bytes) -> str:
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` once per process (and per source hash)."""
+    if source not in _LOADED:
+        src = os.path.join(CSRC, source)
+        with open(src, "rb") as f:
+            digest = _digest(f.read())
+        _LOADED[source] = _compile(source, src, digest)
     return _LOADED[source]
+
+
+def load_text(name: str, text: str) -> ctypes.CDLL:
+    """Compile CUDA source given as text (an edited copy of a ``csrc`` file,
+    for a measurement): written into the build directory as ``name``."""
+    key = f"{name}:{_digest(text.encode())}"
+    if key not in _LOADED:
+        os.makedirs(build_dir(), exist_ok=True)
+        src = os.path.join(build_dir(), f"{os.path.splitext(name)[0]}_{key.split(':')[1]}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        _LOADED[key] = _compile(name, src, key.split(":")[1])
+    return _LOADED[key]
 
 
 def load_all(sources) -> list[ctypes.CDLL]:

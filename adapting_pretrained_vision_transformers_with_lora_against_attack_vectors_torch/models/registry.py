@@ -1,4 +1,4 @@
-"""Model registry (the ViT and Swin families; the other backbones register later).
+"""Model registry (the ViT, Swin and ConvNeXt families; the other backbones register later).
 
 Counterpart of the JAX package's ``models/registry.py``. Each entry gives:
 
@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from . import convnext as _convnext
 from . import swin as _swin
 from . import vit as _vit
 
@@ -73,15 +74,16 @@ def _vit_entry(name: str, base_cfg) -> ModelEntry:
     )
 
 
-def _swin_entry(name: str, base_cfg) -> ModelEntry:
+def _entry(name: str, family: str, module, base_cfg) -> ModelEntry:
+    """A backbone whose module has init/params_from_jax/apply/lora_target_paths."""
     return ModelEntry(
         name=name,
-        family="swin",
+        family=family,
         config=lambda num_classes, _b=base_cfg: _b.with_classes(num_classes),
-        init=_swin.init,
-        from_tree=_swin.params_from_jax,
-        apply=_swin.apply,
-        lora_targets=_swin.lora_target_paths,
+        init=module.init,
+        from_tree=module.params_from_jax,
+        apply=module.apply,
+        lora_targets=module.lora_target_paths,
     )
 
 
@@ -90,5 +92,7 @@ register(_vit_entry("vit_tiny", _vit.VIT_TINY))
 register(_vit_entry("vit_test", _vit.VIT_TEST))
 # DINOv1: architecturally ViT-B/16 (weights from the head-less DINO checkpoint)
 register(_vit_entry("dinov1", _vit.VIT_B16))
-register(_swin_entry("swin", _swin.SWIN_B))
-register(_swin_entry("swin_test", _swin.SWIN_TEST))
+register(_entry("swin", "swin", _swin, _swin.SWIN_B))
+register(_entry("swin_test", "swin", _swin, _swin.SWIN_TEST))
+register(_entry("convnext", "convnext", _convnext, _convnext.CONVNEXT_B))
+register(_entry("convnext_test", "convnext", _convnext, _convnext.CONVNEXT_TEST))

@@ -10,45 +10,70 @@ the hand-written kernels:
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
   in bf16, through FGSM and PGD-10 at batch 64: the window-attention kernel
   (``csrc/window_attention.cu``), forward and backward;
-* the eval-compose stage for ``swin`` from memory: two adapters with heads
-  through the port's PEFT writer and reader, then the accuracy matrix over
-  the clean batch and the FGSM/PGD batches, f32 params and bf16 compute.
+* ``convnext`` ConvNeXt-B (all 36 blocks, dims 128-1024) with a rank-8 LoRA
+  merged into every pwconv1/pwconv2, in bf16, both kernel fields on, through
+  FGSM and PGD-10 at batch 64: the depthwise 7x7 kernel (``csrc/dwconv7.cu``,
+  forward and input-gradient roles) and the LayerNorm-fused MLP kernels
+  (``csrc/ln_mlp.cu``, forward and backward);
+* the eval-compose stage for ``swin`` and ``convnext`` from memory: two
+  adapters with heads through the port's PEFT writer and reader, then the
+  accuracy matrix over the clean batch and the FGSM/PGD batches, f32 params
+  and bf16 compute.
 
 Phases, one line each (or a few):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: both kernels compiled with nvcc from the checkout's sources, in
+2. build: every kernel source compiled with nvcc from the checkout, in
    parallel; ptxas registers and spills of each;
 3. kernels against their plain PyTorch versions on the card, forward and
-   gradients, f32 and bf16: packed attention at (B, N, H, hd) =
-   (2, 37, 3, 32), (64, 197, 12, 64) and (bf16) (2, 300, 2, 64); window
-   attention at the four Swin-B stage shapes (B=64; the shift mask on
-   stages 1-3, zeros on stage 4) and at a ragged (2, 4, 16, 2), with a
-   relative-position bias at the scale of a pretrained Swin's (std 1-2,
-   another per head), and the kernel's change from a zero bias held
-   against the plain version's; every backward bitwise reproducible;
+   gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
+   (64, 197, 12, 64) and (bf16) (2, 300, 2, 64); window attention at the
+   four Swin-B stage shapes (B=64; the shift mask on stages 1-3, zeros on
+   stage 4) and at a ragged (2, 4, 16, 2), with a relative-position bias at
+   the scale of a pretrained Swin's (std 1-2, another per head), and the
+   kernel's change from a zero bias held against the plain version's;
+   dwconv7 at the four ConvNeXt-B stage shapes (B=64) and a ragged
+   (2, 10, 9, 8), f32 and bf16, forward, input gradient, and the input
+   gradient equal to the forward with the flipped filter; the LN-fused MLP
+   at the four ConvNeXt-B (T, D) shapes, at the ViT-B shape (12608, 768,
+   3072) and at a ragged (70, 128, 512), bf16, forward and dx, with LN
+   scale/bias and b1/b2 at std 0.5, and the plain version without each of
+   them shown to miss the limit by a factor of 5 or more (so the check sees
+   every one); every backward bitwise reproducible;
 4. model, per backbone: merged bf16 state through the port's checkpoint
    writer/reader (byte-equal), then logits of the kernel path against the
-   plain path in bf16 and f32 (Swin's bias tables drawn at std 1.5);
+   plain path (ViT, Swin: bf16 and f32, Swin's bias tables drawn at std 1.5)
+   or against the flags-off library path (ConvNeXt: bf16, layer scale drawn
+   in 0.1-0.5 so that every block matters, biases at std 0.1);
 5. attack, per backbone: FGSM + PGD-10 from a uint8 batch; output range,
    eps-ball, loss increase, and the launch counts (reset just before the
-   run, read just after) that prove the path ran the kernels; for Swin, no
-   bias gradient was computed. Then eval-compose for ``swin`` (its launch
-   counts read the same way): 4 variants x 3 datasets, base/clean accuracy
-   equal to a direct argmax count, a merged variant's weights equal to
-   base + sum s*A*B;
-6. timing with CUDA events: PGD-10 images/s of each backbone, kernel vs
-   plain times (window attention with a zero, the shift and a random 30%
-   mask, whose masked scores slow the kernel), and the eval-compose
-   matrix's wall time.
+   run, read just after) that prove the path ran the kernels: for Swin no
+   bias gradient, for ConvNeXt 36 x 11 launches of each kernel role and no
+   filter or parameter gradient. Then eval-compose for ``swin`` and
+   ``convnext`` (launch counts read the same way): 4 variants x 3 datasets,
+   base/clean accuracy equal to a direct argmax count, a merged variant's
+   weights equal to base + sum s*A*B;
+6. timing with CUDA events: PGD-10 images/s of each backbone (ConvNeXt-B
+   with both kernel fields on, each alone, and both off, in turns), kernel
+   vs plain times, each kernel's bound (the larger of its FLOP over the
+   card's published peak and its bytes over 3.35 TB/s) and the time of the
+   one PyTorch call, or library composition, that computes the same
+   function (measured here only; the port never calls it in place of a
+   kernel), and the eval-compose matrices' wall times. ViT-B and Swin-B PGD
+   are timed over 3 calls, ConvNeXt-B over 2 calls per variant and turn.
 
 The line before the last is a JSON object describing every kernel (window
 attention's ``ms`` at the Swin-B stage-3 shape with its shift mask, which
-18 of the 24 blocks run); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
-without the rest of the repository beside it, the script fails with a
-non-zero exit.
+18 of the 24 blocks run; the ConvNeXt kernels' at the stage-3 shape, which
+27 of the 36 blocks run); the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the rest of the repository beside it, the script
+fails with a non-zero exit.
 
-Run: ``python3 chip_smoke.py`` from the repository root.
+Run: ``python3 chip_smoke.py`` from the repository root. ``python3
+chip_smoke.py --profile google_vit|swin|convnext`` instead builds that
+backbone, traces one warm PGD-10 call with ``torch.profiler`` and prints the
+device time by kernel group (ConvNeXt: kernel fields on, then off); it
+prints no result lines.
 """
 
 from __future__ import annotations
@@ -83,10 +108,34 @@ SWIN_BIAS_STD = 1.5
 # fwd (atol, rtol), grads (atol, rtol) per dtype, both kernels
 TOL = {"float32": ((1e-4, 1e-3), (1e-4, 1e-3)),
        "bfloat16": ((3e-2, 3e-2), (5e-2, 5e-2))}
-# logits, kernel path vs plain path
+# dwconv7 (B, H, W, C): the four ConvNeXt-B stages at B=64 and a ragged case
+DW_SHAPES = ((64, 56, 56, 128), (64, 28, 28, 256), (64, 14, 14, 512), (64, 7, 7, 1024),
+             (2, 10, 9, 8))
+# LN-fused MLP (T, D, M): the four ConvNeXt-B stages at B=64, the ViT-B/16
+# shape (64 x 197 tokens) and a ragged case
+MLP_SHAPES = ((200704, 128, 512), (50176, 256, 1024), (12544, 512, 2048), (3136, 1024, 4096),
+              (12608, 768, 3072), (70, 128, 512))
+# fwd (atol, rtol), dx (atol, rtol) of the LN-fused MLP in bf16 (the limits of
+# the JAX kernel's bf16 parity tests)
+MLP_TOL = ((1e-2, 1e-2), (2e-2, 2e-2))
+MLP_PARAM_STD = 0.5  # LN scale (around 1), LN bias, b1, b2
+CONVNEXT_KERNELS = {"use_dw_kernel": True, "fuse_ln_mlp": True}
+CONVNEXT_VARIANTS = (("both kernels", CONVNEXT_KERNELS), ("dwconv7 only", {"use_dw_kernel": True}),
+                     ("ln_mlp only", {"fuse_ln_mlp": True}), ("library", {}))
+# logits, kernel path vs plain path (ConvNeXt: vs the flags-off library path;
+# in f32 its kernel fields do nothing)
 LOGIT_TOL = {"google_vit": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
-             "swin": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)}}
+             "swin": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
+             "convnext": {"bfloat16": (5e-2, 5e-2)}}
 BATCH, PGD_STEPS, EPS, ALPHA, CLASSES = 64, 10, 8 / 255, 3 / 255, 21
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take, and which of the two bounds it."""
+    t_ops, t_bytes = flop / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,6 +195,7 @@ class Smoke:
 
         sys.path.insert(0, HERE)
         for attr, name in (("ka", "kernels.attention"), ("kw", "kernels.window_attention"),
+                           ("kd", "kernels.dwconv"), ("km", "kernels.mlp"),
                            ("build_mod", "kernels._build"), ("vit", "models.vit"),
                            ("swin", "models.swin"), ("registry", "models.registry"),
                            ("lora", "ops.lora"), ("peft_io", "ops.peft_io"),
@@ -175,11 +225,11 @@ class Smoke:
 
     # 2. build
     def build(self) -> None:
-        sources = ("attention_packed.cu", "window_attention.cu")
+        sources = ("attention_packed.cu", "window_attention.cu", "dwconv7.cu", "ln_mlp.cu")
         t0 = time.perf_counter()
         self.build_mod.load_all(sources)
-        self.ka._lib()
-        self.kw._lib()
+        for mod in (self.ka, self.kw, self.kd, self.km):
+            mod._lib()
         wall = time.perf_counter() - t0
         for src in sources:
             ptxas = self.build_mod.BUILD_LOG.get(src, "")
@@ -283,20 +333,133 @@ class Smoke:
                       flush=True)
         return err
 
+    def dwconv_operands(self, shape, dtype):
+        """x, the filter (7, 7, C) f32 at std 0.15 and a cotangent."""
+        import torch
+
+        x = torch.randn(*shape, device=self.dev, generator=self.gen).to(dtype)
+        w = torch.randn(7, 7, shape[-1], device=self.dev, generator=self.gen) * 0.15
+        g = torch.randn(*shape, device=self.dev, generator=self.gen).to(dtype)
+        return x, w, g
+
+    def dwconv_vs_plain(self) -> dict:
+        import torch
+
+        kd, err = self.kd, {"fwd": 0.0, "dx": 0.0}  # bf16, max over the ConvNeXt-B stages
+        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+            dtype = getattr(torch, dtype_name)
+            for shape in DW_SHAPES:
+                x, w, g = self.dwconv_operands(shape, dtype)
+                tag = f"{dtype_name} {shape}"
+                e_f = close(kd.fused_dwconv7_fwd(x, w), kd.dwconv7_reference(x, w), fa, fr,
+                            f"dwconv7 fwd {tag}")
+                xr = x.clone().requires_grad_(True)
+                (want_dx,) = torch.autograd.grad(kd.dwconv7_reference(xr, w), xr, g)
+                got_dx = kd.fused_dwconv7_dx(g, w)
+                e_b = close(got_dx, want_dx, ga, gr, f"dwconv7 dx {tag}")
+                check(torch.equal(got_dx, kd.fused_dwconv7_fwd(g, w.flip(0, 1))),
+                      f"dwconv7 dx is not the forward with the flipped filter {tag}")
+                check(torch.equal(got_dx, kd.fused_dwconv7_dx(g, w)),
+                      f"dwconv7 dx not reproducible {tag}")
+                torch.cuda.synchronize()
+                if dtype == torch.bfloat16 and shape[0] == BATCH:
+                    err = {"fwd": max(err["fwd"], e_f), "dx": max(err["dx"], e_b)}
+                print(f"phase 3 dwconv7 vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
+                      f"{e_b:.3e}; dx = forward with the flipped filter, bitwise; reproducible",
+                      flush=True)
+        return err
+
+    def mlp_operands(self, shape):
+        """bf16 x and dy (T, D); LN scale/bias, b1, b2 at std MLP_PARAM_STD (the
+        scale around 1), w1 and w2 at std 1/sqrt(fan-in), all f32."""
+        import torch
+
+        t, d, m = shape
+
+        def rand(*size):
+            return torch.randn(*size, device=self.dev, generator=self.gen)
+
+        x = (rand(t, d) + 0.5 * rand(t, 1)).to(torch.bfloat16)
+        dy = rand(t, d).to(torch.bfloat16)
+        params = {"ln_scale": 1.0 + MLP_PARAM_STD * rand(d), "ln_bias": MLP_PARAM_STD * rand(d),
+                  "w1": rand(d, m) * d ** -0.5, "b1": MLP_PARAM_STD * rand(m),
+                  "w2": rand(m, d) * m ** -0.5, "b2": MLP_PARAM_STD * rand(d)}
+        return x, dy, params
+
+    def mlp_vs_plain(self) -> dict:
+        import torch
+
+        km, eps = self.km, 1e-6
+        (fa, fr), (ga, gr) = MLP_TOL
+        err = {"fwd": 0.0, "bwd": 0.0}  # max over the ConvNeXt-B stages
+        for shape in MLP_SHAPES:
+            x, dy, p = self.mlp_operands(shape)
+            tag = f"bfloat16 {shape}"
+
+            def plain(q):
+                fwd = km.ln_mlp_reference(x, q["ln_scale"], q["ln_bias"], q["w1"], q["b1"],
+                                          q["w2"], q["b2"], eps)
+                bwd = km.ln_mlp_bwd_reference(x, q["ln_scale"], q["ln_bias"], q["w1"], q["b1"],
+                                              q["w2"], dy, eps)
+                return fwd, bwd
+
+            want_f, want_b = plain(p)
+            got_f = km.fused_ln_mlp_fwd(x, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"],
+                                        p["w2"], p["b2"], eps)
+            got_b = km.fused_ln_mlp_bwd(x, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"],
+                                        p["w2"], dy, eps)
+            e_f = close(got_f, want_f, fa, fr, f"ln_mlp fwd {tag}")
+            e_b = close(got_b, want_b, ga, gr, f"ln_mlp dx {tag}")
+            check(torch.equal(got_b, km.fused_ln_mlp_bwd(
+                x, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"], dy, eps)),
+                f"ln_mlp backward not reproducible {tag}")
+            # can the check see each row parameter? The plain version without
+            # it must miss the limit by far (b2 does not enter dx)
+            moved = {}
+            for name, neutral in (("ln_scale", 1.0), ("ln_bias", 0.0), ("b1", 0.0), ("b2", 0.0)):
+                wo_f, wo_b = plain({**p, name: torch.full_like(p[name], neutral)})
+                moved[name] = (float((wo_f.float() - want_f.float()).abs().max()),
+                               float((wo_b.float() - want_b.float()).abs().max()))
+                for what, mv, a, r, ref in (("fwd", moved[name][0], fa, fr, want_f),
+                                            ("dx", moved[name][1], ga, gr, want_b)):
+                    if (name, what) == ("b2", "dx"):
+                        continue
+                    limit = a + r * float(ref.float().abs().max())
+                    check(mv > 5 * limit, f"ln_mlp {what} {tag}: dropping {name} moves the "
+                          f"plain output by only {mv:.3e} (limit {limit:.3e})")
+            torch.cuda.synchronize()
+            if shape in MLP_SHAPES[:4]:
+                err = {"fwd": max(err["fwd"], e_f), "bwd": max(err["bwd"], e_b)}
+            print(f"phase 3 ln_mlp vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
+                  f"{e_b:.3e}; dropping a row parameter moves plain fwd/dx by "
+                  + ", ".join(f"{n} {a:.2f}/{b:.2f}" for n, (a, b) in moved.items())
+                  + "; backward bitwise reproducible", flush=True)
+        return err
+
     # 4. model
-    def model(self, name: str, module, attn_name: str, plain):
-        """Merged rank-8 LoRA, bf16, checkpoint round trip, kernel vs plain logits."""
+    def model(self, name: str, module=None, attn_name: str = "", plain=None, kernel_fields=None):
+        """Merged rank-8 LoRA, bf16, checkpoint round trip, kernel vs plain logits.
+
+        The plain side is the model with its attention routed through ``plain``
+        (``module.attn_name``), or, with ``kernel_fields`` (config fields that
+        switch kernels on), the model built without them."""
         import numpy as np
         import torch
 
         lora, trees, ckpt = self.lora, self.trees, self.checkpoint
         entry = self.registry.get_model(name)
-        cfg = entry.config(CLASSES)
+        off_cfg = entry.config(CLASSES)
+        cfg = dataclasses.replace(off_cfg, **(kernel_fields or {}))
         g_cpu = torch.Generator().manual_seed(0)
         tree = trees.flatten_with_paths(entry.init(cfg, g_cpu))
         for p in tree:
             if p.endswith("bias_table"):
                 tree[p] = torch.randn(tree[p].shape, generator=g_cpu) * SWIN_BIAS_STD
+            elif name == "convnext" and p.endswith("gamma"):
+                # at the 1e-6 init every block is the identity to bf16
+                tree[p] = 0.1 + 0.4 * torch.rand(tree[p].shape, generator=g_cpu)
+            elif name == "convnext" and p.rsplit("/", 1)[-1] in ("b", "bias"):
+                tree[p] = torch.randn(tree[p].shape, generator=g_cpu) * 0.1
         tree = trees.unflatten_from_paths(tree)
         lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg))
         adapter = lora.init(g_cpu, tree, lcfg)
@@ -318,34 +481,44 @@ class Smoke:
         check(all(flat_b[p].dtype == torch.bfloat16 and torch.equal(
             flat_a[p].view(torch.int16), flat_b[p].view(torch.int16)) for p in flat_a),
             f"{name}: checkpoint round trip is not byte-equal")
-        model = entry.from_tree(trees.map_leaves(lambda t: t.to(self.dev), loaded), cfg)
+        model_tree = trees.map_leaves(lambda t: t.to(self.dev), loaded)
+        model = entry.from_tree(model_tree, cfg)
         size = cfg.image_size
         x8 = torch.from_numpy(np.random.default_rng(0).random((8, size, size, 3),
                                                                dtype=np.float32)).to(self.dev)
         normalize = self.common.Normalizer(*self.registry.get_normalization(name))
         logit_err = {}
         for dtype_name, (la, lr) in LOGIT_TOL[name].items():
-            mcfg = (cfg if dtype_name == "bfloat16"
-                    else dataclasses.replace(cfg, compute_dtype="float32"))
-            m = model if dtype_name == "bfloat16" else entry.from_tree(
-                trees.map_leaves(lambda t: t.to(self.dev), merged), mcfg)
+            bf16 = dtype_name == "bfloat16"
+            mcfg = cfg if bf16 else dataclasses.replace(cfg, compute_dtype="float32")
+            dev_tree = (model_tree if bf16
+                        else trees.map_leaves(lambda t: t.to(self.dev), merged))
+            m = model if bf16 else entry.from_tree(dev_tree, mcfg)
             with torch.no_grad():
                 got = entry.apply(mcfg, m, normalize(x8))
-                with plain_path(module, attn_name, plain):
-                    want = entry.apply(mcfg, m, normalize(x8))
+                if kernel_fields:
+                    pcfg = dataclasses.replace(mcfg, **{f: False for f in kernel_fields})
+                    want = entry.apply(pcfg, entry.from_tree(dev_tree, pcfg), normalize(x8))
+                else:
+                    with plain_path(module, attn_name, plain):
+                        want = entry.apply(mcfg, m, normalize(x8))
             check(got.shape == (8, CLASSES), f"{name}: logits shape {tuple(got.shape)}")
             logit_err[dtype_name] = close(got, want, la, lr, f"{name} logits {dtype_name}")
             del m
         blocks = sum(getattr(cfg, "depths", ())) or getattr(cfg, "depth", 0)
         print(f"phase 4 model: {name} {blocks} blocks, rank-8 LoRA merged, bf16 checkpoint "
-              f"round trip byte-equal ({len(flat_a)} tensors), logits kernel vs plain "
-              f"max|err| bf16 {logit_err['bfloat16']:.3e} f32 {logit_err['float32']:.3e}",
-              flush=True)
-        return entry, cfg, model, tree, normalize
+              f"round trip byte-equal ({len(flat_a)} tensors), logits kernel vs "
+              f"{'library' if kernel_fields else 'plain'} max|err| "
+              + " ".join(f"{d} {e:.3e}" for d, e in logit_err.items()), flush=True)
+        return entry, cfg, model, tree, normalize, model_tree
 
     # 5. attack
-    def attack(self, name: str, entry, cfg, model, normalize, counters, min_launches):
-        """FGSM + PGD-10 with the kernels' counts reset just before and read just after."""
+    def attack(self, name: str, entry, cfg, model, normalize, counters, expect):
+        """FGSM + PGD-10 with the kernels' counts reset just before and read just after.
+
+        ``counters``: ``{key: (module, attribute)}``; ``expect``: the count each
+        must show (11 forward and 11 backward passes per block; 0 for a
+        gradient the attack path must not compute)."""
         import numpy as np
         import torch
 
@@ -365,8 +538,7 @@ class Smoke:
         adv_p = pgd(model, images_u8, labels, torch.Generator(self.dev).manual_seed(1))
         torch.cuda.synchronize()
         launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-        for k, least in min_launches.items():
-            check(launches[k] >= least, f"{name}: {k} launches {launches} (want >= {least})")
+        check(launches == expect, f"{name}: kernel counts {launches} (want {expect})")
         clean = common.to_unit_floats(images_u8)
         for what, adv in (("fgsm", adv_f), ("pgd", adv_p)):
             check(adv.shape == clean.shape and adv.dtype == torch.float32,
@@ -389,12 +561,16 @@ class Smoke:
               f"{ce_clean:.4f} -> PGD {ce_pgd:.4f}, kernel launches {launches}", flush=True)
         return launches, pgd, images_u8, labels, adv_f, adv_p
 
-    def compose(self, entry, cfg, base_tree, images_u8, labels, adv_f, adv_p):
-        """eval-compose from memory for ``swin``; returns the matrix's wall seconds."""
+    def compose(self, name, entry, cfg, base_tree, images_u8, labels, adv_f, adv_p, counters,
+                per_forward):
+        """eval-compose from memory; returns the matrix's wall seconds.
+
+        ``counters`` as in :meth:`attack`; ``per_forward``: the count each must
+        show per model forward (0 for a backward or gradient counter)."""
         import numpy as np
         import torch
 
-        lora, trees, peft_io, kw = self.lora, self.trees, self.peft_io, self.kw
+        lora, trees, peft_io = self.lora, self.trees, self.peft_io
         g_cpu = torch.Generator().manual_seed(3)
         lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg))
         last = base_tree["head"]["w"].shape[0]
@@ -405,7 +581,8 @@ class Smoke:
                 fac["b"] = torch.randn(fac["b"].shape, generator=g_cpu) * 0.02
             head = {"w": torch.randn(last, CLASSES, generator=g_cpu) * last ** -0.5,
                     "b": torch.randn(CLASSES, generator=g_cpu) * 0.1}
-            out_dir = os.path.join(self.build_mod.build_dir(), f"chip_smoke_{attack}_adapter")
+            out_dir = os.path.join(self.build_mod.build_dir(),
+                                   f"chip_smoke_{name}_{attack}_adapter")
             peft_io.save_peft_adapter(ad, lcfg, out_dir, head=head)
             got, got_cfg, got_head = peft_io.load_peft_adapter(out_dir)
             check(set(got) == set(ad) and got_cfg.rank == 8 and got_cfg.alpha == 16.0,
@@ -423,23 +600,24 @@ class Smoke:
         loaders = {"clean": batches(images_u8.cpu().numpy()),
                    "fgsm": batches(self.common.uint8_quantize(adv_f)),
                    "pgd": batches(self.common.uint8_quantize(adv_p))}
-        normalize = self.common.Normalizer(*self.registry.get_normalization("swin"))
+        normalize = self.common.Normalizer(*self.registry.get_normalization(name))
         torch.cuda.synchronize()
-        kw.FWD_LAUNCHES = kw.BWD_LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         t0 = time.perf_counter()
         results = self.compose_mod.run_composability_eval(
             entry, base_tree, adapters, loaders, CLASSES, cfg=cfg, normalize=normalize,
             device=self.dev, log=lambda s: None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fwd": kw.FWD_LAUNCHES, "bwd": kw.BWD_LAUNCHES}
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         want_variants = ["base", "lora_fgsm", "lora_pgd", "fgsm+pgd"]
         check(list(results) == want_variants
               and all(list(r) == ["clean", "fgsm", "pgd"] for r in results.values()),
               f"compose matrix {[(v, list(r)) for v, r in results.items()]}")
-        check(launches["fwd"] >= sum(cfg.depths) * len(want_variants) * len(loaders)
-              and launches["bwd"] == 0,
-              f"compose window launches {launches}")
+        forwards = len(want_variants) * len(loaders)
+        check(launches == {k: n * forwards for k, n in per_forward.items()},
+              f"{name} compose launches {launches} over {forwards} forwards")
         base_d = trees.map_leaves(lambda t: t.to(self.dev), base_tree)
         base_model = entry.from_tree(base_d, cfg)
         with torch.no_grad():
@@ -459,91 +637,370 @@ class Smoke:
         check(merged["head"] is ads_d["pgd"][2], "the last merged head did not win")
         for line in self.compose_mod.format_summary_table(results).splitlines():
             print(f"phase 5 compose: {line}")
-        print(f"phase 5 compose: swin 4 variants x 3 datasets (B={BATCH} each), f32 params "
+        print(f"phase 5 compose: {name} 4 variants x 3 datasets (B={BATCH} each), f32 params "
               f"bf16 compute, base/clean accuracy {direct:.4f} = direct argmax count, merged "
               f"fgsm+pgd weights = base + sum s*A*B on {len(lcfg.targets)} targets, "
-              f"window kernel launches {launches}, wall {wall:.3f} s", flush=True)
+              f"kernel launches {launches}, wall {wall:.3f} s", flush=True)
         return wall
 
+    # 6. timing
+    def time_attention(self, vit_l) -> list[dict]:
+        """Packed attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
+        import torch
+        import torch.nn.functional as F
 
-def main() -> None:
+        ka = self.ka
+        b, n, h, hd = MAIN
+        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        kf, pf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                       lambda: ka.attention_packed_reference(q, k, v, h))
+        kb, pb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h),
+                       lambda: ka.attention_packed_bwd_reference(q, k, v, do, h))
+        # the one library call: SDPA on (B, H, N, hd) views of the packed operands
+        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = do.view(b, n, h, hd).transpose(1, 2)
+        lf = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 20)
+        unit = b * h * n * n * hd
+        tensor = b * n * h * hd * 2
+        bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
+        bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
+        print(f"phase 6 attention_packed {MAIN} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} ms; "
+              f"plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; "
+              f"bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}",
+              flush=True)
+        src = f"{PKG}/csrc/attention_packed.cu"
+        return [
+            {"name": "attention_packed_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:230", "launches": vit_l["fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "attention_packed_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:238", "launches": vit_l["bwd"],
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
+    def time_window(self, swin_l) -> list[dict]:
+        """Window attention at Swin-B stages 1 and 3 under three masks; bound and
+        SDPA (bias + mask as ``attn_mask``) with the shift mask."""
+        import torch
+        import torch.nn.functional as F
+
+        kw = self.kw
+        rows = {}
+        for label, shape in WIN_TIMED.items():
+            for mask_kind in WIN_MASKS:
+                qkv, bias, mask, wdo, wh = self.window_operands(shape, mask_kind, torch.bfloat16)
+                wkf, wpf = turns(lambda: kw.fused_window_attention_fwd(qkv, bias, mask, wh),
+                                 lambda: kw.window_attention_reference(qkv, bias, mask, wh))
+                wkb, wpb = turns(
+                    lambda: kw.fused_window_attention_bwd(qkv, bias, mask, wdo, wh),
+                    lambda: kw.window_attention_bwd_reference(qkv, bias, mask, wdo, wh))
+                line = (f"phase 6 window_attention {label} {tuple(qkv.shape)} h{wh} {mask_kind} "
+                        f"mask bf16: kernel fwd {wkf:.4f} ms bwd {wkb:.4f} ms; plain fwd "
+                        f"{wpf:.4f} ms bwd {wpb:.4f} ms")
+                if mask_kind == "shift":
+                    b, nw, n, _ = qkv.shape
+                    hd = 32
+                    # every (window, head) pair as one SDPA head: (B, nW*h, n, hd),
+                    # bias + mask as one additive mask shared by the batch
+                    qh, kh, vh = (t.reshape(b, nw * wh, n, hd).detach().requires_grad_(True)
+                                  for t in kw._heads(qkv, wh))
+                    doh = wdo.view(b, nw, n, wh, hd).transpose(2, 3).reshape(b, nw * wh, n, hd)
+                    am = (bias[None] + mask[:, None]).reshape(1, nw * wh, n, n).to(torch.bfloat16)
+                    lf = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=am), 20)
+                    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+                    lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                             retain_graph=True), 20)
+                    unit = b * nw * wh * n * n * hd
+                    c = wh * hd
+                    side = (bias.numel() + mask.numel()) * 4
+                    bf, bf_by = bound_ms(4 * unit, b * nw * n * 4 * c * 2 + side, PEAK_BF16)
+                    bb, bb_by = bound_ms(10 * unit, b * nw * n * 7 * c * 2 + side, PEAK_BF16)
+                    rows[label] = (wkf, wpf, wkb, wpb, lf, lb, bf, bf_by, bb, bb_by)
+                    line += (f"; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd {bf:.4f} ms "
+                             f"({bf_by}) bwd {bb:.4f} ms ({bb_by})")
+                print(f"{line} {self.card}", flush=True)
+        wkf, wpf, wkb, wpb, lf, lb, bf, bf_by, bb, bb_by = rows["stage 3"]
+        src = f"{PKG}/csrc/window_attention.cu"
+        return [
+            {"name": "window_attention_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/window_attention.py:140", "launches": swin_l["fwd"],
+             "ms": wkf, "plain_ms": wpf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "window_attention_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/window_attention.py:159", "launches": swin_l["bwd"],
+             "ms": wkb, "plain_ms": wpb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
+    def time_dwconv(self, cnx_l) -> list[dict]:
+        """dwconv7 at the four ConvNeXt-B stage shapes: both roles, plain, bound,
+        and ``F.conv2d(groups=C)`` in bf16 in both memory formats."""
+        import torch
+        import torch.nn.functional as F
+
+        kd, rows = self.kd, {}
+        for stage, shape in enumerate(DW_SHAPES[:4], 1):
+            x, w, g = self.dwconv_operands(shape, torch.bfloat16)
+            w = w.to(torch.bfloat16)  # as the attack path holds it; the library call gets the same
+            kf, pf = turns(lambda: kd.fused_dwconv7_fwd(x, w), lambda: kd.dwconv7_reference(x, w))
+            kb = cuda_ms(lambda: kd.fused_dwconv7_dx(g, w), 20)
+            c = shape[-1]
+            wf = w.permute(2, 0, 1).reshape(c, 1, 7, 7)
+            x_cl = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels-last NCHW view
+            x_nchw = x_cl.contiguous()
+            lib = {"channels_last": cuda_ms(lambda: F.conv2d(x_cl, wf, None, 1, 3, 1, c), 20),
+                   "contiguous": cuda_ms(lambda: F.conv2d(x_nchw, wf, None, 1, 3, 1, c), 20)}
+            fmt = min(lib, key=lib.get)
+            n_out = x.numel()
+            bound, by = bound_ms(2 * 49 * n_out, 2 * n_out * 2 + w.numel() * 4, PEAK_F32)
+            rows[stage] = (kf, kb, pf, lib[fmt], bound, by)
+            print(f"phase 6 dwconv7 stage {stage} {shape} bf16: kernel fwd {kf:.4f} ms dx "
+                  f"{kb:.4f} ms; plain (f32 F.conv2d) {pf:.4f} ms; library F.conv2d(groups=C) "
+                  f"bf16 channels_last {lib['channels_last']:.4f} ms, contiguous NCHW "
+                  f"{lib['contiguous']:.4f} ms (faster: {fmt}); bound {bound:.4f} ms ({by}) "
+                  f"{self.card}", flush=True)
+        kf, kb, pf, lf, bound, by = rows[3]
+        src = f"{PKG}/csrc/dwconv7.cu"
+        return [
+            {"name": "dwconv7_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/dwconv.py:128", "launches": cnx_l["dw_fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bound, "bound_by": by, "library_ms": lf},
+            {"name": "dwconv7_dx", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/dwconv.py:155", "launches": cnx_l["dw_dx"],
+             "ms": kb, "plain_ms": pf, "bound_ms": bound, "bound_by": by, "library_ms": lf}]
+
+    def time_mlp(self, cnx_l) -> list[dict]:
+        """The LN-fused MLP at the four ConvNeXt-B stage shapes and the ViT-B
+        shape: kernels, plain, bound, and the bf16 library composition
+        (``F.layer_norm`` -> ``F.linear`` -> ``F.gelu`` -> ``F.linear``; no one
+        PyTorch call computes the function)."""
+        import torch
+        import torch.nn.functional as F
+
+        km, eps, rows = self.km, 1e-6, {}
+        for stage, shape in enumerate(MLP_SHAPES[:5], 1):
+            t, d, m = shape
+            x, dy, p = self.mlp_operands(shape)
+            # weights in bf16, as the attack path holds them (no cast inside the timed calls)
+            p["w1"], p["w2"] = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
+            args = (p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"])
+            kf, pf = turns(lambda: km.fused_ln_mlp_fwd(x, *args, p["b2"], eps),
+                           lambda: km.ln_mlp_reference(x, *args, p["b2"], eps), 10)
+            kb, pb = turns(lambda: km.fused_ln_mlp_bwd(x, *args, dy, eps),
+                           lambda: km.ln_mlp_bwd_reference(x, *args, dy, eps), 10)
+            w1t, w2t = p["w1"].t(), p["w2"].t()
+            b1h, b2h = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
+
+            def library(xi):
+                hn = F.layer_norm(xi.float(), (d,), p["ln_scale"], p["ln_bias"], eps).to(xi.dtype)
+                return F.linear(F.gelu(F.linear(hn, w1t, b1h)), w2t, b2h)
+
+            cf = cuda_ms(lambda: library(x), 10)
+            xg = x.detach().requires_grad_(True)
+            y = library(xg)
+            cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+            del y
+            weights = 2 * d * m * 2
+            bf, bf_by = bound_ms(4 * t * d * m, 2 * t * d * 2 + weights, PEAK_BF16)
+            bb, bb_by = bound_ms(6 * t * d * m, 3 * t * d * 2 + weights, PEAK_BF16)
+            rows[stage] = (kf, kb, pf, pb, bf, bf_by, bb, bb_by)
+            label = f"stage {stage}" if stage <= 4 else "ViT-B shape"
+            print(f"phase 6 ln_mlp {label} {shape} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} "
+                  f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single "
+                  f"call) fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd "
+                  f"{bb:.4f} ms ({bb_by}); kernel at {4e-9 * t * d * m / kf:.1f} / "
+                  f"{6e-9 * t * d * m / kb:.1f} TFLOP/s {self.card}", flush=True)
+        kf, kb, pf, pb, bf, bf_by, bb, bb_by = rows[3]
+        src = f"{PKG}/csrc/ln_mlp.cu"
+        return [
+            {"name": "ln_mlp_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/mlp.py:247", "launches": cnx_l["mlp_fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None},
+            {"name": "ln_mlp_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/mlp.py:255", "launches": cnx_l["mlp_bwd"],
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None}]
+
+    def convnext_variants(self, entry, cfg, model_tree):
+        """``{label: (cfg, model)}`` over one set of parameters: both kernel
+        fields on, each alone, both off."""
+        off = dataclasses.replace(cfg, **{f: False for f in CONVNEXT_KERNELS})
+        out = {}
+        for label, fields in CONVNEXT_VARIANTS:
+            vcfg = dataclasses.replace(off, **fields)
+            out[label] = (vcfg, entry.from_tree(model_tree, vcfg))
+        return out
+
+    def make_pgd(self, entry, cfg, normalize):
+        return self.whitebox.make_pgd(entry.apply, cfg, eps=EPS, alpha=ALPHA, steps=PGD_STEPS,
+                                      normalize=normalize)
+
+    def time_convnext_pgd(self, entry, cfg, model_tree, normalize, x, y) -> None:
+        """PGD-10 images/s with both kernel fields on, each alone, both off: two
+        turns over the variants, the best of each."""
+        import torch
+
+        variants = self.convnext_variants(entry, cfg, model_tree)
+        best = {}
+        for _ in range(2):
+            for label, (vcfg, model) in variants.items():
+                pgd = self.make_pgd(entry, vcfg, normalize)
+                ms = cuda_ms(lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2)), 2)
+                best[label] = min(best.get(label, ms), ms)
+        for label, ms in best.items():
+            print(f"phase 6 PGD-{PGD_STEPS} convnext+LoRA bf16 B={BATCH}, {label}: {ms:.2f} "
+                  f"ms/batch, {BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
+
+    # --profile
+    def profile(self, name: str) -> None:
+        """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
+        time by kernel group, busy time against the wall."""
+        import numpy as np
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if name == "convnext":
+            entry, cfg, _, _, normalize, model_tree = self.model(name, kernel_fields=CONVNEXT_KERNELS)
+            runs = {label: v for label, v in self.convnext_variants(entry, cfg, model_tree).items()
+                    if label in ("both kernels", "library")}
+        else:
+            module, attn, plain = {
+                "google_vit": (self.vit, "attention_packed", self.ka.attention_packed_reference),
+                "swin": (self.swin, "window_attention", self.kw.window_attention_reference)}[name]
+            entry, cfg, model, _, normalize, _ = self.model(name, module, attn, plain)
+            runs = {"kernel path": (cfg, model)}
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
+                                          dtype=np.uint8)).to(self.dev)
+        y = torch.from_numpy(rng.integers(0, CLASSES, BATCH)).to(self.dev)
+        groups = (("dwconv7 (this repo)", r"dwconv7_kernel"), ("ln_mlp fwd (this repo)", r"ln_mlp_fwd"),
+                  ("ln_mlp bwd (this repo)", r"ln_mlp_bwd"),
+                  ("attention fwd (this repo)", r"win_fwd|attn_fwd"),
+                  ("attention bwd (this repo)", r"win_bwd|attn_bwd"),
+                  ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
+                  ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
+                  ("LayerNorm", r"layer_norm|LayerNorm"), ("GELU", r"[Gg]elu"),
+                  ("copies, casts, cat", r"copy|Copy|cat|Cat|direct_copy|convert"),
+                  ("index_select / index_add", r"index"),
+                  ("other elementwise, fills, reductions", r".*"))
+        for label, (vcfg, model) in runs.items():
+            pgd = self.make_pgd(entry, vcfg, normalize)
+            call = lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
+            wall_ms = cuda_ms(call, 2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            totals = {g: [0.0, 0] for g, _ in groups}
+            spans = []
+            for ev in prof.events():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                dur = ev.time_range.end - ev.time_range.start  # microseconds
+                group = next(g for g, pat in groups if re.search(pat, ev.name))
+                totals[group][0] += dur / 1e3
+                totals[group][1] += 1
+                spans.append((ev.time_range.start, ev.time_range.end))
+            check(spans, "the profiler recorded no device activity")
+            spans.sort()
+            busy, (lo, hi) = 0.0, spans[0]
+            for a, b in spans[1:]:
+                if a > hi:
+                    busy, lo, hi = busy + (hi - lo), a, b
+                else:
+                    hi = max(hi, b)
+            busy = (busy + hi - lo) / 1e3
+            total = sum(v[0] for v in totals.values())
+            print(f"profile {name} ({label}) PGD-{PGD_STEPS} B={BATCH} bf16 {self.card}: "
+                  f"unprofiled {wall_ms:.2f} ms/batch; one traced call: device busy "
+                  f"{busy:.2f} ms (union of {len(spans)} kernel intervals), kernel time "
+                  f"{total:.2f} ms, idle share of the unprofiled wall "
+                  f"{max(0.0, 1 - busy / wall_ms):.1%}")
+            for group, (ms, calls) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
+                if calls:
+                    print(f"profile {name} ({label}):   {group:40s} {ms:9.2f} ms "
+                          f"{ms / total:6.1%}  {calls} calls", flush=True)
+
+
+def main(argv=None) -> None:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext"), default=None,
+                    help="trace one warm PGD-10 call of this backbone instead of the smoke run")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     s = Smoke(torch.device("cuda", 0))
     s.device()
     s.build()
+    if args.profile:
+        s.profile(args.profile)
+        return
     err_p = s.packed_vs_plain()
     err_w = s.window_vs_plain()
+    err_d = s.dwconv_vs_plain()
+    err_m = s.mlp_vs_plain()
 
-    ka, kw = s.ka, s.kw
-    vit_entry, vit_cfg, vit_model, _, vit_norm = s.model(
+    ka, kw, kd, km = s.ka, s.kw, s.kd, s.km
+    vit_entry, vit_cfg, vit_model, _, vit_norm, _ = s.model(
         "google_vit", s.vit, "attention_packed", ka.attention_packed_reference)
     vit_l, vit_pgd, vit_x, vit_y, _, _ = s.attack(
         "google_vit", vit_entry, vit_cfg, vit_model, vit_norm,
         {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
-        {"fwd": vit_cfg.depth * (PGD_STEPS + 1), "bwd": vit_cfg.depth * PGD_STEPS})
+        {"fwd": vit_cfg.depth * (PGD_STEPS + 1), "bwd": vit_cfg.depth * (PGD_STEPS + 1)})
 
-    swin_entry, swin_cfg, swin_model, swin_tree, swin_norm = s.model(
+    swin_entry, swin_cfg, swin_model, swin_tree, swin_norm, _ = s.model(
         "swin", s.swin, "window_attention", kw.window_attention_reference)
     blocks = sum(swin_cfg.depths)
+    win_counters = {"fwd": (kw, "FWD_LAUNCHES"), "bwd": (kw, "BWD_LAUNCHES"),
+                    "dbias": (kw, "DBIAS_CALLS")}
     swin_l, swin_pgd, swin_x, swin_y, adv_f, adv_p = s.attack(
-        "swin", swin_entry, swin_cfg, swin_model, swin_norm,
-        {"fwd": (kw, "FWD_LAUNCHES"), "bwd": (kw, "BWD_LAUNCHES"),
-         "dbias": (kw, "DBIAS_CALLS")},
-        {"fwd": blocks * (PGD_STEPS + 1), "bwd": blocks * PGD_STEPS})
-    check(swin_l["dbias"] == 0, f"the attack path computed a bias gradient {swin_l}")
-    compose_s = s.compose(swin_entry, swin_cfg, swin_tree, swin_x, swin_y, adv_f, adv_p)
+        "swin", swin_entry, swin_cfg, swin_model, swin_norm, win_counters,
+        {"fwd": blocks * (PGD_STEPS + 1), "bwd": blocks * (PGD_STEPS + 1), "dbias": 0})
+    swin_compose_s = s.compose("swin", swin_entry, swin_cfg, swin_tree, swin_x, swin_y, adv_f,
+                               adv_p, win_counters, {"fwd": blocks, "bwd": 0, "dbias": 0})
+    del swin_tree, adv_f, adv_p
+
+    cnx_entry, cnx_cfg, cnx_model, cnx_tree, cnx_norm, cnx_model_tree = s.model(
+        "convnext", kernel_fields=CONVNEXT_KERNELS)
+    blocks = sum(cnx_cfg.depths)
+    cnx_counters = {"dw_fwd": (kd, "FWD_LAUNCHES"), "dw_dx": (kd, "DX_LAUNCHES"),
+                    "dw_dw": (kd, "DW_CALLS"), "mlp_fwd": (km, "FWD_LAUNCHES"),
+                    "mlp_bwd": (km, "BWD_LAUNCHES"), "mlp_param_grads": (km, "PARAM_GRAD_CALLS")}
+    per_step = blocks * (PGD_STEPS + 1)
+    cnx_l, _, cnx_x, cnx_y, adv_f, adv_p = s.attack(
+        "convnext", cnx_entry, cnx_cfg, cnx_model, cnx_norm, cnx_counters,
+        {"dw_fwd": per_step, "dw_dx": per_step, "dw_dw": 0, "mlp_fwd": per_step,
+         "mlp_bwd": per_step, "mlp_param_grads": 0})
+    cnx_compose_s = s.compose(
+        "convnext", cnx_entry, cnx_cfg, cnx_tree, cnx_x, cnx_y, adv_f, adv_p, cnx_counters,
+        {"dw_fwd": blocks, "dw_dx": 0, "dw_dw": 0, "mlp_fwd": blocks, "mlp_bwd": 0,
+         "mlp_param_grads": 0})
+    del cnx_tree, cnx_model, adv_f, adv_p
 
     # 6. timing on the card
     for name, pgd, model, x, y in (("google_vit", vit_pgd, vit_model, vit_x, vit_y),
                                    ("swin", swin_pgd, swin_model, swin_x, swin_y)):
-        pgd_ms = cuda_ms(lambda: pgd(model, x, y, torch.Generator(s.dev).manual_seed(2)), 5)
+        pgd_ms = cuda_ms(lambda: pgd(model, x, y, torch.Generator(s.dev).manual_seed(2)), 3)
         print(f"phase 6 PGD-{PGD_STEPS} {name}+LoRA bf16 B={BATCH}: {pgd_ms:.2f} ms/batch, "
               f"{BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
-    b, n, h, hd = MAIN
-    q, k, v, do = (torch.randn(b, n, h * hd, device=s.dev, generator=s.gen).to(torch.bfloat16)
-                   for _ in range(4))
-    kf, pf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                   lambda: ka.attention_packed_reference(q, k, v, h))
-    kb, pb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h),
-                   lambda: ka.attention_packed_bwd_reference(q, k, v, do, h))
-    print(f"phase 6 attention_packed {MAIN} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} ms "
-          f"fwd+bwd {kf + kb:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms "
-          f"fwd+bwd {pf + pb:.4f} ms {s.card}", flush=True)
-    win_ms = {}
-    for label, shape in WIN_TIMED.items():
-        for mask_kind in WIN_MASKS:
-            qkv, bias, mask, wdo, wh = s.window_operands(shape, mask_kind, torch.bfloat16)
-            wkf, wpf = turns(lambda: kw.fused_window_attention_fwd(qkv, bias, mask, wh),
-                             lambda: kw.window_attention_reference(qkv, bias, mask, wh))
-            wkb, wpb = turns(lambda: kw.fused_window_attention_bwd(qkv, bias, mask, wdo, wh),
-                             lambda: kw.window_attention_bwd_reference(qkv, bias, mask, wdo, wh))
-            win_ms[label, mask_kind] = (wkf, wpf, wkb, wpb)
-            print(f"phase 6 window_attention {label} {tuple(qkv.shape)} h{wh} {mask_kind} mask "
-                  f"bf16: kernel fwd {wkf:.4f} ms bwd {wkb:.4f} ms; plain fwd {wpf:.4f} ms "
-                  f"bwd {wpb:.4f} ms {s.card}", flush=True)
-    print(f"phase 6 eval-compose swin 4x3 matrix (B={BATCH} per dataset): wall "
-          f"{compose_s:.3f} s {s.card}", flush=True)
+    s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
+    kernels = (s.time_attention(vit_l) + s.time_window(swin_l) + s.time_dwconv(cnx_l)
+               + s.time_mlp(cnx_l))
+    for name, wall in (("swin", swin_compose_s), ("convnext", cnx_compose_s)):
+        print(f"phase 6 eval-compose {name} 4x3 matrix (B={BATCH} per dataset): wall "
+              f"{wall:.3f} s {s.card}", flush=True)
 
-    src = f"{PKG}/csrc/attention_packed.cu"
-    wsrc = f"{PKG}/csrc/window_attention.cu"
-    wkf, wpf, wkb, wpb = win_ms["stage 3", "shift"]
-    print(json.dumps({"kernels": [
-        {"name": "attention_packed_fwd", "route": "cuda", "source": src,
-         "replaces": f"{JAX_SRC}/attention.py:230", "launches": vit_l["fwd"],
-         "max_abs_err": err_p["fwd"], "ms": kf, "plain_ms": pf},
-        {"name": "attention_packed_bwd", "route": "cuda", "source": src,
-         "replaces": f"{JAX_SRC}/attention.py:238", "launches": vit_l["bwd"],
-         "max_abs_err": err_p["bwd"], "ms": kb, "plain_ms": pb},
-        {"name": "window_attention_fwd", "route": "cuda", "source": wsrc,
-         "replaces": f"{JAX_SRC}/window_attention.py:140", "launches": swin_l["fwd"],
-         "max_abs_err": err_w["fwd"], "ms": wkf, "plain_ms": wpf},
-        {"name": "window_attention_bwd", "route": "cuda", "source": wsrc,
-         "replaces": f"{JAX_SRC}/window_attention.py:159", "launches": swin_l["bwd"],
-         "max_abs_err": err_w["bwd"], "ms": wkb, "plain_ms": wpb},
-    ]}))
+    errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
+            "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],
+            "dwconv7_fwd": err_d["fwd"], "dwconv7_dx": err_d["dx"],
+            "ln_mlp_fwd": err_m["fwd"], "ln_mlp_bwd": err_m["bwd"]}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    rows = [{**k, "max_abs_err": errs[k["name"]]} for k in kernels]
+    print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

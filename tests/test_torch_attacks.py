@@ -1,7 +1,8 @@
 """The port's attack pieces and FGSM/PGD against the JAX package.
 
-Same params (JAX ``vit.init`` at VIT_TEST size) and the same numpy images
-feed both. A pixel's step is the sign of its gradient; where the gradient
+Same params (JAX ``vit.init`` at VIT_TEST size; for the ConvNeXt cases JAX
+``convnext.init`` at CONVNEXT_TEST size with the layer scale redrawn in
+0.1-1) and the same numpy images feed both. A pixel's step is the sign of its gradient; where the gradient
 is within rounding of zero the two frameworks may pick different signs, so
 the attacks must agree on >= 99% of pixels within 1e-6, and every pixel must
 stay in the eps-ball.
@@ -15,9 +16,11 @@ import torch
 
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import common as tcommon
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import whitebox as twb
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import convnext as tcnx
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import vit as tvit
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.attacks import common as jcommon
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.attacks import whitebox as jwb
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import convnext as jcnx
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import vit as jvit
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import trees as jtrees
 
@@ -118,3 +121,62 @@ def test_pgd_random_start_stays_in_ball_and_raises_loss(models, batch):
         ce = lambda im: float(tcommon.sum_cross_entropy(
             tvit.apply(tvit.VIT_TEST, model, tcommon.IMAGENET(im)), y))
     assert ce(a) > ce(clean)
+
+
+@pytest.fixture(scope="module")
+def convnext_models():
+    jp = jcnx.init(jax.random.key(0), jcnx.CONVNEXT_TEST)
+    flat = {p: np.array(v) for p, v in jtrees.flatten_with_paths(jp).items()}
+    rng = np.random.default_rng(0)
+    for p, v in flat.items():
+        if p.endswith("gamma"):
+            flat[p] = rng.uniform(0.1, 1.0, v.shape).astype(np.float32)
+    jp = jtrees.unflatten_from_paths({p: jnp.asarray(v) for p, v in flat.items()})
+    return jp, tcnx.params_from_jax(flat, tcnx.CONVNEXT_TEST)
+
+
+@pytest.mark.parametrize("attack", ["fgsm", "pgd"])
+def test_convnext_attacks_match_jax(convnext_models, batch, attack):
+    jp, model = convnext_models
+    u8, labels = batch
+    if attack == "fgsm":
+        want = jwb.make_fgsm(jcnx.apply, jcnx.CONVNEXT_TEST, eps=EPS)(
+            jp, jnp.asarray(u8), jnp.asarray(labels))
+        got = twb.make_fgsm(tcnx.apply, tcnx.CONVNEXT_TEST, eps=EPS)(
+            model, torch.from_numpy(u8), torch.from_numpy(labels))
+    else:
+        kw = dict(eps=EPS, alpha=ALPHA, steps=3, random_start=False)
+        want = jwb.make_pgd(jcnx.apply, jcnx.CONVNEXT_TEST, **kw)(
+            jp, jnp.asarray(u8), jnp.asarray(labels), jax.random.key(0))
+        got = twb.make_pgd(tcnx.apply, tcnx.CONVNEXT_TEST, **kw)(
+            model, torch.from_numpy(u8), torch.from_numpy(labels))
+    assert got.dtype == torch.float32 and got.shape == u8.shape
+    _agree(got.numpy(), want)
+    clean = u8.astype(np.float32) / 255.0
+    assert np.abs(got.numpy() - clean).max() <= EPS + 1e-6
+    assert float(got.min()) >= 0 and float(got.max()) <= 1
+
+
+def test_convnext_pgd_with_kernel_fields_takes_no_parameter_gradient(convnext_models, batch):
+    """bf16 with both kernel fields on (their plain versions on the CPU): PGD
+    stays in the ball, raises the loss, and asks for the input gradient only."""
+    import dataclasses
+
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import dwconv as tdw
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import mlp as tmlp
+
+    cfg = dataclasses.replace(tcnx.CONVNEXT_TEST, compute_dtype="bfloat16", use_dw_kernel=True,
+                              fuse_ln_mlp=True)
+    model = tcnx.params_from_jax(tcnx.params_to_jax(convnext_models[1]), cfg)
+    u8, labels = batch
+    x, y = torch.from_numpy(u8), torch.from_numpy(labels).long()
+    before = (tdw.DW_CALLS, tmlp.PARAM_GRAD_CALLS)
+    adv = twb.make_pgd(tcnx.apply, cfg, eps=EPS, alpha=ALPHA, steps=3)(
+        model, x, y, torch.Generator().manual_seed(3))
+    assert (tdw.DW_CALLS, tmlp.PARAM_GRAD_CALLS) == before
+    clean = tcommon.to_unit_floats(x)
+    assert float((adv - clean).abs().max()) <= EPS + 1e-6
+    with torch.no_grad():
+        ce = lambda im: float(tcommon.sum_cross_entropy(
+            tcnx.apply(cfg, model, tcommon.IMAGENET(im)), y))
+    assert ce(adv) > ce(clean)

@@ -2,7 +2,7 @@
 JAX CLI.
 
 Both CLIs attack the same checkpoint, written by the JAX package, on the
-CPU (``vit_test`` and ``swin_test``). The JAX loader is pinned to its PIL
+CPU (``vit_test``, ``swin_test`` and ``convnext_test``). The JAX loader is pinned to its PIL
 decode backend (``APVT_NATIVE=0``) so both sides see the same pixels; FGSM
 PNGs must then agree on >= 99% of pixels within 1 LSB (a near-zero gradient
 may take the other sign). ``eval-compose`` runs in both CLIs over the same
@@ -11,6 +11,7 @@ F1 and loss within rtol 1e-4.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -25,6 +26,7 @@ from PIL import Image
 
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.cli import main as tmain
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.cli import main as jmain
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import convnext as jcnx
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import swin as jswin
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import vit as jvit
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import lora as jlora
@@ -221,6 +223,78 @@ def test_swin_attack_fgsm_pngs_match_jax_cli(swin_runs):
     assert len(pgd_meta) == 15 and all(os.path.exists(p) for p in pgd_meta["image_path"])
 
 
+def _convnext_init(classes):
+    """JAX ``convnext.init`` with the layer scale redrawn in 0.1-1 (at the
+    1e-6 init the blocks are the identity and the attack sees none of them)."""
+    params = jcnx.init(jax.random.key(5), jcnx.CONVNEXT_TEST.with_classes(classes))
+    rng = np.random.default_rng(5)
+    flat = jtrees.flatten_with_paths(params)
+    for p, v in flat.items():
+        if p.endswith("gamma"):
+            flat[p] = jnp.asarray(rng.uniform(0.1, 1.0, v.shape), jnp.float32)
+    return jtrees.unflatten_from_paths(flat)
+
+
+@pytest.fixture(scope="module")
+def convnext_runs(runs, tmp_path_factory):
+    """``attack --model convnext_test`` through both CLIs on the same data."""
+    root = tmp_path_factory.mktemp("cli_convnext")
+    ck, params = _jax_checkpoint(root, runs["data"], "convnext_test", _convnext_init)
+    common = ["attack", "--data_root", runs["data"], "--model", "convnext_test",
+              "--model_path", ck, "--splits", "test", "--batch_size", "8"]
+    port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
+    assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
+                  "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
+    with _jax_pil_decode():
+        assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
+                      "--attacks", "fgsm"]) == 0
+    return {"root": root, "ck": ck, "params": params, "port": port_out, "jax": jax_out}
+
+
+def test_convnext_attack_fgsm_pngs_match_jax_cli(convnext_runs):
+    split = lambda out: os.path.join(out, "convnext_test", "all", "test", "fgsm")
+    names = sorted(os.listdir(os.path.join(split(convnext_runs["jax"]), "images")))
+    assert len(names) == 15
+    load = lambda out: np.stack([np.asarray(Image.open(os.path.join(split(out), "images", n)))
+                                 for n in names]).astype(int)
+    got, want = load(convnext_runs["port"]), load(convnext_runs["jax"])
+    assert got.shape == want.shape == (15, 32, 32, 3)
+    assert (np.abs(got - want) <= 1).mean() >= 0.99
+    pd.testing.assert_frame_equal(
+        pd.read_csv(os.path.join(split(convnext_runs["port"]), "metadata.csv")).drop(columns="image_path"),
+        pd.read_csv(os.path.join(split(convnext_runs["jax"]), "metadata.csv")).drop(columns="image_path"))
+    pgd_meta = pd.read_csv(os.path.join(convnext_runs["port"], "convnext_test", "all", "test",
+                                        "pgd", "metadata.csv"))
+    assert len(pgd_meta) == 15 and all(os.path.exists(p) for p in pgd_meta["image_path"])
+
+
+def test_fused_block_flag_sets_fuse_ln_mlp(convnext_runs, runs, tmp_path, monkeypatch):
+    """``--fused_block`` is accepted for ConvNeXt and sets ``fuse_ln_mlp`` on
+    the config the model is built with (in f32 on the CPU the field changes
+    no number, so the PNGs equal the run without the flag); for a backbone
+    without the field it is an error, as in the JAX CLI."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import registry as tregistry
+
+    seen = []
+    entry = tregistry.get_model("convnext_test")
+    monkeypatch.setitem(tregistry._REGISTRY, "convnext_test", dataclasses.replace(
+        entry, from_tree=lambda flat, cfg: (seen.append(cfg), entry.from_tree(flat, cfg))[1]))
+    common = ["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "convnext_test",
+              "--model_path", convnext_runs["ck"], "--splits", "test", "--batch_size", "8",
+              "--attacks", "fgsm"]
+    assert tmain([*common, "--output_dir", str(tmp_path / "fused"), "--fused_block"]) == 0
+    assert [c.fuse_ln_mlp for c in seen] == [True] and not seen[0].use_dw_kernel
+    assert tmain([*common, "--output_dir", str(tmp_path / "plain")]) == 0
+    assert [c.fuse_ln_mlp for c in seen] == [True, False]
+    for n in sorted(os.listdir(tmp_path / "plain" / "convnext_test" / "all" / "test" / "fgsm" / "images")):
+        a, b = (np.asarray(Image.open(tmp_path / d / "convnext_test" / "all" / "test" / "fgsm" /
+                                      "images" / n)) for d in ("fused", "plain"))
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(SystemExit, match="fused_block"):
+        tmain(["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "vit_test",
+               "--model_path", runs["ck"], "--splits", "test", "--fused_block"])
+
+
 def _jax_adapters(lora_root, model, params, targets, head_dim, classes, seed):
     """fgsm/pgd rank-4 adapters with heads, written by the JAX peft_io."""
     rng = np.random.default_rng(seed)
@@ -238,14 +312,17 @@ def _jax_adapters(lora_root, model, params, targets, head_dim, classes, seed):
                                              "rank4_best_adapter"), head=head)
 
 
-@pytest.mark.parametrize("model", ["vit_test", "swin_test"])
-def test_eval_compose_matches_jax_cli(model, runs, swin_runs, tmp_path):
+@pytest.mark.parametrize("model", ["vit_test", "swin_test", "convnext_test"])
+def test_eval_compose_matches_jax_cli(model, runs, swin_runs, convnext_runs, tmp_path):
     """Both CLIs' composability matrices over the same checkpoint, the port's
     adversarial PNGs and adapters written by the JAX package: accuracy and
     support equal, F1 and loss within rtol 1e-4."""
     if model == "swin_test":
         ck, params, adv = swin_runs["ck"], swin_runs["params"], swin_runs["port"]
         targets, head_dim = jswin.lora_target_paths(jswin.SWIN_TEST), 64
+    elif model == "convnext_test":
+        ck, params, adv = convnext_runs["ck"], convnext_runs["params"], convnext_runs["port"]
+        targets, head_dim = jcnx.lora_target_paths(jcnx.CONVNEXT_TEST), 32
     else:
         ck, params, adv = runs["ck"], runs["params"], runs["port"]
         targets, head_dim = jvit.LORA_TARGETS_DEFAULT, 64

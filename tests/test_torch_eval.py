@@ -1,6 +1,6 @@
 """The port's eval stage against the JAX package's: variant enumeration,
 confusion-matrix metrics, the eval step and the composability matrix on
-``vit_test`` and ``swin_test`` (f32).
+``vit_test``, ``swin_test`` and ``convnext_test`` (f32).
 
 The matrix runs on the same params, adapters, heads and uint8 batches in
 both packages (a padded last batch included): accuracy and support must be
@@ -74,7 +74,7 @@ def _batches(seed, size, n=6, b=4):
     return out
 
 
-@pytest.mark.parametrize("name", ["vit_test", "swin_test"])
+@pytest.mark.parametrize("name", ["vit_test", "swin_test", "convnext_test"])
 def test_composability_matrix_matches_jax(name):
     jentry = jregistry.get_model(name)
     jcfg = jentry.config(CLASSES)

@@ -1,0 +1,174 @@
+"""The port's LN-fused MLP (``kernels/mlp.py``: plain versions, the CPU route
+of its ``autograd.Function``, the parameter gradients) against the JAX
+package's ``kernels/mlp.py``.
+
+The same numpy inputs (d=32, m=128, 70 tokens: the JAX test's shape) go
+through the port, the JAX XLA reference ``ln_mlp_reference`` and the Pallas
+kernel ``fused_ln_mlp`` in interpret mode. Limits are those of the JAX
+kernel's own tests: f32 forward 2e-5 / 1e-4 and all seven gradients
+1e-4 / 1e-3; bf16 forward 1e-2 and dx 2e-2; the shared f32 LayerNorm
+forward and backward at 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch import kernels as tk
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import mlp as tm
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models.vit import _as_tensor
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu import kernels as jk
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.kernels import mlp as jm
+
+D, M, EPS = 32, 128, 1e-6
+NAMES = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
+
+
+def _args(seed=11):
+    rng = np.random.default_rng(seed)
+    r = lambda shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    return (r((2, 35, D)), 1.0 + 0.1 * r((D,)), 0.1 * r((D,)), r((D, M), 0.1), r((M,), 0.1),
+            r((M, D), 0.1), r((D,), 0.1))
+
+
+def _jax_fn(which):
+    return jm.ln_mlp_reference if which == "ref" else jm.fused_ln_mlp
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("which", ["ref", "pallas"])
+def test_forward_and_all_grads_match_jax_f32(which):
+    args = _args()
+    fn = _jax_fn(which)
+    g = np.random.default_rng(5).standard_normal(args[0].shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda *a: fn(*a, EPS), *map(jnp.asarray, args))
+        want_grads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    before = tm.PARAM_GRAD_CALLS
+    got = tm.ln_mlp(*targs, EPS)
+    grads = torch.autograd.grad(got, targs, torch.from_numpy(g))
+    assert tm.PARAM_GRAD_CALLS == before + 1
+    np.testing.assert_allclose(got.detach().numpy(), _f32(want), atol=2e-5, rtol=1e-4)
+    for name, gt, gw in zip(NAMES, grads, want_grads):
+        assert gt.shape == gw.shape, name
+        np.testing.assert_allclose(gt.numpy(), _f32(gw), atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["ref", "pallas"])
+def test_forward_and_dx_match_jax_bf16(which):
+    args = _args()
+    fn = _jax_fn(which)
+    xj = jnp.asarray(args[0], jnp.bfloat16)
+    rest = tuple(jnp.asarray(a) for a in args[1:])
+    gj = jnp.asarray(np.random.default_rng(6).standard_normal(args[0].shape), jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a: fn(a, *rest, EPS), xj)
+        (want_dx,) = vjp(gj)
+    xt = _as_tensor(np.asarray(xj)).requires_grad_(True)
+    trest = [torch.from_numpy(a) for a in args[1:]]
+    before = tm.PARAM_GRAD_CALLS
+    got = tm.ln_mlp(xt, *trest, EPS)
+    (dx,) = torch.autograd.grad(got, xt, _as_tensor(np.asarray(gj)))
+    assert got.dtype == dx.dtype == torch.bfloat16 and got.shape == xt.shape
+    assert tm.PARAM_GRAD_CALLS == before  # the input gradient alone recomputes no parameter gradient
+    np.testing.assert_allclose(got.detach().float().numpy(), _f32(want), atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(dx.float().numpy(), _f32(want_dx), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plain_version_is_the_forward_plain_versions_gradient(dtype):
+    """``ln_mlp_bwd_reference`` (the backward kernel's plain version) against
+    autograd through ``ln_mlp_reference``, token rows (T, D)."""
+    args = _args(seed=3)
+    x = torch.from_numpy(args[0]).reshape(-1, D).to(dtype).requires_grad_(True)
+    rest = [torch.from_numpy(a) for a in args[1:]]
+    dy = torch.from_numpy(np.random.default_rng(7).standard_normal((70, D)).astype(np.float32))
+    dy = dy.to(dtype)
+    (auto,) = torch.autograd.grad(tm.ln_mlp_reference(x, *rest, EPS), x, dy)
+    got = tm.ln_mlp_bwd_reference(x.detach(), *rest[:5], dy, EPS)
+    tol = dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), auto.float(), **tol)
+
+
+def test_param_grads_are_taken_only_where_asked():
+    args = _args(seed=4)
+    targs = [torch.from_numpy(a) for a in args]
+    targs[3].requires_grad_(True)  # w1 only
+    before = tm.PARAM_GRAD_CALLS
+    (dw1,) = torch.autograd.grad(tm.ln_mlp(*targs, EPS).sum(), targs[3])
+    assert tm.PARAM_GRAD_CALLS == before + 1 and dw1.shape == (D, M)
+    x2, dy = targs[0].reshape(-1, D), torch.ones(70, D)
+    out = tm.ln_mlp_param_grads(x2, *targs[1:], dy, EPS, (False, False, True, False, False, True))
+    assert [o is None for o in out] == [True, True, False, True, True, False]
+    torch.testing.assert_close(out[2], dw1, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[5], torch.full((D,), 70.0))
+
+
+def test_layer_norm_helpers_match_jax():
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((5, 7, D)) * 2 + 0.5).astype(np.float32)
+    scale = (1 + 0.3 * rng.standard_normal(D)).astype(np.float32)
+    bias = (0.3 * rng.standard_normal(D)).astype(np.float32)
+    dh = rng.standard_normal((5, 7, D)).astype(np.float32)
+    want = jk.ln_fwd_f32(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), EPS)
+    got = tk.ln_fwd_f32(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), EPS)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, rtol=1e-6)
+    want_dx = jk.ln_bwd_f32(jnp.asarray(dh), jnp.asarray(scale), want[0], want[1])
+    got_dx = tk.ln_bwd_f32(torch.from_numpy(dh), torch.from_numpy(scale), got[0], got[1])
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), atol=1e-6, rtol=1e-6)
+    # and it is the gradient of the forward
+    xt = torch.from_numpy(x).requires_grad_(True)
+    h = tk.ln_fwd_f32(xt, torch.from_numpy(scale), torch.from_numpy(bias), EPS)[2]
+    (auto,) = torch.autograd.grad(h, xt, torch.from_numpy(dh))
+    torch.testing.assert_close(got_dx, auto, atol=1e-5, rtol=1e-4)
+
+
+def test_gelu_matches_ops_nn():
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.ops import nn as tnn
+
+    pre = torch.linspace(-6, 6, 257, requires_grad=True)
+    torch.testing.assert_close(tm._gelu_f32(pre), tnn.gelu(pre), atol=1e-6, rtol=1e-6)
+    (auto,) = torch.autograd.grad(tnn.gelu(pre).sum(), pre)
+    torch.testing.assert_close(tm._gelu_grad_f32(pre.detach()), auto, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["dtype", "width", "hidden", "rows", "device"])
+def test_kernel_wrapper_refuses_before_any_build(case):
+    """What the CUDA kernels do not take raises in the wrapper (no nvcc here)."""
+    d, m = (100, 512) if case == "width" else (128, 200 if case == "hidden" else 512)
+    x = torch.zeros(4, d, dtype=torch.float32 if case == "dtype" else torch.bfloat16)
+    rows = [torch.zeros(d), torch.zeros(d), torch.zeros(d, m), torch.zeros(m), torch.zeros(m, d),
+            torch.zeros(d + (1 if case == "rows" else 0))]
+    err = TypeError if case == "dtype" else ValueError
+    with pytest.raises(err):
+        tm.fused_ln_mlp_fwd(x, *rows, EPS)
+    assert 1024 in tm.KERNEL_DIMS and 768 in tm.KERNEL_DIMS
+
+
+def test_diagnose_script_edits_find_their_places():
+    """``tools/ln_mlp_diagnose`` times edited copies of ``csrc/ln_mlp.cu``; each
+    edit must still find its place in the source (it raises otherwise)."""
+    import os
+
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import ln_mlp_diagnose
+
+    with open(os.path.join(_build.CSRC, "ln_mlp.cu")) as f:
+        text = f.read()
+    out = ln_mlp_diagnose.variants(text)
+    assert list(out) == ["kernel", "no gelu", "no weight loads", "no mma", "no ldmatrix",
+                         "no barriers"]
+    assert out["kernel"] == text and len({*out.values()}) == 6
+    assert "erff(pre" not in out["no gelu"] and '"mma.sync' not in out["no mma"]
+    assert '"ldmatrix.sync' not in out["no ldmatrix"] and "__syncthreads();" not in out["no barriers"]
+    with pytest.raises(RuntimeError, match="found nothing"):
+        ln_mlp_diagnose.variants(text.replace("erff(pre", "erf_(pre"))

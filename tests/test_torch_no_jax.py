@@ -12,9 +12,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
 JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
-# the Swin / eval-compose slice; the walk below must import each of them
+# the Swin / eval-compose and ConvNeXt slices; the walk below must import each of them
 NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.metrics",
-               "train.steps", "train.loop", "eval.compose")
+               "train.steps", "train.loop", "eval.compose",
+               "kernels.dwconv", "kernels.mlp", "models.convnext")
 
 
 def _sources():
@@ -39,7 +40,7 @@ def test_importing_every_module_loads_no_jax():
         "assert not bad, bad\n"
         "short = {n.split('.', 1)[1] for n in names}\n"
         f"assert set({NEW_MODULES!r}) <= short, short\n"
-        "assert len(names) >= 33, names\n"
+        "assert len(names) >= 36, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
