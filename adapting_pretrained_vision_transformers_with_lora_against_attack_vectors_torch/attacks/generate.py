@@ -30,10 +30,11 @@ def generate_adversarial_split(
     *,
     out_dir: str,
     clean_metadata: pd.DataFrame,
+    device: torch.device | str,
     seed: int = 0,
-    device: torch.device | str = "cpu",
 ) -> pd.DataFrame:
-    """Run ``attack_fn(params, images, labels, generator) -> adv`` over a split.
+    """Run ``attack_fn(params, images, labels, generator) -> adv`` over a split
+    on ``device`` (where ``params`` live; the caller must name it).
 
     Batch ``k`` draws its random start from a generator seeded with
     ``seed * 100003 + k``. Writes ``{out_dir}/images/*.png`` and

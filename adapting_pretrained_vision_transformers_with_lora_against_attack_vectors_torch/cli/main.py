@@ -1,26 +1,35 @@
 """CLI: argparse subcommands over the library modules.
 
-Counterpart of the JAX package's ``cli/main.py`` for the stages ported so
-far (``synth-data``, ``attack``, ``eval-compose``), with its flags, defaults
-and paths:
+Counterpart of the JAX package's ``cli/main.py`` for the five pipeline
+stages (``synth-data``, ``train``, ``attack``, ``train-lora``,
+``eval-compose``), with its flags, defaults and paths:
 
 * base checkpoints: ``{out}/{model}/{source}/{model}_best_model_finetuned.safetensors``
-  + ``class_mappings.txt`` (as the JAX ``train`` stage writes them)
+  + ``class_mappings.txt`` (``train`` writes them, as the JAX stage does;
+  either package reads the other's)
 * adversarial data: ``{adv_root}/{model}/{source}/{split}/{attack}/images``
   + ``metadata.csv``
 * adapters: ``{lora_root}/{model}/{source}/{attack}/rank{r}_best_adapter``
   (PEFT format); the composability matrix: ``{output_dir}/test_results.json``
 
-The attention kernels have no switch: a ViT or Swin on a CUDA device always
-runs its CUDA attention kernel, on the CPU the plain version. ConvNeXt's two
-kernels are opt-in config fields, as in the JAX package: ``--fused_block``
-sets ``fuse_ln_mlp`` (the LayerNorm-fused MLP kernel); ``use_dw_kernel`` (the
-depthwise 7x7 kernel) has no flag in either CLI and is set on the config.
+The stages run on the card: without CUDA the CLI stops with an error unless
+``--device cpu`` is given.
+
+The packed and window attention kernels have no switch: a ViT or Swin on a
+CUDA device always runs its CUDA attention kernel, on the CPU the plain
+version. The other kernels are opt-in config fields, as in the JAX package:
+``--fused_block`` sets ``fuse_attn_block`` where the backbone has it (the ViT
+family: the fused attention half-block, which implies the LN-fused MLP) and
+else ``fuse_ln_mlp`` (ConvNeXt: the LayerNorm-fused MLP kernel);
+``--fused_mlp`` sets ``use_fused_mlp`` (the fused MLP behind a library
+LayerNorm); ``use_dw_kernel`` (the depthwise 7x7 kernel) has no flag in
+either CLI and is set on the config.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -40,9 +49,11 @@ def _eval_resize(image_size: int) -> int:
 def _device(args):
     import torch
 
-    if args.device == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(args.device)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device found. The stages run on the "
+                         f"card; pass --device cpu (before the subcommand) to run on the CPU")
+    return device
 
 
 def _build_vocab(args, splits=("train", "val", "test")):
@@ -60,15 +71,23 @@ def _build_vocab(args, splits=("train", "val", "test")):
 
 
 def _apply_kernel_flags(args, cfg):
-    """``--fused_block``: the backbone's fused-block field (ConvNeXt:
-    ``fuse_ln_mlp``); an error for a backbone that has none, as in JAX."""
+    """``--fused_mlp``: ``use_fused_mlp``. ``--fused_block``: the backbone's
+    fused-block field, ``fuse_attn_block`` where it has one (the ViT family),
+    else ``fuse_ln_mlp`` (ConvNeXt). An error for a backbone without the
+    field, as in JAX."""
     import dataclasses
 
-    if not getattr(args, "fused_block", False):
-        return cfg
-    if not hasattr(cfg, "fuse_ln_mlp"):
-        raise SystemExit(f"--fused_block unsupported for {args.model}")
-    return dataclasses.replace(cfg, fuse_ln_mlp=True)
+    def enable(cfg, cli_name, field):
+        if field is None or not hasattr(cfg, field):
+            raise SystemExit(f"{cli_name} unsupported for {args.model}")
+        return dataclasses.replace(cfg, **{field: True})
+
+    if getattr(args, "fused_mlp", False):
+        cfg = enable(cfg, "--fused_mlp", "use_fused_mlp")
+    if getattr(args, "fused_block", False):
+        cfg = enable(cfg, "--fused_block", next(
+            (f for f in ("fuse_attn_block", "fuse_ln_mlp") if hasattr(cfg, f)), None))
+    return cfg
 
 
 def _load_checkpoint(args, device, *, auto_dtype: str):
@@ -96,20 +115,24 @@ def _load_checkpoint(args, device, *, auto_dtype: str):
     return entry, cfg, tree, vocab
 
 
-def _eval_loader(meta, vocab, *, root_dir, sources=None, batch_size, image_size):
+def _eval_loader(meta, vocab, *, root_dir, sources=None, batch_size, image_size, resize=None,
+                 shuffle=False, seed=0):
     from ..data.loader import Loader, MetadataIndex
 
     return Loader(MetadataIndex(meta, vocab, root_dir=root_dir, sources=sources),
                   batch_size=batch_size, image_size=image_size,
-                  resize=_eval_resize(image_size))
+                  resize=resize if resize is not None else _eval_resize(image_size),
+                  shuffle=shuffle, seed=seed)
 
 
-def _loaders_for(args, vocab, splits, *, batch_size, image_size):
+def _loaders_for(args, vocab, splits, *, batch_size, image_size, resize=None,
+                 shuffle_train=False):
     out = {}
     for split in splits:
         meta = os.path.join(args.data_root, split, "metadata.csv")
         out[split] = (_eval_loader(meta, vocab, root_dir=args.data_root, sources=args.sources,
-                                   batch_size=batch_size, image_size=image_size)
+                                   batch_size=batch_size, image_size=image_size, resize=resize,
+                                   shuffle=split == "train" and shuffle_train, seed=args.seed)
                       if os.path.exists(meta) else None)
     return out
 
@@ -123,6 +146,45 @@ def cmd_synth_data(args):
         args.output_dir, n_per_class=args.n_per_class,
         image_size=args.image_size, style=args.style)
     print(f"synthetic dataset written to {args.output_dir}")
+
+
+def cmd_train(args):
+    import torch
+
+    from ..models.registry import get_model
+    from ..ops.nn import dense_init
+    from ..train import loop
+    from ..utils import checkpoint as ckpt
+    from ..utils import trees
+
+    device = _device(args)
+    vocab = _build_vocab(args)
+    entry = get_model(args.model)
+    cfg = entry.config(len(vocab))
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.checkpoint is None:
+        params = entry.init(cfg, gen)
+    else:
+        if not args.checkpoint.endswith(".safetensors"):
+            raise SystemExit("--checkpoint takes a .safetensors written by this package or the "
+                             "JAX package")
+        params, _ = ckpt.load_pytree(args.checkpoint)
+        params = trees.map_leaves(lambda t: t.float() if t.is_floating_point() else t, params)
+        last = params["head"]["w"].shape[0]
+        if params["head"]["w"].shape[1] != len(vocab):  # a new classifier for these classes
+            params = {**params, "head": dense_init(gen, last, len(vocab))}
+    loaders = _loaders_for(args, vocab, ("train", "val", "test"), batch_size=args.batch_size,
+                           image_size=cfg.image_size, resize=args.resize, shuffle_train=True)
+    source = "_".join(args.sources) if args.sources else "all"
+    out_dir = os.path.join(args.output_dir, args.model, source)
+    summary = loop.train_base_model(
+        entry, params, loaders["train"], loaders["val"], loaders["test"], vocab,
+        out_dir=out_dir, epochs=args.epochs, lr=args.learning_rate,
+        weight_decay=args.weight_decay, model_name=args.model, source=source,
+        resume=args.resume, resume_save_s=args.resume_save_s, seed=args.seed, cfg=cfg,
+        device=device)
+    print(json.dumps({k: v for k, v in summary.items() if k != "history"}, indent=2,
+                     default=str))
 
 
 def cmd_attack(args):
@@ -166,6 +228,73 @@ def cmd_attack(args):
                 fn, model, loader, out_dir=out_dir, clean_metadata=clean_meta,
                 seed=args.seed, device=device)
             print(f"{name} {split}: {len(meta)} adversarial images -> {out_dir}")
+
+
+def cmd_train_lora(args):
+    from ..ops import lora
+    from ..train import loop
+
+    device = _device(args)
+    # "auto": f32 params for the optimizer; the compute dtype stays the model config's
+    entry, cfg, tree, vocab = _load_checkpoint(args, device, auto_dtype="f32")
+    source = "_".join(args.sources) if args.sources else "all"
+    loader_args = dict(batch_size=args.batch_size, image_size=cfg.image_size)
+
+    all_results, failed = {}, []
+    for attack in args.attacks:
+        adv_dir = os.path.join(args.adv_root, args.model, source, "train", attack)
+        meta = os.path.join(adv_dir, "metadata.csv")
+        if not os.path.exists(meta):
+            print(f"skip {attack}: {meta} missing")
+            continue
+        train_loader = _eval_loader(meta, vocab, root_dir=adv_dir, shuffle=True, seed=args.seed,
+                                    **loader_args)
+        val_dir = os.path.join(args.adv_root, args.model, source, "val", attack)
+        val_meta = os.path.join(val_dir, "metadata.csv")
+        if os.path.exists(val_meta):
+            val_loader = _eval_loader(val_meta, vocab, root_dir=val_dir, **loader_args)
+        else:
+            print(f"{attack}: no val split: best adapter = final epoch")
+            val_loader = None
+
+        for rank in args.ranks:
+            # one broken (attack, rank) pair must not end the sweep, but the
+            # stage must not report success either: the exit code is 1
+            try:
+                lcfg = lora.LoRAConfig(rank=rank, alpha=args.lora_alpha,
+                                       targets=entry.lora_targets(cfg),
+                                       dropout=args.lora_dropout,
+                                       dropout_mode=args.lora_dropout_mode)
+                out_dir = os.path.join(args.output_dir, args.model, source, attack)
+                res = loop.train_lora_adapter(
+                    entry, tree, lcfg, train_loader, val_loader, vocab, out_dir=out_dir,
+                    epochs=args.epochs, lr=args.learning_rate, model_name=args.model, cfg=cfg,
+                    seed=args.seed, device=device)
+            except Exception as e:  # noqa: BLE001
+                import traceback
+
+                traceback.print_exc()
+                all_results.setdefault(attack, {})[f"rank{rank}"] = {"error": str(e)}
+                failed.append(f"{attack} rank{rank}")
+                continue
+            res.pop("best_trainable", None)
+            all_results.setdefault(attack, {})[f"rank{rank}"] = {
+                k: v for k, v in res.items() if k != "history"}
+            bva = res["best_val_accuracy"]
+            print(f"{attack} rank{rank}: best val acc "
+                  + (f"{bva:.4f}" if bva is not None else "n/a (no val split)"))
+        results_path = os.path.join(args.output_dir, args.model, source, attack, "results.json")
+        os.makedirs(os.path.dirname(results_path), exist_ok=True)
+        with open(results_path, "w") as f:
+            json.dump(all_results[attack], f, indent=2, default=str)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "global_results.json"), "w") as f:
+        json.dump(all_results, f, indent=2, default=str)
+    if failed:
+        print(f"train-lora: failed for {', '.join(failed)}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def cmd_eval_compose(args):
@@ -221,19 +350,25 @@ def _model_args(sp, auto_help: str) -> None:
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--param_dtype", default="auto", choices=("auto", "f32", "bf16"),
                     help=f"model parameter dtype. {auto_help}")
+    sp.add_argument("--fused_mlp", action="store_true",
+                    help="ViT family and Swin: each block's MLP through the hand-written fused MLP "
+                         "kernel (CUDA + bf16 compute; its plain version on the CPU). Off by "
+                         "default")
     sp.add_argument("--fused_block", action="store_true",
-                    help="ConvNeXt: each block's LayerNorm + pointwise MLP through the "
-                         "hand-written LN-fused MLP kernel (CUDA + bf16 compute; its plain "
-                         "version on the CPU). Off by default")
+                    help="ViT family: each block's attention half (LayerNorm, q/k/v, attention, "
+                         "o-projection) and MLP half (LayerNorm + MLP) through the hand-written "
+                         "fused kernels; ConvNeXt: each block's LayerNorm + pointwise MLP through "
+                         "the LN-fused MLP kernel (CUDA + bf16 compute; the plain versions on "
+                         "the CPU). Off by default")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="apvt-lora-torch",
         description="PyTorch/CUDA LoRA-robustness pipeline for vision transformers")
-    p.add_argument("--device", default="auto",
-                   help="'auto' (CUDA when available, else CPU), 'cuda', "
-                        "'cuda:N' or 'cpu'. Must precede the subcommand.")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default; an error without a CUDA device), 'cuda:N' or "
+                        "'cpu'. Must precede the subcommand.")
     sub = p.add_subparsers(dest="command", required=True)
 
     sp = sub.add_parser("synth-data", help="generate a synthetic dataset")
@@ -245,6 +380,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "(non-robust fine features, for robustness runs)")
     sp.set_defaults(fn=cmd_synth_data)
 
+    sp = sub.add_parser("train", help="base fine-tune")
+    _common_data_args(sp)
+    sp.add_argument("--model", default="google_vit")
+    sp.add_argument("--batch_size", type=int, default=32)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--checkpoint", default=None,
+                    help="weights to start from: a .safetensors written by this package or "
+                         "the JAX package (default: random init from --seed)")
+    sp.add_argument("--output_dir", default="./train_out")
+    sp.add_argument("--epochs", type=int, default=1)
+    sp.add_argument("--learning_rate", type=float, default=1e-4)
+    sp.add_argument("--weight_decay", type=float, default=1e-4)
+    sp.add_argument("--resize", type=int, default=None,
+                    help="pre-crop shorter-side resize (default: scales the "
+                         "reference's 256/224 ratio to the model input size)")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from {out}/resume.* if present")
+    sp.add_argument("--resume_save_s", type=float, default=600.0,
+                    help="write resume state at most this often (seconds; 0 = every epoch)")
+    sp.set_defaults(fn=cmd_train)
+
     sp = sub.add_parser("attack", help="FGSM/PGD adversarial generation")
     _model_args(sp, "auto = bf16 on CUDA, f32 on CPU")
     sp.add_argument("--output_dir", default="./adv")
@@ -255,6 +411,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--alpha", type=float, default=3 / 255)
     sp.add_argument("--steps", type=int, default=30)
     sp.set_defaults(fn=cmd_attack)
+
+    sp = sub.add_parser("train-lora", help="per-attack LoRA defense")
+    _model_args(sp, "auto = f32 on every device (the compute dtype stays the "
+                    "model config's)")
+    sp.add_argument("--adv_root", default="./adv")
+    sp.add_argument("--output_dir", default="./loras")
+    sp.add_argument("--attacks", nargs="+", default=["fgsm", "pgd"])
+    sp.add_argument("--ranks", nargs="+", type=int, default=[8, 16, 32])
+    sp.add_argument("--lora_alpha", type=float, default=16.0)
+    sp.add_argument("--lora_dropout", type=float, default=0.1)
+    sp.add_argument("--lora_dropout_mode", default="input", choices=["input", "post_a"],
+                    help="'input' = PEFT-exact mask placement; 'post_a' = mask the rank-r "
+                         "projection instead (ops/nn.dense)")
+    sp.add_argument("--epochs", type=int, default=4)
+    sp.add_argument("--learning_rate", type=float, default=1e-4)
+    sp.set_defaults(fn=cmd_train_lora)
 
     sp = sub.add_parser("eval-compose", help="LoRA composability matrix")
     _model_args(sp, "auto = f32 on every device (the compute dtype stays the "
@@ -272,8 +444,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    args.fn(args)
-    return 0
+    _device(args)  # every stage: no CUDA device and no --device cpu is an error
+    return args.fn(args) or 0
 
 
 if __name__ == "__main__":

@@ -1,7 +1,11 @@
-// LayerNorm-fused MLP, forward and input gradient, for Hopper (sm_90a).
+// Fused MLP over token rows, with and without the LayerNorm folded in,
+// forward and input gradient, for Hopper (sm_90a).
 //
-// Replaces the TPU kernels kernels/mlp.py:fused_ln_mlp of the JAX package
-// (_ln_fwd_kernel, _ln_bwd_kernel): over token rows x (T, D) in bf16,
+// Replaces the TPU kernels kernels/mlp.py:fused_ln_mlp (_ln_fwd_kernel,
+// _ln_bwd_kernel) and kernels/mlp.py:fused_mlp (_fwd_kernel, _bwd_kernel) of
+// the JAX package. One device code serves both: the template flag LN folds
+// the LayerNorm in; without it h = x and dx = dhid, every other step and
+// rounding point is the same. Over token rows x (T, D) in bf16,
 //   h   = LN(x) * scale + bias            (f32, two-pass mean/var; rounded to bf16)
 //   pre = h W1 + b1                       (f32 accumulation, bias added in f32)
 //   a   = gelu(pre)                       (exact, erff, f32; rounded to bf16)
@@ -57,20 +61,15 @@
 //   mean and rstd recomputed from x, 16-byte stores.
 //
 // Takes bf16, D in {128, 256, 384, 512, 768, 1024}, M a multiple of 128, any
-// T. The body without ln_rows and ln_bwd_rows is the plain fused MLP. C
-// interface (loaded with ctypes): each entry point returns the CUDA error
+// T. C interface (loaded with ctypes): each entry point returns the CUDA error
 // code of its launch (cudaGetLastError), 0 on success, -1 for an unsupported
 // shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace apvt;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -100,77 +99,6 @@ struct Cfg {
   static constexpr size_t SMEM_BWD = (size_t)(2 * ROWS + HID + 2 * SLAB_BWD) * sizeof(bf16);
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col). Not volatile: a pure function of its
-// registers, which the compiler may schedule among the fragment loads.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two f32 -> one bf16x2 word, round to nearest even; `lo` at the lower column.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// Lane addresses into a row-major tile of row stride LD. a_addr: the A
-// operand (16 x 16 at (r0, c0)); with ldsm_t, the B operand of the n-tiles
-// c0 and c0+8 from a [k][n] tile (k-chunk at r0). b_addr: the B operand of
-// the n-tiles n0 and n0+8 from an [n][k] tile (k-chunk at c0).
-template <int LD>
-__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int r0, int c0, int lane) {
-  return tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + (lane >> 4) * 8;
-}
-template <int LD>
-__device__ __forceinline__ const bf16* b_addr(const bf16* tile, int n0, int c0, int lane) {
-  return tile + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 + ((lane >> 3) & 1) * 8;
-}
-
 // ROWS x COLS block of a row-major matrix (leading dimension ld) -> a tile of
 // row stride COLS + 8, 16 bytes per thread and copy, asynchronously.
 template <int ROWS, int COLS>
@@ -191,69 +119,6 @@ __device__ __forceinline__ float gelu_grad(float pre) {
   const float phi = expf(-0.5f * pre * pre) * 0.3989422804014327f;
   const float cdf = 0.5f * (1.f + erff(pre * 0.7071067811865476f));
   return cdf + pre * phi;
-}
-
-// One row's 16-byte vectors are spread over the lanes: vector lane + 32 p.
-template <int D>
-struct RowVecs {
-  static constexpr int V = D / 8;
-  static constexpr int PER = (V + 31) / 32;
-};
-
-// Rows [row0, row0 + RB) of x, normalised in f32, times scale plus bias,
-// rounded to bf16 into Xn (rows >= T: zeros). A warp per row.
-template <int D>
-__device__ void ln_rows(bf16* Xn, const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                        const float* __restrict__ ln_b, int row0, int T, float eps) {
-  using C = Cfg<D>;
-  using R = RowVecs<D>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < C::RB; r += kWarps) {
-    const int row = row0 + r;
-    float v[R::PER][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      const int vec = lane + 32 * p;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (vec < R::V && row < T)
-        raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * D + vec * 8));
-      unpack8(v[p], raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[p][e];
-    }
-    const float mean = warp_sum(sum) * (1.f / D);
-    float sq = 0.f;
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      if (lane + 32 * p < R::V) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[p][e] -= mean;
-          sq += v[p][e] * v[p][e];
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * (1.f / D) + eps);
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      const int vec = lane + 32 * p;
-      if (vec < R::V) {
-        uint4 o = make_uint4(0u, 0u, 0u, 0u);
-        if (row < T) {
-          const float4 s0 = __ldg(reinterpret_cast<const float4*>(ln_s + vec * 8));
-          const float4 s1 = __ldg(reinterpret_cast<const float4*>(ln_s + vec * 8 + 4));
-          const float4 t0 = __ldg(reinterpret_cast<const float4*>(ln_b + vec * 8));
-          const float4 t1 = __ldg(reinterpret_cast<const float4*>(ln_b + vec * 8 + 4));
-          o.x = pack(v[p][0] * rstd * s0.x + t0.x, v[p][1] * rstd * s0.y + t0.y);
-          o.y = pack(v[p][2] * rstd * s0.z + t0.z, v[p][3] * rstd * s0.w + t0.w);
-          o.z = pack(v[p][4] * rstd * s1.x + t1.x, v[p][5] * rstd * s1.y + t1.y);
-          o.w = pack(v[p][6] * rstd * s1.z + t1.z, v[p][7] * rstd * s1.w + t1.w);
-        }
-        *reinterpret_cast<uint4*>(Xn + r * C::LDX + vec * 8) = o;
-      }
-    }
-  }
 }
 
 // Rows [row0, row0 + RB) of a (T, D) bf16 matrix into a row buffer (rows >= T: zeros).
@@ -362,7 +227,7 @@ __device__ __forceinline__ void wait_slab(bool newer_in_flight) {
   __syncthreads();
 }
 
-template <int D>
+template <int D, bool LN>
 __global__ void __launch_bounds__(kThreads)
 ln_mlp_fwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
            const float* __restrict__ ln_b, const bf16* __restrict__ w1,
@@ -391,7 +256,10 @@ ln_mlp_fwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   };
 
   issue(0);
-  ln_rows<D>(Xn, x, ln_s, ln_b, row0, T, eps);
+  if (LN)
+    ln_rows<D, C::RB, C::LDX, kWarps>(Xn, x, ln_s, ln_b, row0, T, eps);
+  else
+    load_rows<D>(Xn, x, row0, T);
 
   float acc[C::MT][C::NT][4];
 #pragma unroll
@@ -450,84 +318,7 @@ ln_mlp_fwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
-// The LayerNorm backward over the f32 tile dh (RB rows, row stride LDX
-// floats): a warp per row, mean and rstd recomputed from x.
-template <int D>
-__device__ void ln_bwd_rows(const float* dh, const bf16* __restrict__ x,
-                            const float* __restrict__ ln_s, bf16* __restrict__ dx, int row0,
-                            int T, float eps) {
-  using C = Cfg<D>;
-  using R = RowVecs<D>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < C::RB; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= T) continue;   // the whole warp takes the same branch
-    float v[R::PER][8], dn[R::PER][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      const int vec = lane + 32 * p;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (vec < R::V) raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * D + vec * 8));
-      unpack8(v[p], raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[p][e];
-    }
-    const float mean = warp_sum(sum) * (1.f / D);
-    float sq = 0.f;
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      if (lane + 32 * p < R::V) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[p][e] -= mean;
-          sq += v[p][e] * v[p][e];
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * (1.f / D) + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      const int vec = lane + 32 * p;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dn[p][e] = 0.f;
-      if (vec < R::V) {
-        const float4 d0 = *reinterpret_cast<const float4*>(dh + r * C::LDX + vec * 8);
-        const float4 d1 = *reinterpret_cast<const float4*>(dh + r * C::LDX + vec * 8 + 4);
-        const float4 c0 = __ldg(reinterpret_cast<const float4*>(ln_s + vec * 8));
-        const float4 c1 = __ldg(reinterpret_cast<const float4*>(ln_s + vec * 8 + 4));
-        const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-        const float sc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[p][e] *= rstd;   // the normalised row
-          dn[p][e] = d[e] * sc[e];
-          s1 += dn[p][e];
-          s2 += dn[p][e] * v[p][e];
-        }
-      }
-    }
-    const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
-#pragma unroll
-    for (int p = 0; p < R::PER; ++p) {
-      const int vec = lane + 32 * p;
-      if (vec < R::V) {
-        float o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = rstd * (dn[p][e] - m1 - v[p][e] * m2);
-        uint4 w;
-        w.x = pack(o[0], o[1]);
-        w.y = pack(o[2], o[3]);
-        w.z = pack(o[4], o[5]);
-        w.w = pack(o[6], o[7]);
-        *reinterpret_cast<uint4*>(dx + (size_t)row * D + vec * 8) = w;
-      }
-    }
-  }
-}
-
-template <int D>
+template <int D, bool LN>
 __global__ void __launch_bounds__(kThreads)
 ln_mlp_bwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
            const float* __restrict__ ln_b, const bf16* __restrict__ w1,
@@ -561,7 +352,10 @@ ln_mlp_bwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   };
 
   issue(0);
-  ln_rows<D>(Xn, x, ln_s, ln_b, row0, T, eps);
+  if (LN)
+    ln_rows<D, C::RB, C::LDX, kWarps>(Xn, x, ln_s, ln_b, row0, T, eps);
+  else
+    load_rows<D>(Xn, x, row0, T);
   load_rows<D>(dYs, dy, row0, T);
 
   float acc[C::MT][C::NT][4];
@@ -612,6 +406,23 @@ ln_mlp_bwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     }
   }
 
+  if (!LN) {   // dx = dhid, rounded once
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      const int col = warp * C::WN + nt * 8 + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < C::MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + mt * 16 + g + 8 * r;
+          if (row < T)
+            *reinterpret_cast<uint32_t*>(dx + (size_t)row * D + col) =
+                pack(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+        }
+      }
+    }
+    return;
+  }
   // dhid as an f32 tile over the two row buffers (the last __syncthreads of
   // the loop ended their use), then the LayerNorm backward
   float* tile = reinterpret_cast<float*>(smem);
@@ -627,18 +438,18 @@ ln_mlp_bwd(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     }
   }
   __syncthreads();
-  ln_bwd_rows<D>(tile, x, ln_s, dx, row0, T, eps);
+  ln_bwd_rows<D, C::RB, C::LDX, kWarps>(tile, x, ln_s, dx, row0, T, eps);
 }
 
-template <int D>
+template <int D, bool LN>
 int launch_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
                const void* w2, const void* b2, void* out, int T, int M, float eps,
                cudaStream_t stream) {
   using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::SMEM_FWD);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_mlp_fwd<D, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_FWD);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_fwd<D><<<(T + C::RB - 1) / C::RB, kThreads, C::SMEM_FWD, stream>>>(
+  ln_mlp_fwd<D, LN><<<(T + C::RB - 1) / C::RB, kThreads, C::SMEM_FWD, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
@@ -646,15 +457,15 @@ int launch_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w1
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool LN>
 int launch_bwd(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
                const void* w2, const void* dy, void* dx, int T, int M, float eps,
                cudaStream_t stream) {
   using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::SMEM_BWD);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_mlp_bwd<D, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BWD);
   if (err != cudaSuccess) return (int)err;
-  ln_mlp_bwd<D><<<(T + C::RB - 1) / C::RB, kThreads, C::SMEM_BWD, stream>>>(
+  ln_mlp_bwd<D, LN><<<(T + C::RB - 1) / C::RB, kThreads, C::SMEM_BWD, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const bf16*>(dy),
@@ -663,6 +474,40 @@ int launch_bwd(const void* x, const void* ln_s, const void* ln_b, const void* w1
 }
 
 bool supported(int T, int M) { return T >= 1 && M >= kHC && M % kHC == 0; }
+
+template <bool LN>
+int dispatch_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                 const void* b1, const void* w2, const void* b2, void* out, int T, int D, int M,
+                 float eps, void* stream) {
+  if (!supported(T, M)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return launch_fwd<128, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    case 256: return launch_fwd<256, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    case 384: return launch_fwd<384, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    case 512: return launch_fwd<512, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    case 768: return launch_fwd<768, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    case 1024: return launch_fwd<1024, LN>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
+    default: return -1;
+  }
+}
+
+template <bool LN>
+int dispatch_bwd(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                 const void* b1, const void* w2, const void* dy, void* dx, int T, int D, int M,
+                 float eps, void* stream) {
+  if (!supported(T, M)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return launch_bwd<128, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    case 256: return launch_bwd<256, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    case 384: return launch_bwd<384, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    case 512: return launch_bwd<512, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    case 768: return launch_bwd<768, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    case 1024: return launch_bwd<1024, LN>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
+    default: return -1;
+  }
+}
 
 }  // namespace
 
@@ -673,34 +518,25 @@ extern "C" {
 int apvt_ln_mlp_fwd(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                     const void* b1, const void* w2, const void* b2, void* out, int T, int D,
                     int M, float eps, void* stream) {
-  if (!supported(T, M)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 128: return launch_fwd<128>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    case 256: return launch_fwd<256>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    case 384: return launch_fwd<384>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    case 512: return launch_fwd<512>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    case 768: return launch_fwd<768>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    case 1024: return launch_fwd<1024>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, M, eps, s);
-    default: return -1;
-  }
+  return dispatch_fwd<true>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, D, M, eps, stream);
 }
 
 // ... and the cotangent dy (T, D) bf16 -> dx (T, D) bf16.
 int apvt_ln_mlp_bwd(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                     const void* b1, const void* w2, const void* dy, void* dx, int T, int D,
                     int M, float eps, void* stream) {
-  if (!supported(T, M)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 128: return launch_bwd<128>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    case 256: return launch_bwd<256>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    case 384: return launch_bwd<384>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    case 512: return launch_bwd<512>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    case 768: return launch_bwd<768>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    case 1024: return launch_bwd<1024>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, M, eps, s);
-    default: return -1;
-  }
+  return dispatch_bwd<true>(x, ln_s, ln_b, w1, b1, w2, dy, dx, T, D, M, eps, stream);
+}
+
+// The same without the LayerNorm: out = gelu(x w1 + b1) w2 + b2, and its dx.
+int apvt_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                 void* out, int T, int D, int M, void* stream) {
+  return dispatch_fwd<false>(x, nullptr, nullptr, w1, b1, w2, b2, out, T, D, M, 0.f, stream);
+}
+
+int apvt_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+                 void* dx, int T, int D, int M, void* stream) {
+  return dispatch_bwd<false>(x, nullptr, nullptr, w1, b1, w2, dy, dx, T, D, M, 0.f, stream);
 }
 
 const char* apvt_ln_mlp_error_string(int code) {

@@ -89,13 +89,20 @@ class Loader:
     PREFETCH = 2  # batches decoded ahead of the consumer
 
     def __init__(self, index: MetadataIndex, *, batch_size: int,
-                 image_size: int = 224, resize: int = 256):
+                 image_size: int = 224, resize: int = 256,
+                 shuffle: bool = False, seed: int = 0):
+        """``shuffle``: a fresh order every pass, a function of ``seed`` and
+        the number of passes made (numpy's generator, as in the JAX class, so
+        both packages see the same orders)."""
         if resize < image_size:
             raise ValueError(f"resize ({resize}) must be >= image_size ({image_size})")
         self.index = index
         self.batch_size = batch_size
         self.image_size = image_size
         self.resize = resize
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
 
     def __len__(self) -> int:
         return (len(self.index) + self.batch_size - 1) // self.batch_size
@@ -110,6 +117,9 @@ class Loader:
 
     def __iter__(self) -> Iterator[Batch]:
         order = np.arange(len(self.index))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
         b = self.batch_size
         n_batches = len(self)
 
@@ -179,15 +189,14 @@ class CachedLoader:
     decoded split fits ``max_bytes``; otherwise it passes batches through.
     The cache is published only after a complete first pass, so an
     interrupted pass leaves no partial cache behind. ``max_bytes`` and the
-    shuffle rule mirror the JAX class; the port's :class:`Loader` does not
-    shuffle yet, so that rule waits for the training loader.
+    shuffle rule mirror the JAX class.
     """
 
     def __init__(self, loader: Loader, *, max_bytes: int = 4 << 30):
         self.loader = loader
         est = len(loader.index) * loader.image_size * loader.image_size * 3
         self._cache: Optional[list[Batch]] = (
-            [] if (not getattr(loader, "shuffle", False) and est <= max_bytes) else None)
+            [] if (not loader.shuffle and est <= max_bytes) else None)
         self._filled = False
 
     def __len__(self) -> int:

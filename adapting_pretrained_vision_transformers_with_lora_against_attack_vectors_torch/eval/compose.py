@@ -123,21 +123,22 @@ def run_composability_eval(
     dataloaders: Mapping[str, object],
     num_classes: int,
     *,
+    device,
     test_mode: str = "all",
     normalize: Optional[Normalizer] = None,
     out_path: Optional[str] = None,
     cfg=None,
-    device=None,
     log: Callable[[str], None] = print,
 ) -> dict:
-    """The full matrix: every variant × every dataset.
+    """The full matrix: every variant × every dataset, on ``device``, which
+    the caller must name (``"cuda"`` for the card; ``"cpu"`` only on purpose).
 
     ``base_params``: the backbone's JAX-layout tree; ``dataloaders``:
     ``{"clean": loader, "<attack>": loader, ...}`` yielding ``Batch``es.
     Returns ``{variant: {dataset: {accuracy, f1, loss, support}}}`` and
     optionally writes it as JSON (the reference's ``test_results.json``)."""
     cfg = cfg if cfg is not None else entry.config(num_classes)
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = torch.device(device)
     normalize = normalize or Normalizer(*get_normalization(entry.name))
     eval_step = make_eval_step(lambda m, x: entry.apply(cfg, m, x), num_classes,
                                normalize=normalize)

@@ -3,8 +3,8 @@
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``<package>/build/`` (a ``build/`` directory, which
 ``.gitignore`` lists), or into ``$APVT_TORCH_BUILD_DIR``. The library name
-carries a hash of the source, so an edited kernel is never served from a
-stale build. ptxas' per-kernel report (registers, spills) is kept in
+carries a hash of the source and of the ``csrc`` headers it includes, so an
+edited kernel is never served from a stale build. ptxas' per-kernel report (registers, spills) is kept in
 ``BUILD_LOG``. :func:`load_all` builds several sources in parallel;
 :func:`load_text` builds an edited copy of a source for a measurement.
 Nothing here runs at import time.
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -55,7 +56,7 @@ def _compile(name: str, src: str, digest: str) -> ctypes.CDLL:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
@@ -72,13 +73,22 @@ def _digest(text: bytes) -> str:
     return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"$', re.M)
+
+
+def inlined(source: str) -> str:
+    """The text of ``csrc/<source>`` with its ``#include "..."`` lines (the
+    headers of ``csrc``) replaced by their text: what the compiler sees."""
+    with open(os.path.join(CSRC, source)) as f:
+        text = f.read()
+    return _INCLUDE.sub(lambda m: inlined(m.group(1)).replace("#pragma once\n", ""), text)
+
+
 def load(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` once per process (and per source hash)."""
     if source not in _LOADED:
-        src = os.path.join(CSRC, source)
-        with open(src, "rb") as f:
-            digest = _digest(f.read())
-        _LOADED[source] = _compile(source, src, digest)
+        digest = _digest(inlined(source).encode())
+        _LOADED[source] = _compile(source, os.path.join(CSRC, source), digest)
     return _LOADED[source]
 
 

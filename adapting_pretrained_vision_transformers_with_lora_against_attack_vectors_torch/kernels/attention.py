@@ -1,9 +1,16 @@
-"""Packed multi-head attention: the CUDA kernel, its gradient, its plain version.
+"""Multi-head attention in two layouts: the CUDA kernels, their gradients,
+their plain versions.
 
-Counterpart of the JAX package's ``kernels/attention.py:fused_attention_packed``.
-Operands are the q/k/v dense outputs in the packed ``(B, N, H*hd)`` layout,
-heads as contiguous hd-wide channel slices; the output has the same layout
-and feeds the o-projection unchanged.
+Counterpart of the JAX package's ``kernels/attention.py``.
+:func:`attention_packed` is its ``fused_attention_packed``: operands are the
+q/k/v dense outputs in the packed ``(B, N, H*hd)`` layout, heads as
+contiguous hd-wide channel slices; the output has the same layout and feeds
+the o-projection unchanged. :func:`fused_attention` is its whole-head
+``fused_attention`` over head-major ``(B, H, N, hd)`` operands, with
+:func:`attention_auto` as its entry; no model path of either package calls
+it. One device code serves both layouts (``csrc/attention_packed.cu`` takes
+the operands' strides): the head-major kernel reads ``(B, H, N, hd)`` in
+place, without a transposed or padded copy.
 
 Numerics (kernel and plain version alike): scores in f32, scaled by
 ``hd**-0.5``; max-subtracted f32 softmax; P rounded to the input dtype
@@ -18,8 +25,9 @@ differentiated by autograd; a CUDA tensor launches the kernel
 (``csrc/attention_packed.cu``) or raises. Inside the kernel library, bf16
 with N <= 256 (the ViT path) runs on the tensor cores; f32, and bf16 with
 longer sequences, on the CUDA cores. ``FWD_LAUNCHES`` and
-``BWD_LAUNCHES`` count kernel launches, so a run can show it went through
-the kernel.
+``BWD_LAUNCHES`` count the packed kernel's launches, ``BHND_FWD_LAUNCHES``
+and ``BHND_BWD_LAUNCHES`` the head-major kernel's, so a run can show it went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BHND_FWD_LAUNCHES = 0
+BHND_BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,28 +64,37 @@ def _probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' forward over head-major
+    ``(B, H, N, hd)`` operands (differentiable)."""
+    p = _probs(q, k, q.shape[-1] ** -0.5)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def attention_bwd_reference(q, k, v, do):
+    """Plain PyTorch version of the kernels' backward over head-major
+    operands: ``(dq, dk, dv)``."""
+    scale = q.shape[-1] ** -0.5
+    p = _probs(q, k, scale)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    row = (dp * p).sum(dim=-1, keepdim=True)
+    ds = ((p * (dp - row)) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's forward (differentiable)."""
-    scale = (q.shape[-1] // heads) ** -0.5
-    qh, kh, vh = (_split(t, heads) for t in (q, k, v))
-    p = _probs(qh, kh, scale)
-    o = torch.matmul(p.to(v.dtype).float(), vh.float())
-    return _merge(o.to(q.dtype))
+    """Plain PyTorch version of the packed kernel's forward (differentiable)."""
+    return _merge(attention_reference(*(_split(t, heads) for t in (q, k, v))))
 
 
 def attention_packed_bwd_reference(q, k, v, do, heads: int):
-    """Plain PyTorch version of the kernel's backward: ``(dq, dk, dv)``."""
-    scale = (q.shape[-1] // heads) ** -0.5
-    qh, kh, vh, doh = (_split(t, heads) for t in (q, k, v, do))
-    p = _probs(qh, kh, scale)
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), doh.float())
-    dp = torch.matmul(doh.float(), vh.float().transpose(-1, -2))
-    row = (dp * p).sum(dim=-1, keepdim=True)
-    ds = ((p * (dp - row)) * scale).to(q.dtype).float()
-    dq = torch.matmul(ds, kh.float())
-    dk = torch.matmul(ds.transpose(-1, -2), qh.float())
-    return (_merge(dq.to(q.dtype)), _merge(dk.to(k.dtype)), _merge(dv.to(v.dtype)))
+    """Plain PyTorch version of the packed kernel's backward: ``(dq, dk, dv)``."""
+    grads = attention_bwd_reference(*(_split(t, heads) for t in (q, k, v, do)))
+    return tuple(_merge(g) for g in grads)
 
 
 # --- the CUDA kernel ----------------------------------------------------------
@@ -90,35 +109,46 @@ def _lib():
         lib.apvt_attn_packed_fwd.restype = i
         lib.apvt_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.apvt_attn_packed_bwd.restype = i
+        lib.apvt_attn_bhnd_fwd.argtypes = lib.apvt_attn_packed_fwd.argtypes
+        lib.apvt_attn_bhnd_fwd.restype = i
+        lib.apvt_attn_bhnd_bwd.argtypes = lib.apvt_attn_packed_bwd.argtypes
+        lib.apvt_attn_bhnd_bwd.restype = i
         lib.apvt_cuda_error_string.argtypes = [i]
         lib.apvt_cuda_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
     return lib
 
 
-def _check(*tensors: torch.Tensor, heads: int) -> tuple[int, int, int, int]:
-    """Validate kernel operands; returns (B, N, hd, dtype code)."""
+def _check(*tensors: torch.Tensor, heads: int | None) -> tuple[int, int, int, int, int]:
+    """Validate kernel operands, packed ``(B, N, C)`` with ``heads`` or
+    head-major ``(B, H, N, hd)`` with ``heads=None``; returns
+    (B, N, H, hd, dtype code)."""
     ref = tensors[0]
-    if ref.dim() != 3:
-        raise ValueError(f"packed attention wants (B, N, C) operands, got {tuple(ref.shape)}")
-    b, n, c = ref.shape
-    if heads <= 0 or c % heads:
-        raise ValueError(f"channels {c} not divisible by heads {heads}")
-    hd = c // heads
+    if heads is None:
+        if ref.dim() != 4:
+            raise ValueError(f"attention wants (B, H, N, hd) operands, got {tuple(ref.shape)}")
+        b, heads, n, hd = ref.shape
+    else:
+        if ref.dim() != 3:
+            raise ValueError(f"packed attention wants (B, N, C) operands, got {tuple(ref.shape)}")
+        b, n, c = ref.shape
+        if heads <= 0 or c % heads:
+            raise ValueError(f"channels {c} not divisible by heads {heads}")
+        hd = c // heads
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIMS})")
     if ref.dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {ref.dtype} unsupported by the CUDA kernel")
     for t in tensors:
         if not t.is_cuda or t.device != ref.device:
-            raise ValueError("packed attention operands must share one CUDA device")
+            raise ValueError("attention operands must share one CUDA device")
         if t.dtype != ref.dtype or t.shape != ref.shape:
-            raise ValueError("packed attention operands must share shape and dtype")
+            raise ValueError("attention operands must share shape and dtype")
         if not t.is_contiguous():
-            raise ValueError("packed attention operands must be contiguous")
+            raise ValueError("attention operands must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError("packed attention operands must be 16-byte aligned")
-    return b, n, hd, _DTYPE_CODE[ref.dtype]
+            raise ValueError("attention operands must be 16-byte aligned")
+    return b, n, heads, hd, _DTYPE_CODE[ref.dtype]
 
 
 def _raise_on(code: int, lib, what: str) -> None:
@@ -132,7 +162,7 @@ def _raise_on(code: int, lib, what: str) -> None:
 def fused_attention_packed_fwd(q, k, v, heads: int) -> torch.Tensor:
     """Launch the forward kernel on CUDA tensors; returns o (B, N, C)."""
     global FWD_LAUNCHES
-    b, n, hd, code = _check(q, k, v, heads=heads)
+    b, n, _, hd, code = _check(q, k, v, heads=heads)
     lib = _lib()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -146,7 +176,7 @@ def fused_attention_packed_fwd(q, k, v, heads: int) -> torch.Tensor:
 def fused_attention_packed_bwd(q, k, v, do, heads: int):
     """Launch the backward kernel on CUDA tensors; returns (dq, dk, dv)."""
     global BWD_LAUNCHES
-    b, n, hd, code = _check(q, k, v, do, heads=heads)
+    b, n, _, hd, code = _check(q, k, v, do, heads=heads)
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -184,3 +214,60 @@ def attention_packed(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, heads)
     return fused_attention_packed(q, k, v, heads)
+
+
+# --- head-major (B, H, N, hd) ---------------------------------------------------
+
+def fused_attention_fwd(q, k, v) -> torch.Tensor:
+    """Launch the forward kernel on head-major CUDA tensors; returns o (B, H, N, hd)."""
+    global BHND_FWD_LAUNCHES
+    b, n, h, hd, code = _check(q, k, v, heads=None)
+    lib = _lib()
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.apvt_attn_bhnd_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                b, n, h, hd, code, hd ** -0.5, stream)
+    _raise_on(rc, lib, "attention forward")
+    BHND_FWD_LAUNCHES += 1
+    return o
+
+
+def fused_attention_bwd(q, k, v, do):
+    """Launch the backward kernel on head-major CUDA tensors; returns (dq, dk, dv)."""
+    global BHND_BWD_LAUNCHES
+    b, n, h, hd, code = _check(q, k, v, do, heads=None)
+    lib = _lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.apvt_attn_bhnd_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                b, n, h, hd, code, hd ** -0.5, stream)
+    _raise_on(rc, lib, "attention backward")
+    BHND_BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The head-major kernel pair as one differentiable op; saves only q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return fused_attention_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return fused_attention_bwd(*ctx.saved_tensors, do.contiguous())
+
+
+def fused_attention(q, k, v) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(hd)) v`` over ``(B, H, N, hd)``: the CUDA kernel
+    with its kernel gradient (CUDA tensors only)."""
+    return _Attention.apply(q, k, v)
+
+
+def attention_auto(q, k, v) -> torch.Tensor:
+    """Head-major MHA: the kernel for CUDA tensors, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    return fused_attention(q, k, v)

@@ -251,18 +251,18 @@ def params_to_jax(model: ConvNeXt) -> dict[str, torch.Tensor]:
     blocks stacked on a depth axis."""
     out = {}
     for t, m in model.stem.items():
-        out.update({f"stem/{t}/{k}": v for k, v in m.tree().items()})
+        out.update({f"stem/{t}/{k}": v for k, v in m.leaves().items()})
     for s, stage in enumerate(model.stages):
         per_block = [trees.flatten_with_paths(
-            {"dwconv": b.dwconv.tree(), "norm": b.norm.tree(), "pwconv1": b.pwconv1.tree(),
-             "pwconv2": b.pwconv2.tree(), "gamma": b.gamma}) for b in stage.blocks]
+            {"dwconv": b.dwconv.leaves(), "norm": b.norm.leaves(), "pwconv1": b.pwconv1.leaves(),
+             "pwconv2": b.pwconv2.leaves(), "gamma": b.gamma}) for b in stage.blocks]
         for p in per_block[0]:
             out[f"stages/{s}/blocks/{p}"] = torch.stack([blk[p] for blk in per_block])
         if stage.downsample is not None:
             for t, m in stage.downsample.items():
-                out.update({f"stages/{s}/downsample/{t}/{k}": v for k, v in m.tree().items()})
-    out.update({f"final_ln/{k}": v for k, v in model.final_ln.tree().items()})
-    out.update({f"head/{k}": v for k, v in model.head.tree().items()})
+                out.update({f"stages/{s}/downsample/{t}/{k}": v for k, v in m.leaves().items()})
+    out.update({f"final_ln/{k}": v for k, v in model.final_ln.leaves().items()})
+    out.update({f"head/{k}": v for k, v in model.head.leaves().items()})
     return {p: v.detach().cpu() for p, v in out.items()}
 
 

@@ -5,6 +5,7 @@ Counterpart of the JAX package's ``models/registry.py``. Each entry gives:
 * ``config(num_classes)`` — static architecture config
 * ``init(cfg, generator, device=None)`` — seeded params in the JAX layout
 * ``from_tree(flat, cfg)`` — the module built from such a tree
+* ``to_tree(model)`` — back: flat '/' paths -> CPU tensors (real copies)
 * ``apply(cfg, model, images)`` — logits
 * ``lora_targets(cfg)`` — default adapter target paths
 * ``normalization`` — preprocessing mean/std (ImageNet for every backbone)
@@ -30,6 +31,7 @@ class ModelEntry:
     config: Callable  # (num_classes) -> cfg
     init: Callable  # (cfg, generator, device=None) -> JAX-layout tree
     from_tree: Callable  # (flat tree, cfg) -> nn.Module
+    to_tree: Callable  # (nn.Module) -> flat JAX-layout tree of CPU tensors
     apply: Callable  # (cfg, model, images) -> logits
     lora_targets: Callable  # (cfg) -> tuple[str, ...]
     normalization: tuple = (IMAGENET_MEAN, IMAGENET_STD)
@@ -69,6 +71,7 @@ def _vit_entry(name: str, base_cfg) -> ModelEntry:
         config=lambda num_classes, _b=base_cfg: _b.with_classes(num_classes),
         init=_vit.init,
         from_tree=_vit.params_from_jax,
+        to_tree=_vit.params_to_jax,
         apply=_vit.apply,
         lora_targets=lambda cfg: _vit.LORA_TARGETS_DEFAULT,
     )
@@ -82,6 +85,7 @@ def _entry(name: str, family: str, module, base_cfg) -> ModelEntry:
         config=lambda num_classes, _b=base_cfg: _b.with_classes(num_classes),
         init=module.init,
         from_tree=module.params_from_jax,
+        to_tree=module.params_to_jax,
         apply=module.apply,
         lora_targets=module.lora_target_paths,
     )

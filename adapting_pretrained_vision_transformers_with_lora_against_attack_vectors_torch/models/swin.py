@@ -17,6 +17,14 @@ window (Swin-B stage 4) has no shift and no mask. The attention core is
 projection, with the gathered bias ``(heads, n, n)`` and the shift mask
 ``(nW, n, n)`` (zeros for unshifted blocks), both f32: the CUDA kernel on
 the card, its plain version on the CPU.
+
+``use_fused_mlp`` is an opt-in config field, off by default, with the ViT's
+dispatch rule (``models/vit.py``): on, with bf16 compute and no unmerged LoRA
+factors on fc1/fc2, a block's MLP behind its library LN2 is
+:func:`..kernels.mlp.mlp` (the kernel on a CUDA tensor or an error, the plain
+version on a CPU tensor); with f32 compute the field does nothing. There is
+no memory gate: the kernel takes all four Swin-B stages (the JAX dispatch
+leaves stage 4 to XLA because its weights do not fit the TPU's fast memory).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.mlp import mlp
 from ..kernels.window_attention import window_attention
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
@@ -49,6 +58,7 @@ class SwinConfig:
     layer_norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    use_fused_mlp: bool = False  # the fused MLP kernel (module docstring); bf16 compute only
 
     @property
     def num_stages(self) -> int:
@@ -195,8 +205,12 @@ class Block(nn.Module):
         out = window_attention(qkv, bias, mask, self.heads)
         x = x + dense(self.attn["proj"].tree(), out, compute_dtype=cd)
         h = layer_norm(self.ln2.tree(), x, eps=eps)
-        h = gelu(dense(self.mlp["fc1"].tree(), h, compute_dtype=cd))
-        return x + dense(self.mlp["fc2"].tree(), h, compute_dtype=cd)
+        fc1, fc2 = self.mlp["fc1"].tree(), self.mlp["fc2"].tree()
+        if (self.cfg.use_fused_mlp and cd == torch.bfloat16
+                and "lora_a" not in fc1 and "lora_a" not in fc2):
+            return x + mlp(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
+        h = gelu(dense(fc1, h, compute_dtype=cd))
+        return x + dense(fc2, h, compute_dtype=cd)
 
 
 class Stage(nn.Module):
@@ -317,21 +331,21 @@ def params_to_jax(model: Swin) -> dict[str, torch.Tensor]:
     blocks stacked (pairs, 2, ...)."""
     out = {}
     for t, m in model.embed.items():
-        out.update({f"embed/{t}/{k}": v for k, v in m.tree().items()})
+        out.update({f"embed/{t}/{k}": v for k, v in m.leaves().items()})
     for s, stage in enumerate(model.stages):
         per_block = [trees.flatten_with_paths(
-            {"ln1": b.ln1.tree(), "ln2": b.ln2.tree(),
-             "attn": {**{t: m.tree() for t, m in b.attn.items()}, "bias_table": b.bias_table},
-             "mlp": {t: m.tree() for t, m in b.mlp.items()}}) for b in stage.blocks]
+            {"ln1": b.ln1.leaves(), "ln2": b.ln2.leaves(),
+             "attn": {**{t: m.leaves() for t, m in b.attn.items()}, "bias_table": b.bias_table},
+             "mlp": {t: m.leaves() for t, m in b.mlp.items()}}) for b in stage.blocks]
         for p in per_block[0]:
             stacked = torch.stack([blk[p] for blk in per_block])
             out[f"stages/{s}/blocks/{p}"] = stacked.reshape(
                 len(per_block) // 2, 2, *stacked.shape[1:])
         if stage.merge is not None:
             for t, m in stage.merge.items():
-                out.update({f"stages/{s}/merge/{t}/{k}": v for k, v in m.tree().items()})
-    out.update({f"final_ln/{k}": v for k, v in model.final_ln.tree().items()})
-    out.update({f"head/{k}": v for k, v in model.head.tree().items()})
+                out.update({f"stages/{s}/merge/{t}/{k}": v for k, v in m.leaves().items()})
+    out.update({f"final_ln/{k}": v for k, v in model.final_ln.leaves().items()})
+    out.update({f"head/{k}": v for k, v in model.head.leaves().items()})
     return {p: v.detach().cpu() for p, v in out.items()}
 
 

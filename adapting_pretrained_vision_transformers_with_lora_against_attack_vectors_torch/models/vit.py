@@ -11,6 +11,26 @@ checkpoint) into a :class:`ViT` with one module per layer, and
 The attention core is :func:`..kernels.attention.attention_packed` on the
 packed q/k/v dense outputs: the CUDA kernel on the card, its plain version
 on the CPU. The q/k/v projections stay three denses so params map 1:1.
+
+**The dispatch rule of the three opt-in kernels** (the JAX one).
+``fuse_attn_block``, ``fuse_ln_mlp`` and ``use_fused_mlp`` are config fields,
+off by default. With a field off the block runs the library composition
+around the packed-attention kernel. With a field on and bf16 compute, the
+block calls the kernel's wrapper: ``fuse_attn_block`` gives the attention
+half to :func:`..kernels.attn_block.attn_block` (LN1, q/k/v, attention and
+the o-projection in one op) and implies the LN-fused MLP half;
+``fuse_ln_mlp`` gives the MLP half with its LN2 to
+:func:`..kernels.mlp.ln_mlp`; ``use_fused_mlp`` gives the MLP half behind a
+library LN2 to :func:`..kernels.mlp.mlp`. On a CUDA tensor a wrapper launches
+the hand-written kernel, and a shape the kernel does not take, a failed build
+or a failed launch raises (nothing gives way to the library path); on a CPU
+tensor it runs the kernel's plain version. A half whose denses carry
+unmerged LoRA factors (``lora_a``) takes the unfused path for that half, so
+with the default q/k/v/o adapter targets ``fuse_attn_block`` leaves the
+attention half unfused and still fuses the MLP half. With f32 compute the
+fields do nothing, as in JAX. There is no memory gate. ``remat`` recomputes
+each block in the backward pass (``torch.utils.checkpoint``) instead of
+keeping its activations.
 """
 
 from __future__ import annotations
@@ -20,9 +40,13 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels.attention import attention_packed
+from ..kernels.attn_block import attn_block
+from ..kernels.mlp import ln_mlp, mlp
+from ..ops.nn import LoRADropout
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
 
@@ -41,6 +65,11 @@ class ViTConfig:
     layer_norm_eps: float = 1e-12  # HF ViT default
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = False  # recompute each block on the backward pass
+    # the three opt-in kernels (module docstring); bf16 compute only
+    use_fused_mlp: bool = False
+    fuse_attn_block: bool = False
+    fuse_ln_mlp: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -125,15 +154,32 @@ def _as_tensor(x) -> torch.Tensor:
 
 class Leaves(nn.Module):
     """The leaves of one JAX subtree (a dense or a LayerNorm) as parameters,
-    under their JAX names (``w``, ``b``, ``scale``, ``lora_a``...)."""
+    under their JAX names (``w``, ``b``, ``scale``, ``lora_a``...).
+
+    The dropout leaves of ``ops.lora.attach``'s training form (a seed and a
+    rate) are not parameters: they become this dense's
+    :class:`..ops.nn.LoRADropout` stream, which :meth:`tree` hands to
+    ``dense`` while the module is in training mode."""
 
     def __init__(self, leaves: Mapping[str, torch.Tensor]):
         super().__init__()
+        self.dropout = None
+        for key, mode in (("lora_rng", "input"), ("lora_rng_pa", "post_a")):
+            if key in leaves:
+                gen = torch.Generator(leaves[key].device).manual_seed(int(leaves[key]))
+                self.dropout = LoRADropout(float(leaves["lora_p"]), mode, gen)
         for name, t in leaves.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=t.is_floating_point()))
+            if name not in ("lora_rng", "lora_rng_pa", "lora_p"):
+                self.register_parameter(name, nn.Parameter(t, requires_grad=t.is_floating_point()))
+
+    def leaves(self) -> dict:
+        return dict(self.named_parameters(recurse=False))
 
     def tree(self) -> dict:
-        return dict(self.named_parameters(recurse=False))
+        out = self.leaves()
+        if self.training and self.dropout is not None:
+            out["lora_drop"] = self.dropout
+        return out
 
 
 def _sub(flat: Mapping[str, torch.Tensor], prefix: str) -> dict:
@@ -154,14 +200,30 @@ class Block(nn.Module):
         self.mlp = nn.ModuleDict({t: Leaves(_sub(flat, f"mlp/{t}")) for t in ("fc1", "fc2")})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd, eps = x.dtype, self.cfg.layer_norm_eps
-        h = layer_norm(self.ln1.tree(), x, eps=eps)
-        q, k, v = (dense(self.attn[t].tree(), h, compute_dtype=cd) for t in ("q", "k", "v"))
-        x = x + dense(self.attn["o"].tree(), attention_packed(q, k, v, self.cfg.num_heads),
-                      compute_dtype=cd)
-        h = layer_norm(self.ln2.tree(), x, eps=eps)
-        h = gelu(dense(self.mlp["fc1"].tree(), h, compute_dtype=cd))
-        return x + dense(self.mlp["fc2"].tree(), h, compute_dtype=cd)
+        cfg, cd, eps = self.cfg, x.dtype, self.cfg.layer_norm_eps
+        kernel_dtype = cd == torch.bfloat16  # the JAX gate: 2-byte compute dtypes only
+        ap = {t: self.attn[t].tree() for t in ("q", "k", "v", "o")}
+        if cfg.fuse_attn_block and kernel_dtype and all("lora_a" not in p for p in ap.values()):
+            ln1 = self.ln1.tree()
+            x = x + attn_block(x, ln1["scale"], ln1["bias"], ap["q"]["w"], ap["q"]["b"],
+                               ap["k"]["w"], ap["k"]["b"], ap["v"]["w"], ap["v"]["b"],
+                               ap["o"]["w"], ap["o"]["b"], cfg.num_heads, eps)
+        else:
+            h = layer_norm(self.ln1.tree(), x, eps=eps)
+            q, k, v = (dense(ap[t], h, compute_dtype=cd) for t in ("q", "k", "v"))
+            x = x + dense(ap["o"], attention_packed(q, k, v, cfg.num_heads), compute_dtype=cd)
+
+        fc1, fc2 = self.mlp["fc1"].tree(), self.mlp["fc2"].tree()
+        plain_mlp = kernel_dtype and "lora_a" not in fc1 and "lora_a" not in fc2
+        ln2 = self.ln2.tree()
+        if (cfg.fuse_attn_block or cfg.fuse_ln_mlp) and plain_mlp:
+            return x + ln_mlp(x, ln2["scale"], ln2["bias"], fc1["w"], fc1["b"], fc2["w"],
+                              fc2["b"], eps)
+        h = layer_norm(ln2, x, eps=eps)
+        if cfg.use_fused_mlp and plain_mlp:
+            return x + mlp(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
+        h = gelu(dense(fc1, h, compute_dtype=cd))
+        return x + dense(fc2, h, compute_dtype=cd)
 
 
 class ViT(nn.Module):
@@ -187,7 +249,10 @@ class ViT(nn.Module):
         cls = self.cls.to(cd).expand(x.shape[0], 1, cfg.hidden_dim)
         x = torch.cat([cls, x], dim=1) + self.pos.to(cd)
         for block in self.blocks:
-            x = block(x)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         return layer_norm(self.final_ln.tree(), x, eps=cfg.layer_norm_eps)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -215,16 +280,16 @@ def params_from_jax(flat, cfg: ViTConfig) -> ViT:
 def params_to_jax(model: ViT) -> dict[str, torch.Tensor]:
     """Inverse of :func:`params_from_jax`: flat '/' paths -> CPU tensors,
     blocks stacked on axis 0."""
-    out = {f"embed/proj/{k}": v for k, v in model.proj.tree().items()}
+    out = {f"embed/proj/{k}": v for k, v in model.proj.leaves().items()}
     out["embed/cls"], out["embed/pos"] = model.cls, model.pos
     per_layer = [trees.flatten_with_paths(
-        {"ln1": b.ln1.tree(), "ln2": b.ln2.tree(),
-         "attn": {t: m.tree() for t, m in b.attn.items()},
-         "mlp": {t: m.tree() for t, m in b.mlp.items()}}) for b in model.blocks]
+        {"ln1": b.ln1.leaves(), "ln2": b.ln2.leaves(),
+         "attn": {t: m.leaves() for t, m in b.attn.items()},
+         "mlp": {t: m.leaves() for t, m in b.mlp.items()}}) for b in model.blocks]
     for p in per_layer[0]:
         out[f"blocks/{p}"] = torch.stack([layer[p] for layer in per_layer])
-    out.update({f"final_ln/{k}": v for k, v in model.final_ln.tree().items()})
-    out.update({f"head/{k}": v for k, v in model.head.tree().items()})
+    out.update({f"final_ln/{k}": v for k, v in model.final_ln.leaves().items()})
+    out.update({f"head/{k}": v for k, v in model.head.leaves().items()})
     return {p: v.detach().cpu() for p, v in out.items()}
 
 

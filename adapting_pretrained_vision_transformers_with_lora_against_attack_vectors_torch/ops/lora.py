@@ -12,20 +12,27 @@ so one adapter means the same thing to both packages:
 * :func:`attach` inserts the factors for the unmerged path of
   :func:`..ops.nn.dense`; :func:`merge` folds ``dW = s * A B`` into ``W``.
 
-LoRA dropout (the training form of ``attach``) comes with the training
-stages.
+``attach(..., dropout_seed=...)`` is the training form: each target also gets
+a seed leaf (``lora_rng`` for mode ``"input"``, ``lora_rng_pa`` for
+``"post_a"``, the JAX package's leaf names) with one distinct seed per target
+and per stacked layer, and the rate ``lora_p``. A model built from such a
+tree (``models.vit.Leaves``) turns each seed into an independent
+``torch.Generator`` stream and applies the dropout while the module is in
+training mode; the eval form (no seed) is the identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Sequence
 
 import torch
 
 from ..utils import trees
 
-_LORA_LEAVES = ("lora_a", "lora_b", "lora_s")
+_LORA_LEAVES = ("lora_a", "lora_b", "lora_s", "lora_rng", "lora_rng_pa", "lora_p")
+_SEED_STRIDE = 1_000_003  # between the seed ranges of two base seeds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,9 +42,10 @@ class LoRAConfig:
     rank: int = 8
     alpha: float = 16.0
     targets: tuple[str, ...] = ()  # '/'-joined paths of dense subtrees
-    # carried so that adapter_config.json round-trips; dropout itself comes
-    # with the training stages
-    dropout: float = 0.0
+    dropout: float = 0.1  # applied to the adapter branch during training
+    # "input": PEFT-exact placement, the mask on the adapter branch's input x;
+    # "post_a": the mask on the rank-r projection x @ A (see ops.nn.dense)
+    dropout_mode: str = "input"
 
     @property
     def scale(self) -> float:
@@ -60,17 +68,33 @@ def init(generator: torch.Generator, params, cfg: LoRAConfig, *,
     return adapter
 
 
-def attach(params, adapter: Mapping, cfg: LoRAConfig):
+def attach(params, adapter: Mapping, cfg: LoRAConfig, *, dropout_seed: int | None = None):
     """Insert the factors (and the scale ``s``, with the factors' leading
-    axes) into the param tree for the unmerged compute path."""
+    axes) into the param tree for the unmerged compute path.
+
+    ``dropout_seed``: when given and ``cfg.dropout > 0`` (training form), each
+    target also carries the seeds of its dropout streams, one per stacked
+    layer and distinct across targets, and the rate; omit it for the eval
+    form (identity)."""
     out = params
+    first = 0
     for path, fac in adapter.items():
         lead = fac["a"].shape[:-2]
-        s = torch.full(lead, cfg.scale, dtype=torch.float32, device=fac["a"].device)
+        device = fac["a"].device
+        s = torch.full(lead, cfg.scale, dtype=torch.float32, device=device)
+        extra = {}
+        if dropout_seed is not None and cfg.dropout > 0:
+            n_lead = math.prod(lead) if lead else 1
+            seeds = dropout_seed * _SEED_STRIDE + first + torch.arange(n_lead, dtype=torch.int64)
+            first += n_lead
+            key = "lora_rng_pa" if cfg.dropout_mode == "post_a" else "lora_rng"
+            extra = {key: seeds.reshape(lead).to(device),
+                     "lora_p": torch.full(lead, cfg.dropout, dtype=torch.float32, device=device)}
 
-        def add(sub, fac=fac, s=s):
+        def add(sub, fac=fac, s=s, extra=extra):
             new = dict(sub)
             new["lora_a"], new["lora_b"], new["lora_s"] = fac["a"], fac["b"], s
+            new.update(extra)
             return new
 
         out = trees.update_path(out, path, add)
@@ -78,7 +102,8 @@ def attach(params, adapter: Mapping, cfg: LoRAConfig):
 
 
 def detach(params):
-    """Strip the ``lora_*`` leaves (inverse of :func:`attach`)."""
+    """Strip the ``lora_*`` leaves (inverse of :func:`attach`, the training
+    form's dropout leaves included)."""
     flat = trees.flatten_with_paths(params)
     kept = {p: v for p, v in flat.items() if p.rsplit("/", 1)[-1] not in _LORA_LEAVES}
     return trees.unflatten_from_paths(kept)

@@ -11,18 +11,51 @@ output is rounded to the compute dtype once, at the end, as the JAX
 ``dense`` does with ``preferred_element_type``. The plain layer fuses the
 bias into the GEMM (``F.linear``), whose epilogue adds it in f32 before that
 single rounding. With unmerged LoRA factors, ``x @ W``, the LoRA branch and
-the bias are summed in f32 and rounded once. LoRA dropout comes with the
-training stages.
+the bias are summed in f32 and rounded once.
+
+LoRA dropout (training form only): a dict that also carries ``lora_drop``, a
+:class:`LoRADropout`, gets inverted dropout on the adapter branch alone; the
+frozen ``x @ W`` path sees the undropped input. Mode ``"input"`` masks ``x``
+before ``@ A`` (PEFT's ``lora_dropout`` placement), ``"post_a"`` masks the
+rank-r projection ``x @ A`` instead (the JAX package's documented variant:
+as unbiased, C/r-fold less mask work). Masks come from the object's own
+``torch.Generator`` on the tensor's device, so a run is reproducible from its
+seed; the streams are not those of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 
 Params = Mapping[str, Any]
+
+DROPOUT_MODES = ("input", "post_a")
+
+
+@dataclasses.dataclass
+class LoRADropout:
+    """Inverted dropout for one dense's adapter branch: rate, placement and
+    the stream the masks are drawn from."""
+
+    rate: float
+    mode: str
+    generator: torch.Generator
+
+    def __post_init__(self):
+        if self.mode not in DROPOUT_MODES:
+            raise ValueError(f"dropout mode {self.mode!r} (takes {DROPOUT_MODES})")
+        if not 0.0 <= self.rate < 1.0:
+            raise ValueError(f"dropout rate {self.rate} outside [0, 1)")
+
+    def scale(self, shape, device) -> torch.Tensor:
+        """f32 multiplier ``mask / keep`` of ``shape``: E[scale] = 1."""
+        keep = 1.0 - self.rate
+        mask = torch.rand(shape, generator=self.generator, device=device) < keep
+        return mask.float() / keep
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
@@ -34,6 +67,25 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
     return {"w": (w * in_dim ** -0.5).to(dtype), "b": torch.zeros(out_dim, dtype=dtype)}
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(..., out_dtype=float32)`` with a gradient: the f32 cotangent
+    is rounded to the operands' dtype, and each operand's gradient is one
+    GEMM with f32 accumulation, returned in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, w):
+        ctx.save_for_backward(x2d, w)
+        return torch.mm(x2d, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        gc = g.to(x2d.dtype)
+        dx = torch.mm(gc, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x2d.t(), gc) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` as an f32 result, never rounded to the operands' dtype.
 
@@ -43,7 +95,7 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x2d, w, out_dtype=torch.float32)
+        y = _MmF32.apply(x2d, w)
     else:
         y = torch.mm(x2d.float(), w.float())
     return y.reshape(*lead, w.shape[-1])
@@ -57,7 +109,13 @@ def dense(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     if "lora_a" not in p:
         return F.linear(xc, w.t(), p["b"].to(cd) if "b" in p else None)
     y = _mm_f32(xc, w)
-    xa = _mm_f32(xc, p["lora_a"].to(cd))
+    drop = p.get("lora_drop")
+    xb = xc
+    if drop is not None and drop.mode == "input":
+        xb = xc * drop.scale(xc.shape, xc.device).to(cd)
+    xa = _mm_f32(xb, p["lora_a"].to(cd))
+    if drop is not None and drop.mode == "post_a":
+        xa = xa * drop.scale(xa.shape, xa.device)
     y = y + p["lora_s"].float() * _mm_f32(xa.to(cd), p["lora_b"].to(cd))
     if "b" in p:
         y = y + p["b"].float()

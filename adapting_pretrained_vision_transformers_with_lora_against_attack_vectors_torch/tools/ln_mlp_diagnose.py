@@ -25,7 +25,6 @@ Run on a machine with a CUDA card, from the repository root:
 
 from __future__ import annotations
 
-import os
 import re
 import subprocess
 
@@ -67,8 +66,7 @@ def main() -> None:
         raise SystemExit("ln_mlp_diagnose: this needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    with open(os.path.join(_build.CSRC, "ln_mlp.cu")) as f:
-        sources = variants(f.read())
+    sources = variants(_build.inlined("ln_mlp.cu"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
 

@@ -1,21 +1,103 @@
-"""The eval step (the train step comes with the training stages).
+"""The train step and the eval step.
 
-Counterpart of the JAX package's ``train/steps.py:make_eval_step``: uint8
-images become [0,1] floats and are normalized on the device, the model
-gives f32 logits, and the step returns the summed cross-entropy over the
-``valid`` rows and a (C, C) confusion matrix (rows = true class, cols =
-predicted), both still on the device, so a loop can sum them there and
-fetch once.
+Counterpart of the JAX package's ``train/steps.py``. Both steps take uint8
+images, turn them into [0,1] floats and normalize them on the device, and
+take a ``valid`` mask (1 for real samples, 0 for the padding of a final
+batch). Their metrics are sums kept on the device, so a loop can add them up
+there and fetch once per epoch: no step copies a scalar to the host.
+
+* :func:`make_train_step`: one optimizer update; mean cross-entropy over the
+  ``valid`` rows; optional train-time augmentation before the normalization.
+  What is trainable is what the :class:`TrainState` names: the whole model
+  (base fine-tune) or the adapter factors and the head (LoRA), the rest of
+  the module frozen. The JAX step is a pure function of a donated state;
+  here the module's parameters and the optimizer's moments are updated in
+  place, which keeps one copy of each on the device, so whoever wants to
+  keep a set of parameters must clone it.
+* :func:`make_eval_step`: the summed cross-entropy and a (C, C) confusion
+  matrix (rows = true class, cols = predicted).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..attacks.common import IMAGENET, Normalizer, to_unit_floats
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a train step changes, in place: the named trainable
+    tensors (leaves of the module the forward runs), their optimizer, the
+    lr schedule (``update count -> lr``, or ``None``) and the update count."""
+
+    trainable: dict[str, torch.Tensor]
+    optimizer: torch.optim.Optimizer
+    schedule: Optional[Callable[[int], float]] = None
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, names, make_optimizer) -> "TrainState":
+        """Freeze every parameter of ``model`` but those in ``names`` (``None``
+        = train them all) and build their optimizer with
+        ``make_optimizer(tensors) -> (optimizer, schedule)``. A frozen
+        parameter asks no gradient of the kernels' ``autograd.Function``s."""
+        keep = None if names is None else set(names)
+        trainable = {}
+        for name, p in model.named_parameters():
+            p.requires_grad_(p.is_floating_point() and (keep is None or name in keep))
+            if p.requires_grad:
+                trainable[name] = p
+        if keep is not None and keep - set(trainable):
+            raise KeyError(f"not float parameters of the model: {sorted(keep - set(trainable))}")
+        optimizer, schedule = make_optimizer(trainable.values())
+        return cls(trainable, optimizer, schedule)
+
+
+def make_train_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], model, *,
+                    normalize: Optional[Normalizer] = IMAGENET,
+                    generator: Optional[torch.Generator] = None,
+                    augment: Optional[Callable] = None) -> Callable:
+    """Build ``(state, images, labels, valid) -> (state, metrics)``.
+
+    ``forward(model, normalized_images) -> logits``, with ``model`` the
+    module whose parameters ``state.trainable`` names. ``augment``:
+    ``(images_01, generator) -> images_01``, applied on the device before the
+    normalization (``data.augment.train_augment``); it needs ``generator``,
+    on the images' device. Metrics are sums (``loss_sum``, ``correct``,
+    ``count``), device tensors, so they add up across batches exactly."""
+    if augment is not None and generator is None:
+        raise ValueError("augment requires a generator")
+
+    def train_step(state: TrainState, images, labels, valid):
+        x = to_unit_floats(images)
+        if augment is not None:
+            x = augment(x, generator)
+        if normalize is not None:
+            x = normalize(x)
+        labels, valid = labels.long(), valid.float()
+        logits = forward(model, x).float()
+        ce = F.cross_entropy(logits, labels, reduction="none")
+        count = valid.sum()
+        loss = (ce * valid).sum() / count.clamp_min(1.0)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if state.schedule is not None:
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            correct = ((logits.argmax(dim=-1) == labels).float() * valid).sum()
+            metrics = {"loss_sum": loss.detach() * count, "correct": correct, "count": count}
+        return state, metrics
+
+    return train_step
 
 
 def make_eval_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], num_classes: int, *,

@@ -18,6 +18,10 @@ for files such as PEFT adapters. Writes are atomic (temp file in the same
 directory, then ``os.replace``).
 Every leaf is made C-contiguous before its raw bytes are written: a strided
 view would otherwise be written as the wrong matrix.
+
+:func:`save_train_state` / :func:`load_train_state` write and read a resume
+file of the port's own: a torch optimizer's state is not an optax tree, so
+these files are not exchanged with the JAX package (model checkpoints are).
 """
 
 from __future__ import annotations
@@ -137,3 +141,45 @@ def load_pytree(path: str) -> tuple[Any, dict]:
     for name in meta.pop(_BF16_TAG, []):
         flat[name] = flat[name].view(torch.bfloat16)
     return trees.unflatten_from_paths(flat), meta
+
+
+def save_train_state(state, path_prefix: str, *, meta: Optional[dict] = None) -> None:
+    """Persist a ``train.steps.TrainState`` as one atomic
+    ``{prefix}.state.safetensors``: the trainable tensors under ``params/``
+    by name, the optimizer's per-tensor state under ``opt/<position>/``, the
+    update count in the metadata."""
+    m = dict(meta or {})
+    m["step"] = int(state.step)
+    opt = {}
+    for i, p in enumerate(state.trainable.values()):
+        entry = state.optimizer.state.get(p, {})
+        opt[f"{i:05d}"] = {k: v for k, v in entry.items() if isinstance(v, torch.Tensor)}
+    tree = {"params": dict(state.trainable), "opt": {k: v for k, v in opt.items() if v}}
+    save_pytree(tree, path_prefix + ".state.safetensors", meta=m)
+
+
+def train_state_exists(path_prefix: str) -> bool:
+    return os.path.exists(path_prefix + ".state.safetensors")
+
+
+def load_train_state(path_prefix: str, state) -> dict:
+    """Load a resume file into ``state`` in place (parameters, optimizer
+    moments, update count); returns the metadata. The state must name the
+    tensors the saved one named."""
+    tree, meta = load_pytree(path_prefix + ".state.safetensors")
+    saved = tree["params"]
+    if set(saved) != set(state.trainable):
+        raise ValueError("the resume file names other tensors than this run trains: "
+                         f"{sorted(set(saved) ^ set(state.trainable))[:4]}")
+    opt_state = {}
+    with torch.no_grad():
+        for i, (name, p) in enumerate(state.trainable.items()):
+            p.copy_(saved[name].to(p.device, p.dtype))
+            entry = tree.get("opt", {}).get(f"{i:05d}")
+            if entry:
+                # the update count stays where the optimizer keeps it (the host, by default)
+                opt_state[i] = {k: v if k == "step" else v.to(p.device) for k, v in entry.items()}
+    current = state.optimizer.state_dict()
+    state.optimizer.load_state_dict({"state": opt_state, "param_groups": current["param_groups"]})
+    state.step = int(meta.get("step", 0))
+    return meta

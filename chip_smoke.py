@@ -6,10 +6,21 @@ the hand-written kernels:
 
 * ``google_vit`` ViT-B/16 with a rank-8 LoRA merged into q/k/v/o, in bf16,
   through FGSM and PGD-10 at batch 64: the packed-attention kernel
-  (``csrc/attention_packed.cu``), forward and backward;
+  (``csrc/attention_packed.cu``), forward and backward; then the same with
+  ``fuse_attn_block`` on (the fused attention half-block,
+  ``csrc/attn_block.cu``, and the LN-fused MLP on a ViT path) and with
+  ``use_fused_mlp`` on (the fused MLP without LayerNorm, ``csrc/ln_mlp.cu``);
+* ViT-B/16 training at batch 64, f32 parameters and bf16 compute, 5 steps
+  each through ``train.loop.fit``: the full fine-tune (AdamW + StepLR,
+  augmentation on, ``fuse_attn_block`` on: the kernels' parameter gradients)
+  and the LoRA defense (rank 8 on q/k/v/o unmerged, dropout 0.1, head
+  trainable, Adam, ``use_fused_mlp`` on: the base frozen);
+* the head-major attention kernel through its entry ``attention_auto`` (no
+  model path of the package calls it);
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
   in bf16, through FGSM and PGD-10 at batch 64: the window-attention kernel
-  (``csrc/window_attention.cu``), forward and backward;
+  (``csrc/window_attention.cu``), forward and backward; then the same with
+  ``use_fused_mlp`` on (the fused MLP at the four Swin-B stage widths);
 * ``convnext`` ConvNeXt-B (all 36 blocks, dims 128-1024) with a rank-8 LoRA
   merged into every pwconv1/pwconv2, in bf16, both kernel fields on, through
   FGSM and PGD-10 at batch 64: the depthwise 7x7 kernel (``csrc/dwconv7.cu``,
@@ -39,7 +50,15 @@ Phases, one line each (or a few):
    3072) and at a ragged (70, 128, 512), bf16, forward and dx, with LN
    scale/bias and b1/b2 at std 0.5, and the plain version without each of
    them shown to miss the limit by a factor of 5 or more (so the check sees
-   every one); every backward bitwise reproducible;
+   every one); the fused MLP without LayerNorm at the ViT-B shape, a Swin-B
+   stage shape and the ragged one, the same way; the attention half-block at
+   (64, 197, 768) with 12 heads and a ragged (2, 37, 192) with 3, bf16, with
+   LN scale/bias and the four biases at std 0.5 (each seen by the check) and
+   q/k weights scaled up so that the softmax is far from uniform; the
+   head-major attention kernel at the packed kernel's shapes, equal bit for
+   bit to the packed kernel on the transposed operands; the three parameter-
+   gradient functions against autograd through the plain versions; every
+   backward bitwise reproducible;
 4. model, per backbone: merged bf16 state through the port's checkpoint
    writer/reader (byte-equal), then logits of the kernel path against the
    plain path (ViT, Swin: bf16 and f32, Swin's bias tables drawn at std 1.5)
@@ -49,12 +68,23 @@ Phases, one line each (or a few):
    eps-ball, loss increase, and the launch counts (reset just before the
    run, read just after) that prove the path ran the kernels: for Swin no
    bias gradient, for ConvNeXt 36 x 11 launches of each kernel role and no
-   filter or parameter gradient. Then eval-compose for ``swin`` and
+   filter or parameter gradient, for ViT-B with ``fuse_attn_block`` 12 x 11
+   launches of the half-block and of the LN-fused MLP, forward and backward,
+   no packed-attention launch and no parameter gradient. Training: exact
+   launch counts per step (full fine-tune: 12 parameter-gradient recomputes
+   of each fused op; LoRA: none, and no half-block launch where LoRA factors
+   are attached), finite gradients, every trainable leaf changed and every
+   frozen leaf bitwise unchanged, the cross-entropy on the fixed batch
+   falling, one step's loss and gradient norms against the fields-off model,
+   the trained adapter through the PEFT writer/reader and merged into the
+   base against the unmerged model. Then eval-compose for ``swin`` and
    ``convnext`` (launch counts read the same way): 4 variants x 3 datasets,
    base/clean accuracy equal to a direct argmax count, a merged variant's
    weights equal to base + sum s*A*B;
 6. timing with CUDA events: PGD-10 images/s of each backbone (ConvNeXt-B
-   with both kernel fields on, each alone, and both off, in turns), kernel
+   with both kernel fields on, each alone, and both off, in turns; ViT-B with
+   each of its three kernel fields and none, in turns), training images/s of
+   the full fine-tune and the LoRA defense with the fields off and on, kernel
    vs plain times, each kernel's bound (the larger of its FLOP over the
    card's published peak and its bytes over 3.35 TB/s) and the time of the
    one PyTorch call, or library composition, that computes the same
@@ -62,7 +92,9 @@ Phases, one line each (or a few):
    kernel), and the eval-compose matrices' wall times. ViT-B and Swin-B PGD
    are timed over 3 calls, ConvNeXt-B over 2 calls per variant and turn.
 
-The line before the last is a JSON object describing every kernel (window
+The line before the last is a JSON object describing every kernel (with
+``composition_ms``, the library composition's time, for the kernels whose
+function no one PyTorch call computes and whose ``library_ms`` is null; window
 attention's ``ms`` at the Swin-B stage-3 shape with its shift mask, which
 18 of the 24 blocks run; the ConvNeXt kernels' at the stage-3 shape, which
 27 of the 36 blocks run); the last line is ``{"ok": true, "device": {...}}``.
@@ -72,8 +104,9 @@ fails with a non-zero exit.
 Run: ``python3 chip_smoke.py`` from the repository root. ``python3
 chip_smoke.py --profile google_vit|swin|convnext`` instead builds that
 backbone, traces one warm PGD-10 call with ``torch.profiler`` and prints the
-device time by kernel group (ConvNeXt: kernel fields on, then off); it
-prints no result lines.
+device time by kernel group (ConvNeXt: kernel fields on, then off);
+``--profile train|train_lora`` traces one warm ViT-B training step, fields
+off and then on. It prints no result lines.
 """
 
 from __future__ import annotations
@@ -119,6 +152,19 @@ MLP_SHAPES = ((200704, 128, 512), (50176, 256, 1024), (12544, 512, 2048), (3136,
 # the JAX kernel's bf16 parity tests)
 MLP_TOL = ((1e-2, 1e-2), (2e-2, 2e-2))
 MLP_PARAM_STD = 0.5  # LN scale (around 1), LN bias, b1, b2
+# the fused MLP without LayerNorm (T, D, M): the ViT-B/16 shape, Swin-B stage 1, a ragged case
+FMLP_SHAPES = ((12608, 768, 3072), (200704, 128, 512), (70, 128, 512))
+# the attention half-block (B, N, C, heads): ViT-B/16 and a ragged small case;
+# fwd / dx limits of the JAX kernel's bf16 parity tests
+AB_SHAPES = ((64, 197, 768, 12), (2, 37, 192, 3))
+AB_TOL = ((3e-2, 3e-2), (5e-2, 5e-2))
+AB_QK_GAIN = 3.0  # on the 1/sqrt(C) init of wq and wk: at gain 1 every P is about 1/N
+# a parameter gradient against autograd through the plain version: max |err|
+# over the gradient's largest value
+PARAM_GRAD_RTOL = 2e-2
+VIT_VARIANTS = (("fields off", {}), ("use_fused_mlp", {"use_fused_mlp": True}),
+                ("fuse_ln_mlp", {"fuse_ln_mlp": True}), ("fuse_attn_block", {"fuse_attn_block": True}))
+TRAIN_STEPS = 5
 CONVNEXT_KERNELS = {"use_dw_kernel": True, "fuse_ln_mlp": True}
 CONVNEXT_VARIANTS = (("both kernels", CONVNEXT_KERNELS), ("dwconv7 only", {"use_dw_kernel": True}),
                      ("ln_mlp only", {"fuse_ln_mlp": True}), ("library", {}))
@@ -196,6 +242,9 @@ class Smoke:
         sys.path.insert(0, HERE)
         for attr, name in (("ka", "kernels.attention"), ("kw", "kernels.window_attention"),
                            ("kd", "kernels.dwconv"), ("km", "kernels.mlp"),
+                           ("kb", "kernels.attn_block"), ("steps", "train.steps"),
+                           ("loop", "train.loop"), ("optim", "train.optim"),
+                           ("augment", "data.augment"),
                            ("build_mod", "kernels._build"), ("vit", "models.vit"),
                            ("swin", "models.swin"), ("registry", "models.registry"),
                            ("lora", "ops.lora"), ("peft_io", "ops.peft_io"),
@@ -225,10 +274,11 @@ class Smoke:
 
     # 2. build
     def build(self) -> None:
-        sources = ("attention_packed.cu", "window_attention.cu", "dwconv7.cu", "ln_mlp.cu")
+        sources = ("attention_packed.cu", "window_attention.cu", "dwconv7.cu", "ln_mlp.cu",
+                   "attn_block.cu")
         t0 = time.perf_counter()
         self.build_mod.load_all(sources)
-        for mod in (self.ka, self.kw, self.kd, self.km):
+        for mod in (self.ka, self.kw, self.kd, self.km, self.kb):
             mod._lib()
         wall = time.perf_counter() - t0
         for src in sources:
@@ -434,6 +484,197 @@ class Smoke:
                   f"{e_b:.3e}; dropping a row parameter moves plain fwd/dx by "
                   + ", ".join(f"{n} {a:.2f}/{b:.2f}" for n, (a, b) in moved.items())
                   + "; backward bitwise reproducible", flush=True)
+        return err
+
+    def param_grads_vs_autograd(self, got, fn, leaves, dy, what: str) -> float:
+        """A ``*_param_grads`` result against autograd through the plain version
+        ``fn(*leaves)``. Each gradient may differ by PARAM_GRAD_RTOL of the
+        largest value among the gradients of its rank (vectors, matrices): a
+        gradient that is zero in exact arithmetic (the key bias: the rows of dS
+        sum to zero) is then held to the noise level of its siblings. Returns
+        the largest such ratio."""
+        import torch
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        want = torch.autograd.grad(fn(*leaves), leaves, dy)
+        scale = {}
+        for w in want:
+            scale[w.dim()] = max(scale.get(w.dim(), 0.0), float(w.float().abs().max()))
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g.dtype == w.dtype and g.shape == w.shape, f"{what}: gradient {i} dtype/shape")
+            check(bool(torch.isfinite(g).all()), f"{what}: gradient {i} non-finite")
+            ratio = float((g.float() - w.float()).abs().max()) / scale[w.dim()]
+            check(ratio <= PARAM_GRAD_RTOL, f"{what}: gradient {i} off by {ratio:.3e} of its scale")
+            worst = max(worst, ratio)
+        return worst
+
+    def fused_mlp_vs_plain(self) -> dict:
+        import torch
+
+        km = self.km
+        (fa, fr), (ga, gr) = MLP_TOL
+        err = {"fwd": 0.0, "bwd": 0.0}  # at the ViT-B shape
+        for shape in FMLP_SHAPES:
+            x, dy, p = self.mlp_operands(shape)
+            tag = f"bfloat16 {shape}"
+
+            def plain(q):
+                return (km.mlp_reference(x, q["w1"], q["b1"], q["w2"], q["b2"]),
+                        km.mlp_bwd_reference(x, q["w1"], q["b1"], q["w2"], dy))
+
+            want_f, want_b = plain(p)
+            got_f = km.fused_mlp_fwd(x, p["w1"], p["b1"], p["w2"], p["b2"])
+            got_b = km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy)
+            e_f = close(got_f, want_f, fa, fr, f"fused_mlp fwd {tag}")
+            e_b = close(got_b, want_b, ga, gr, f"fused_mlp dx {tag}")
+            check(torch.equal(got_b, km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy)),
+                  f"fused_mlp backward not reproducible {tag}")
+            moved = {}
+            for name in ("b1", "b2"):
+                wo_f, wo_b = plain({**p, name: torch.zeros_like(p[name])})
+                moved[name] = (float((wo_f.float() - want_f.float()).abs().max()),
+                               float((wo_b.float() - want_b.float()).abs().max()))
+                for what, mv, a, r, ref in (("fwd", moved[name][0], fa, fr, want_f),
+                                            ("dx", moved[name][1], ga, gr, want_b)):
+                    if (name, what) == ("b2", "dx"):
+                        continue  # b2 does not enter dx
+                    limit = a + r * float(ref.float().abs().max())
+                    check(mv > 5 * limit, f"fused_mlp {what} {tag}: dropping {name} moves the "
+                          f"plain output by only {mv:.3e} (limit {limit:.3e})")
+            names = ("w1", "b1", "w2", "b2")
+            e_p = self.param_grads_vs_autograd(
+                km.mlp_param_grads(x, *(p[n] for n in names), dy, (True,) * 4),
+                lambda *q: km.mlp_reference(x, *q), [p[n] for n in names], dy,
+                f"mlp_param_grads {tag}")
+            torch.cuda.synchronize()
+            if shape == FMLP_SHAPES[0]:
+                err = {"fwd": e_f, "bwd": e_b}
+            print(f"phase 3 fused_mlp vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
+                  f"{e_b:.3e}; dropping b1 / b2 moves plain fwd/dx by "
+                  + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in moved.values())
+                  + f"; param grads vs autograd within {e_p:.2e} of their scale; backward "
+                  f"bitwise reproducible", flush=True)
+        return err
+
+    def attn_block_operands(self, shape):
+        """bf16 x and dy (B, N, C); LN scale/bias and the four biases at std
+        MLP_PARAM_STD, the weights at std 1/sqrt(C), wq and wk times AB_QK_GAIN.
+        The cotangent is drawn at std 1/16: with these peaked scores dx is then
+        of order 1, as in the JAX kernel's parity test whose limits are used
+        (at std 1 it reaches 60, where one bf16 ulp of dq, dk or dv is 0.25)."""
+        import torch
+
+        b, n, c, _ = shape
+
+        def rand(*size):
+            return torch.randn(*size, device=self.dev, generator=self.gen)
+
+        x = (rand(b, n, c) + 0.5 * rand(b, n, 1)).to(torch.bfloat16)
+        dy = (rand(b, n, c) / 16).to(torch.bfloat16)
+        p = {"ln_scale": 1.0 + MLP_PARAM_STD * rand(c), "ln_bias": MLP_PARAM_STD * rand(c)}
+        for t in "qkvo":
+            gain = AB_QK_GAIN if t in "qk" else 1.0
+            p[f"w{t}"], p[f"b{t}"] = rand(c, c) * c ** -0.5 * gain, MLP_PARAM_STD * rand(c)
+        return x, dy, p
+
+    AB_ORDER = ("ln_scale", "ln_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+
+    def attn_block_vs_plain(self) -> dict:
+        import torch
+
+        kb, eps = self.kb, 1e-6
+        (fa, fr), (ga, gr) = AB_TOL
+        err = {"fwd": 0.0, "bwd": 0.0}  # at the ViT-B shape
+        for shape in AB_SHAPES:
+            h = shape[3]
+            x, dy, p = self.attn_block_operands(shape)
+            tag = f"bfloat16 {shape[:3]} h{h}"
+
+            def plain(q):
+                args = [q[n] for n in self.AB_ORDER]
+                return (kb.attn_block_reference(x, *args, h, eps),
+                        kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps))
+
+            args = [p[n] for n in self.AB_ORDER]
+            probs = kb._forward_parts(x, *args[:8], h, eps)[-1]
+            peak = float(probs.amax(dim=-1).mean())
+            check(peak > 5.0 / shape[1], f"attn_block {tag}: the softmax is near uniform "
+                  f"(mean row maximum {peak:.4f} against 1/N = {1 / shape[1]:.4f})")
+            del probs
+            want_f, want_b = plain(p)
+            got_f = kb.fused_attn_block_fwd(x, *args, h, eps)
+            got_b = kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps)
+            e_f = close(got_f, want_f, fa, fr, f"attn_block fwd {tag}")
+            e_b = close(got_b, want_b, ga, gr, f"attn_block dx {tag}")
+            check(torch.equal(got_b, kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps)),
+                  f"attn_block backward not reproducible {tag}")
+            # can the check see each row parameter? bk is left out: a bias on
+            # every key shifts a query's scores by one constant, which the
+            # softmax removes; for the same reason bv does not enter dx (it
+            # shifts a row of dP by one constant), and bo does not either
+            moved = {}
+            for name, neutral in (("ln_scale", 1.0), ("ln_bias", 0.0), ("bq", 0.0), ("bv", 0.0),
+                                  ("bo", 0.0)):
+                wo_f, wo_b = plain({**p, name: torch.full_like(p[name], neutral)})
+                moved[name] = (float((wo_f.float() - want_f.float()).abs().max()),
+                               float((wo_b.float() - want_b.float()).abs().max()))
+                for what, mv, a, r, ref in (("fwd", moved[name][0], fa, fr, want_f),
+                                            ("dx", moved[name][1], ga, gr, want_b)):
+                    if what == "dx" and name in ("bv", "bo"):
+                        continue
+                    limit = a + r * float(ref.float().abs().max())
+                    check(mv > 5 * limit, f"attn_block {what} {tag}: dropping {name} moves the "
+                          f"plain output by only {mv:.3e} (limit {limit:.3e})")
+            e_p = self.param_grads_vs_autograd(
+                kb.attn_block_param_grads(x, *args, dy, h, eps, (True,) * 10),
+                lambda *q: kb.attn_block_reference(x, *q, h, eps), args, dy,
+                f"attn_block_param_grads {tag}")
+            torch.cuda.synchronize()
+            if shape == AB_SHAPES[0]:
+                err = {"fwd": e_f, "bwd": e_b}
+            print(f"phase 3 attn_block vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
+                  f"{e_b:.3e}; mean row maximum of P {peak:.3f} (1/N = {1 / shape[1]:.4f}); "
+                  f"dropping a row parameter moves plain fwd/dx by "
+                  + ", ".join(f"{n} {a:.2f}/{b:.2f}" for n, (a, b) in moved.items())
+                  + f"; param grads vs autograd within {e_p:.2e} of their scale; backward "
+                  f"bitwise reproducible", flush=True)
+        return err
+
+    def bhnd_vs_plain(self) -> dict:
+        """The head-major kernel at the packed kernel's shapes: against its
+        plain version, and bit for bit against the packed kernel on the
+        transposed operands (one device code, another stride)."""
+        import torch
+
+        ka, err = self.ka, {"fwd": 0.0, "bwd": 0.0}  # at the main-path shape, bf16
+        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+            dtype = getattr(torch, dtype_name)
+            for (b, n, h, hd) in SHAPES[dtype_name]:
+                q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
+                               .to(dtype) for _ in range(4))
+                tag = f"{dtype_name} {(b, h, n, hd)}"
+                got_f = ka.fused_attention_fwd(q, k, v)
+                e_f = close(got_f, ka.attention_reference(q, k, v), fa, fr, f"bhnd fwd {tag}")
+                got = ka.fused_attention_bwd(q, k, v, do)
+                want = ka.attention_bwd_reference(q, k, v, do)
+                e_b = max(close(g_, w_, ga, gr, f"bhnd d{nm} {tag}")
+                          for nm, g_, w_ in zip("qkv", got, want))
+                check(all(torch.equal(a_, b_) for a_, b_ in
+                          zip(got, ka.fused_attention_bwd(q, k, v, do))),
+                      f"head-major backward not reproducible {tag}")
+                qp, kp, vp, dop = (ka._merge(t).contiguous() for t in (q, k, v, do))
+                check(torch.equal(ka._merge(got_f), ka.fused_attention_packed_fwd(qp, kp, vp, h))
+                      and all(torch.equal(ka._merge(a_), b_) for a_, b_ in
+                              zip(got, ka.fused_attention_packed_bwd(qp, kp, vp, dop, h))),
+                      f"head-major and packed kernels differ {tag}")
+                torch.cuda.synchronize()
+                if dtype == torch.bfloat16 and (b, n, h, hd) == MAIN:
+                    err = {"fwd": e_f, "bwd": e_b}
+                print(f"phase 3 fused_attention (B,H,N,hd) vs plain {tag}: fwd max|err| "
+                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; equal bit for bit to the packed "
+                      f"kernel on the transposed operands; backward bitwise reproducible",
+                      flush=True)
         return err
 
     # 4. model
@@ -643,6 +884,283 @@ class Smoke:
               f"kernel launches {launches}, wall {wall:.3f} s", flush=True)
         return wall
 
+    # 4/5. ViT-B with its kernel fields on, and training
+    def vit_counters(self) -> dict:
+        ka, km, kb = self.ka, self.km, self.kb
+        return {"packed_fwd": (ka, "FWD_LAUNCHES"), "packed_bwd": (ka, "BWD_LAUNCHES"),
+                "attn_block_fwd": (kb, "FWD_LAUNCHES"), "attn_block_bwd": (kb, "BWD_LAUNCHES"),
+                "attn_block_param_grads": (kb, "PARAM_GRAD_CALLS"),
+                "ln_mlp_fwd": (km, "FWD_LAUNCHES"), "ln_mlp_bwd": (km, "BWD_LAUNCHES"),
+                "ln_mlp_param_grads": (km, "PARAM_GRAD_CALLS"),
+                "mlp_fwd": (km, "MLP_FWD_LAUNCHES"), "mlp_bwd": (km, "MLP_BWD_LAUNCHES"),
+                "mlp_param_grads": (km, "MLP_PARAM_GRAD_CALLS")}
+
+    def counted(self, counters, fn):
+        """Run ``fn`` with every count set to 0 just before and read just after."""
+        import torch
+
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    def vit_fields(self, entry, cfg, model_tree, normalize, off_model) -> dict:
+        """The merged bf16 ViT-B with ``fuse_attn_block`` and with
+        ``use_fused_mlp``: logits against the fields-off model, then FGSM +
+        PGD-10 with exact launch counts. Returns the counts per field."""
+        import numpy as np
+        import torch
+
+        x8 = torch.from_numpy(np.random.default_rng(0).random(
+            (8, cfg.image_size, cfg.image_size, 3), dtype=np.float32)).to(self.dev)
+        per = cfg.depth * (PGD_STEPS + 1)
+        zero = {k: 0 for k in self.vit_counters()}
+        expect = {"fuse_attn_block": {**zero, "attn_block_fwd": per, "attn_block_bwd": per,
+                                      "ln_mlp_fwd": per, "ln_mlp_bwd": per},
+                  "use_fused_mlp": {**zero, "packed_fwd": per, "packed_bwd": per,
+                                    "mlp_fwd": per, "mlp_bwd": per}}
+        out = {}
+        la, lr = LOGIT_TOL["google_vit"]["bfloat16"]
+        for field, want in expect.items():
+            vcfg = dataclasses.replace(cfg, **{field: True})
+            model = entry.from_tree(model_tree, vcfg)
+            with torch.no_grad():
+                e = close(entry.apply(vcfg, model, normalize(x8)),
+                          entry.apply(cfg, off_model, normalize(x8)), la, lr,
+                          f"google_vit logits with {field}")
+            print(f"phase 4 model: google_vit with {field}: logits vs fields off max|err| "
+                  f"{e:.3e}", flush=True)
+            out[field] = self.attack(f"google_vit {field}", entry, vcfg, model, normalize,
+                                     self.vit_counters(), want)[0]
+        return out
+
+    def swin_fused_mlp(self, entry, cfg, model_tree, normalize, off_model, counters):
+        """The merged bf16 Swin-B with ``use_fused_mlp``: logits against the
+        fields-off model, then FGSM + PGD-10 with exact launch counts (the
+        fused MLP at all four stage widths). Returns the PGD callable, model,
+        batch and labels for the timing."""
+        import numpy as np
+        import torch
+
+        vcfg = dataclasses.replace(cfg, use_fused_mlp=True)
+        model = entry.from_tree(model_tree, vcfg)
+        x8 = torch.from_numpy(np.random.default_rng(0).random(
+            (8, cfg.image_size, cfg.image_size, 3), dtype=np.float32)).to(self.dev)
+        la, lr = LOGIT_TOL["swin"]["bfloat16"]
+        with torch.no_grad():
+            e = close(entry.apply(vcfg, model, normalize(x8)),
+                      entry.apply(cfg, off_model, normalize(x8)), la, lr,
+                      "swin logits with use_fused_mlp")
+        print(f"phase 4 model: swin with use_fused_mlp: logits vs fields off max|err| {e:.3e}",
+              flush=True)
+        per = sum(cfg.depths) * (PGD_STEPS + 1)
+        km = self.km
+        counters = {**counters, "mlp_fwd": (km, "MLP_FWD_LAUNCHES"),
+                    "mlp_bwd": (km, "MLP_BWD_LAUNCHES"),
+                    "mlp_param_grads": (km, "MLP_PARAM_GRAD_CALLS")}
+        _, pgd, x, y, _, _ = self.attack(
+            "swin use_fused_mlp", entry, vcfg, model, normalize, counters,
+            {"fwd": per, "bwd": per, "dbias": 0, "mlp_fwd": per, "mlp_bwd": per,
+             "mlp_param_grads": 0})
+        return pgd, model, x, y
+
+    def train_batch(self, size: int):
+        """A uint8 batch a model can learn under augmentation: each class has
+        a colour (from a numpy seed), each pixel that colour plus noise."""
+        import numpy as np
+
+        rng = np.random.default_rng(5)
+        labels = rng.integers(0, CLASSES, BATCH)
+        colours = rng.integers(40, 216, (CLASSES, 3))
+        noise = rng.integers(-40, 41, (BATCH, size, size, 3))
+        images = np.clip(colours[labels][:, None, None, :] + noise, 0, 255).astype(np.uint8)
+        return self.loader.Batch(images, labels.astype(np.int32), np.ones(BATCH, np.float32), [])
+
+    def on_device(self, batch):
+        import torch
+
+        return tuple(torch.as_tensor(a).to(self.dev)
+                     for a in (batch.images, batch.labels, batch.valid))
+
+    def fixed_ce(self, entry, cfg, model, normalize, batch) -> float:
+        """Mean cross-entropy on the batch, no augmentation, eval mode."""
+        step = self.steps.make_eval_step(lambda m, x: entry.apply(cfg, m, x), CLASSES,
+                                         normalize=normalize)
+        model.eval()
+        loss, _ = step(model, *self.on_device(batch))
+        return float(loss) / BATCH
+
+    def full_trainer(self, entry, cfg, dev_tree, steps_per_epoch: int):
+        """Model and state as ``train_base_model`` builds them."""
+        import torch
+
+        model = entry.from_tree(self.trees.map_leaves(torch.clone, dev_tree), cfg)
+        state = self.steps.TrainState.create(model, None, lambda ps: self.optim.adamw_steplr(
+            ps, 1e-4, weight_decay=1e-4, steps_per_epoch=steps_per_epoch))
+        return model, state
+
+    def fit_steps(self, entry, cfg, model, state, normalize, batch, steps, *, augment, snapshot):
+        import torch
+
+        return self.loop.fit(
+            lambda m, x: entry.apply(cfg, m, x), model, state, [batch] * steps, None, epochs=1,
+            num_classes=CLASSES, normalize=normalize, device=self.dev, log=lambda s: None,
+            generator=torch.Generator(self.dev).manual_seed(17) if augment else None,
+            augment=self.augment.train_augment if augment else None, snapshot=snapshot)
+
+    def train_full(self, entry, tree, normalize) -> dict:
+        """(a) full fine-tune, ``fuse_attn_block`` on, AdamW + StepLR, augmentation on."""
+        import torch
+        import torch.nn.functional as F
+
+        off = entry.config(CLASSES)
+        cfg = dataclasses.replace(off, fuse_attn_block=True)
+        dev_tree = self.trees.map_leaves(lambda t: t.to(self.dev), tree)
+        batch = self.train_batch(cfg.image_size)
+        images, labels, _ = self.on_device(batch)
+
+        def loss_and_norms(c):
+            model = entry.from_tree(dev_tree, c)
+            model.train()
+            logits = entry.apply(c, model, normalize(self.common.to_unit_floats(images)))
+            loss = F.cross_entropy(logits.float(), labels.long())
+            names, ps = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, ps)
+            return float(loss.detach()), {n: float(g.float().norm()) for n, g in zip(names, grads)}
+
+        loss_on, norms_on = loss_and_norms(cfg)
+        loss_off, norms_off = loss_and_norms(off)
+        check(abs(loss_on - loss_off) <= 5e-2 * abs(loss_off),
+              f"one step's loss with the fields on {loss_on} vs off {loss_off}")
+        top = max(norms_off.values())
+        # 5e-2 relative, plus 1e-3 of the largest norm: the key biases' gradient
+        # is zero in exact arithmetic and pure rounding noise in both models
+        worst = max(abs(norms_on[n] - b) / (b + 0.02 * top) for n, b in norms_off.items())
+        check(worst <= 5e-2, f"per-leaf gradient norms, fields on vs off: worst ratio {worst:.3e}")
+
+        model, state = self.full_trainer(entry, cfg, dev_tree, TRAIN_STEPS)
+        before = {n: p.detach().clone() for n, p in state.trainable.items()}
+        ce0 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        _, launches = self.counted(self.vit_counters(), lambda: self.fit_steps(
+            entry, cfg, model, state, normalize, batch, TRAIN_STEPS, augment=True,
+            snapshot=lambda: None))
+        per = cfg.depth * TRAIN_STEPS
+        want = {k: 0 for k in launches}
+        want.update({k: per for k in ("attn_block_fwd", "attn_block_bwd", "attn_block_param_grads",
+                                      "ln_mlp_fwd", "ln_mlp_bwd", "ln_mlp_param_grads")})
+        check(launches == want, f"full fine-tune kernel counts {launches} (want {want})")
+        check(state.step == TRAIN_STEPS and len(state.trainable) == len(list(model.parameters())),
+              "full fine-tune: update count or trainable set")
+        for n, p_ in state.trainable.items():
+            check(p_.dtype == torch.float32 and p_.grad is not None
+                  and bool(torch.isfinite(p_.grad).all()), f"gradient of {n} missing or non-finite")
+            check(not torch.equal(before[n], p_), f"trainable leaf {n} did not change")
+        ce1 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        check(ce1 < ce0, f"full fine-tune: CE on the fixed batch {ce0} -> {ce1}")
+        print(f"phase 5 train: google_vit full fine-tune, fuse_attn_block, AdamW + StepLR, "
+              f"augmentation on, f32 params bf16 compute, B={BATCH}, {TRAIN_STEPS} steps through "
+              f"fit: CE on the fixed batch {ce0:.4f} -> {ce1:.4f}; {len(before)} leaves all "
+              f"changed, gradients finite; one step fields on vs off: loss {loss_on:.4f} vs "
+              f"{loss_off:.4f}, gradient norms within {worst:.2e}; kernel launches {launches}",
+              flush=True)
+        return launches
+
+    def train_lora(self, entry, tree, normalize) -> dict:
+        """(b) LoRA defense: rank 8 on q/k/v/o unmerged, head trainable, dropout
+        0.1 on the adapter input, Adam, ``use_fused_mlp`` on; then one step with
+        ``fuse_attn_block`` instead."""
+        import torch
+
+        lora, trees, peft_io = self.lora, self.trees, self.peft_io
+        off = entry.config(CLASSES)
+        cfg = dataclasses.replace(off, use_fused_mlp=True)
+        lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg), dropout=0.1,
+                               dropout_mode="input")
+        dev_tree = trees.map_leaves(lambda t: t.to(self.dev), tree)
+        batch = self.train_batch(cfg.image_size)
+        model, state, snapshot = self.loop.lora_trainer(
+            entry, cfg, dev_tree, lcfg, lr=1e-4, train_head=True, seed=0, device=self.dev)
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if n not in state.trainable}
+        check(len(state.trainable) == 2 * 4 * cfg.depth + 2
+              and not any(p.requires_grad for n, p in model.named_parameters() if n in frozen),
+              f"LoRA: {len(state.trainable)} trainable tensors, or a frozen one asks a gradient")
+        ce0 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        _, launches = self.counted(self.vit_counters(), lambda: self.fit_steps(
+            entry, cfg, model, state, normalize, batch, TRAIN_STEPS, augment=False,
+            snapshot=snapshot))
+        per = cfg.depth * TRAIN_STEPS
+        want = {k: 0 for k in launches}
+        want.update({k: per for k in ("packed_fwd", "packed_bwd", "mlp_fwd", "mlp_bwd")})
+        check(launches == want, f"LoRA training kernel counts {launches} (want {want})")
+        named = dict(model.named_parameters())
+        check(all(torch.equal(t, named[n]) for n, t in frozen.items()),
+              "LoRA training changed a frozen leaf")
+        check(all(bool(p_.detach().abs().max() > 0) for n, p_ in state.trainable.items()
+                  if n.endswith("lora_b")), "a lora_b is still zero")
+        ce1 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        check(ce1 < ce0, f"LoRA training: CE on the fixed batch {ce0} -> {ce1}")
+
+        trained = snapshot()
+        out_dir = os.path.join(self.build_mod.build_dir(), "chip_smoke_vit_trained_adapter")
+        peft_io.save_peft_adapter(trained["adapter"], lcfg, out_dir, head=trained["head"])
+        got, got_cfg, got_head = peft_io.load_peft_adapter(out_dir)
+        check(set(got) == set(lcfg.targets) and got_cfg.rank == 8 and got_cfg.dropout == 0.1,
+              "trained adapter: paths or config changed")
+        check(all(torch.equal(got[p][k], trained["adapter"][p][k]) for p in got for k in "ab")
+              and all(torch.equal(got_head[k], trained["head"][k]) for k in ("w", "b")),
+              "trained adapter round trip is not byte-equal")
+        put = lambda t: t.to(self.dev)
+        merged = dict(lora.merge(dev_tree, {p: {k: put(v) for k, v in f.items()}
+                                            for p, f in got.items()}, got_cfg))
+        merged["head"] = {k: put(v) for k, v in got_head.items()}
+        merged_model = entry.from_tree(merged, off)
+        x8 = normalize(self.common.to_unit_floats(self.on_device(batch)[0][:8]))
+        with torch.no_grad():
+            la, lr = LOGIT_TOL["google_vit"]["bfloat16"]
+            e_m = close(entry.apply(off, merged_model, x8), entry.apply(cfg, model, x8), la, lr,
+                        "merged trained adapter vs the unmerged model")
+        del merged, merged_model, model, state, frozen
+
+        cfg2 = dataclasses.replace(off, fuse_attn_block=True)
+        model2, state2, snap2 = self.loop.lora_trainer(
+            entry, cfg2, dev_tree, lcfg, lr=1e-4, train_head=True, seed=0, device=self.dev)
+        _, l2 = self.counted(self.vit_counters(), lambda: self.fit_steps(
+            entry, cfg2, model2, state2, normalize, batch, 1, augment=False, snapshot=snap2))
+        want2 = {k: 0 for k in l2}
+        want2.update({k: cfg.depth for k in ("packed_fwd", "packed_bwd", "ln_mlp_fwd", "ln_mlp_bwd")})
+        check(l2 == want2, f"LoRA with fuse_attn_block kernel counts {l2} (want {want2})")
+        print(f"phase 5 train: google_vit LoRA rank 8 on q/k/v/o unmerged, dropout 0.1 (input), "
+              f"head trainable, Adam, use_fused_mlp, f32 params bf16 compute, B={BATCH}, "
+              f"{TRAIN_STEPS} steps through fit: CE on the fixed batch {ce0:.4f} -> {ce1:.4f}; "
+              f"base leaves bitwise unchanged, every lora_b non-zero; adapter + head through the "
+              f"PEFT writer/reader byte-equal, merged into the base vs the unmerged model "
+              f"max|err| {e_m:.3e}; kernel launches {launches}; one step with fuse_attn_block "
+              f"instead: {l2}", flush=True)
+        return launches
+
+    def attention_auto_entry(self) -> dict:
+        """The head-major kernel through its entry point, forward and backward."""
+        import torch
+
+        ka = self.ka
+        b, n, h, hd = MAIN
+        q, k, v = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
+                   .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+        do = torch.randn(b, h, n, hd, device=self.dev, generator=self.gen).to(torch.bfloat16)
+        counters = {"fwd": (ka, "BHND_FWD_LAUNCHES"), "bwd": (ka, "BHND_BWD_LAUNCHES")}
+        grads, launches = self.counted(counters, lambda: torch.autograd.grad(
+            ka.attention_auto(q, k, v), (q, k, v), do))
+        check(launches == {"fwd": 1, "bwd": 1}, f"attention_auto launches {launches}")
+        check(all(torch.equal(g_, w_) for g_, w_ in
+                  zip(grads, ka.fused_attention_bwd(q.detach(), k.detach(), v.detach(), do))),
+              "attention_auto's gradient is not the backward kernel's")
+        print(f"phase 5 attention_auto {(b, h, n, hd)} bf16: forward and backward through the "
+              f"head-major kernel, launches {launches}", flush=True)
+        return launches
+
     # 6. timing
     def time_attention(self, vit_l) -> list[dict]:
         """Packed attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
@@ -804,22 +1322,216 @@ class Smoke:
             weights = 2 * d * m * 2
             bf, bf_by = bound_ms(4 * t * d * m, 2 * t * d * 2 + weights, PEAK_BF16)
             bb, bb_by = bound_ms(6 * t * d * m, 3 * t * d * 2 + weights, PEAK_BF16)
-            rows[stage] = (kf, kb, pf, pb, bf, bf_by, bb, bb_by)
+            rows[stage] = (kf, kb, pf, pb, bf, bf_by, bb, bb_by, cf, cb)
             label = f"stage {stage}" if stage <= 4 else "ViT-B shape"
             print(f"phase 6 ln_mlp {label} {shape} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} "
                   f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single "
                   f"call) fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd "
                   f"{bb:.4f} ms ({bb_by}); kernel at {4e-9 * t * d * m / kf:.1f} / "
                   f"{6e-9 * t * d * m / kb:.1f} TFLOP/s {self.card}", flush=True)
-        kf, kb, pf, pb, bf, bf_by, bb, bb_by = rows[3]
+        kf, kb, pf, pb, bf, bf_by, bb, bb_by, cf, cb = rows[3]
         src = f"{PKG}/csrc/ln_mlp.cu"
         return [
             {"name": "ln_mlp_fwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/mlp.py:247", "launches": cnx_l["mlp_fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None},
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None,
+             "composition_ms": cf},
             {"name": "ln_mlp_bwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/mlp.py:255", "launches": cnx_l["mlp_bwd"],
-             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None}]
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
+             "composition_ms": cb}]
+
+    def time_fused_mlp(self, launches) -> list[dict]:
+        """The fused MLP without LayerNorm at the ViT-B shape: kernels, plain,
+        bound, and the bf16 library composition (``F.linear`` -> ``F.gelu`` ->
+        ``F.linear``; no one PyTorch call computes the function)."""
+        import torch
+        import torch.nn.functional as F
+
+        km = self.km
+        t, d, m = shape = FMLP_SHAPES[0]
+        x, dy, p = self.mlp_operands(shape)
+        p["w1"], p["w2"] = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
+        kf, pf = turns(lambda: km.fused_mlp_fwd(x, p["w1"], p["b1"], p["w2"], p["b2"]),
+                       lambda: km.mlp_reference(x, p["w1"], p["b1"], p["w2"], p["b2"]), 10)
+        kb_, pb = turns(lambda: km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy),
+                        lambda: km.mlp_bwd_reference(x, p["w1"], p["b1"], p["w2"], dy), 10)
+        w1t, w2t = p["w1"].t(), p["w2"].t()
+        b1h, b2h = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
+        library = lambda xi: F.linear(F.gelu(F.linear(xi, w1t, b1h)), w2t, b2h)
+        cf = cuda_ms(lambda: library(x), 10)
+        xg = x.detach().requires_grad_(True)
+        y = library(xg)
+        cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+        del y
+        weights = 2 * d * m * 2
+        bf, bf_by = bound_ms(4 * t * d * m, 2 * t * d * 2 + weights, PEAK_BF16)
+        bb, bb_by = bound_ms(6 * t * d * m, 3 * t * d * 2 + weights, PEAK_BF16)
+        print(f"phase 6 fused_mlp ViT-B shape {shape} bf16: kernel fwd {kf:.4f} ms bwd {kb_:.4f} "
+              f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single call) "
+              f"fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms "
+              f"({bb_by}) {self.card}", flush=True)
+        src = f"{PKG}/csrc/ln_mlp.cu"
+        return [
+            {"name": "fused_mlp_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/mlp.py:96", "launches": launches["mlp_fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None,
+             "composition_ms": cf},
+            {"name": "fused_mlp_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/mlp.py:102", "launches": launches["mlp_bwd"],
+             "ms": kb_, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
+             "composition_ms": cb}]
+
+    def time_attn_block(self, launches) -> list[dict]:
+        """The attention half-block at the ViT-B shape: kernels, plain, bound,
+        and the bf16 library composition (``F.layer_norm`` -> 3 x ``F.linear``
+        -> SDPA -> ``F.linear``; no one PyTorch call computes the function)."""
+        import torch
+        import torch.nn.functional as F
+
+        kb, eps = self.kb, 1e-6
+        b, n, c, h = shape = AB_SHAPES[0]
+        x, dy, p = self.attn_block_operands(shape)
+        for t in "qkvo":
+            p[f"w{t}"] = p[f"w{t}"].to(torch.bfloat16)
+        args = [p[k] for k in self.AB_ORDER]
+        kf, pf = turns(lambda: kb.fused_attn_block_fwd(x, *args, h, eps),
+                       lambda: kb.attn_block_reference(x, *args, h, eps), 10)
+        kbw, pb = turns(lambda: kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps),
+                        lambda: kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps), 10)
+        wt = {t: p[f"w{t}"].t() for t in "qkvo"}
+        bh = {t: p[f"b{t}"].to(torch.bfloat16) for t in "qkvo"}
+
+        def library(xi):
+            hn = F.layer_norm(xi.float(), (c,), p["ln_scale"], p["ln_bias"], eps).to(xi.dtype)
+            q, k, v = (F.linear(hn, wt[t], bh[t]).view(b, n, h, c // h).transpose(1, 2)
+                       for t in "qkv")
+            a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+            return F.linear(a, wt["o"], bh["o"])
+
+        cf = cuda_ms(lambda: library(x), 10)
+        xg = x.detach().requires_grad_(True)
+        y = library(xg)
+        cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+        del y
+        side = 4 * c * c * 2 + 6 * c * 4
+        bf, bf_by = bound_ms(b * (8 * n * c * c + 4 * n * n * c), 2 * b * n * c * 2 + side,
+                             PEAK_BF16)
+        bb, bb_by = bound_ms(b * (14 * n * c * c + 10 * n * n * c), 3 * b * n * c * 2 + side,
+                             PEAK_BF16)
+        print(f"phase 6 attn_block {shape[:3]} h{h} bf16: kernel fwd {kf:.4f} ms bwd {kbw:.4f} "
+              f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single call) "
+              f"fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms "
+              f"({bb_by}) {self.card}", flush=True)
+        src = f"{PKG}/csrc/attn_block.cu"
+        return [
+            {"name": "attn_block_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attn_block.py:84", "launches": launches["attn_block_fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None,
+             "composition_ms": cf},
+            {"name": "attn_block_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attn_block.py:99", "launches": launches["attn_block_bwd"],
+             "ms": kbw, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
+             "composition_ms": cb}]
+
+    def time_bhnd(self, launches) -> list[dict]:
+        """Head-major attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
+        import torch
+        import torch.nn.functional as F
+
+        ka = self.ka
+        b, n, h, hd = MAIN
+        q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        kf, pf = turns(lambda: ka.fused_attention_fwd(q, k, v),
+                       lambda: ka.attention_reference(q, k, v))
+        kb_, pb = turns(lambda: ka.fused_attention_bwd(q, k, v, do),
+                        lambda: ka.attention_bwd_reference(q, k, v, do))
+        qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lf = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True), 20)
+        unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
+        bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
+        bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
+        print(f"phase 6 fused_attention (B,H,N,hd) {(b, h, n, hd)} bf16: kernel fwd {kf:.4f} ms "
+              f"bwd {kb_:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
+              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
+              f"{self.card}", flush=True)
+        src = f"{PKG}/csrc/attention_packed.cu"
+        return [
+            {"name": "fused_attention_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:85", "launches": launches["fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "fused_attention_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:95", "launches": launches["bwd"],
+             "ms": kb_, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
+    def time_vit_pgd(self, entry, cfg, model_tree, normalize, x, y) -> None:
+        """ViT-B PGD-10 images/s with each kernel field and none: two turns
+        over the variants, the best of each."""
+        import torch
+
+        best = {}
+        models = {label: (dataclasses.replace(cfg, **fields),
+                          entry.from_tree(model_tree, dataclasses.replace(cfg, **fields)))
+                  for label, fields in VIT_VARIANTS}
+        for _ in range(2):
+            for label, (vcfg, model) in models.items():
+                pgd = self.make_pgd(entry, vcfg, normalize)
+                ms = cuda_ms(lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2)), 2)
+                best[label] = min(best.get(label, ms), ms)
+        for label, ms in best.items():
+            print(f"phase 6 PGD-{PGD_STEPS} google_vit+LoRA bf16 B={BATCH}, {label}: {ms:.2f} "
+                  f"ms/batch, {BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
+
+    def train_callables(self, entry, tree, normalize, kind: str) -> dict:
+        """``{label: one training step}`` for ``kind`` = "train" (full
+        fine-tune, augmentation on; fields on = ``fuse_attn_block``) or
+        "train_lora" (rank 8, dropout 0.1; fields on = ``use_fused_mlp``),
+        each on a model and state of its own."""
+        import torch
+
+        off = entry.config(CLASSES)
+        dev_tree = self.trees.map_leaves(lambda t: t.to(self.dev), tree)
+        images, labels, valid = self.on_device(self.train_batch(off.image_size))
+        on_fields = {"fuse_attn_block": True} if kind == "train" else {"use_fused_mlp": True}
+        out = {}
+        for label, fields in (("fields off", {}), (f"{next(iter(on_fields))} on", on_fields)):
+            cfg = dataclasses.replace(off, **fields)
+            if kind == "train":
+                model, state = self.full_trainer(entry, cfg, dev_tree, 100)
+                gen = torch.Generator(self.dev).manual_seed(17)
+                step = self.steps.make_train_step(
+                    lambda m, x, c=cfg: entry.apply(c, m, x), model, normalize=normalize,
+                    generator=gen, augment=self.augment.train_augment)
+            else:
+                lcfg = self.lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg),
+                                            dropout=0.1)
+                model, state, _ = self.loop.lora_trainer(
+                    entry, cfg, dev_tree, lcfg, lr=1e-4, train_head=True, seed=0, device=self.dev)
+                step = self.steps.make_train_step(
+                    lambda m, x, c=cfg: entry.apply(c, m, x), model, normalize=normalize)
+            model.train()
+            out[label] = lambda st=state, fn=step: fn(st, images, labels, valid)
+        return out
+
+    def time_training(self, entry, tree, normalize) -> None:
+        """Training images/s, full fine-tune and LoRA, fields off and on: turns
+        off-on-on-off of 3 steps after a warm-up, the best of each."""
+        for kind, what in (("train", "full fine-tune, augmentation on"),
+                           ("train_lora", "LoRA rank 8, dropout 0.1, head trainable")):
+            calls = self.train_callables(entry, tree, normalize, kind)
+            labels = list(calls)
+            best = {}
+            for label in (labels[0], labels[1], labels[1], labels[0]):
+                ms = cuda_ms(calls[label], 3)
+                best[label] = min(best.get(label, ms), ms)
+            for label, ms in best.items():
+                print(f"phase 6 training google_vit {what}, f32 params bf16 compute B={BATCH}, "
+                      f"{label}: {ms:.2f} ms/step, {BATCH * 1000 / ms:.2f} images/s {self.card}",
+                      flush=True)
+            del calls
 
     def convnext_variants(self, entry, cfg, model_tree):
         """``{label: (cfg, model)}`` over one set of parameters: both kernel
@@ -859,7 +1571,12 @@ class Smoke:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        if name == "convnext":
+        if name in ("train", "train_lora"):
+            entry, cfg, _, tree, normalize, _ = self.model(
+                "google_vit", self.vit, "attention_packed", self.ka.attention_packed_reference)
+            calls = self.train_callables(entry, tree, normalize, name)
+            what = f"one training step B={BATCH} f32 params bf16 compute"
+        elif name == "convnext":
             entry, cfg, _, _, normalize, model_tree = self.model(name, kernel_fields=CONVNEXT_KERNELS)
             runs = {label: v for label, v in self.convnext_variants(entry, cfg, model_tree).items()
                     if label in ("both kernels", "library")}
@@ -869,23 +1586,35 @@ class Smoke:
                 "swin": (self.swin, "window_attention", self.kw.window_attention_reference)}[name]
             entry, cfg, model, _, normalize, _ = self.model(name, module, attn, plain)
             runs = {"kernel path": (cfg, model)}
-        rng = np.random.default_rng(1)
-        x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
-                                          dtype=np.uint8)).to(self.dev)
-        y = torch.from_numpy(rng.integers(0, CLASSES, BATCH)).to(self.dev)
-        groups = (("dwconv7 (this repo)", r"dwconv7_kernel"), ("ln_mlp fwd (this repo)", r"ln_mlp_fwd"),
-                  ("ln_mlp bwd (this repo)", r"ln_mlp_bwd"),
+        if name not in ("train", "train_lora"):
+            rng = np.random.default_rng(1)
+            x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
+                                              dtype=np.uint8)).to(self.dev)
+            y = torch.from_numpy(rng.integers(0, CLASSES, BATCH)).to(self.dev)
+            what = f"PGD-{PGD_STEPS} B={BATCH} bf16"
+
+            def pgd_call(vcfg, model):
+                pgd = self.make_pgd(entry, vcfg, normalize)
+                return lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
+
+            calls = {label: pgd_call(vcfg, model) for label, (vcfg, model) in runs.items()}
+        groups = (("dwconv7 (this repo)", r"dwconv7_kernel"),
+                  ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd"),
+                  ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd"),
+                  ("attn_block fwd (this repo)", r"heads_fwd|oproj_fwd"),
+                  ("attn_block bwd (this repo)", r"heads_bwd|dh_bwd"),
                   ("attention fwd (this repo)", r"win_fwd|attn_fwd"),
                   ("attention bwd (this repo)", r"win_bwd|attn_bwd"),
                   ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
                   ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
+                  ("optimizer (foreach Adam/AdamW)", r"multi_tensor|adam|Adam"),
+                  ("grid_sample (augmentation)", r"grid_sampler"),
+                  ("softmax, cross-entropy", r"softmax|nll_loss"),
                   ("LayerNorm", r"layer_norm|LayerNorm"), ("GELU", r"[Gg]elu"),
                   ("copies, casts, cat", r"copy|Copy|cat|Cat|direct_copy|convert"),
                   ("index_select / index_add", r"index"),
                   ("other elementwise, fills, reductions", r".*"))
-        for label, (vcfg, model) in runs.items():
-            pgd = self.make_pgd(entry, vcfg, normalize)
-            call = lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
+        for label, call in calls.items():
             wall_ms = cuda_ms(call, 2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 call()
@@ -910,8 +1639,8 @@ class Smoke:
                     hi = max(hi, b)
             busy = (busy + hi - lo) / 1e3
             total = sum(v[0] for v in totals.values())
-            print(f"profile {name} ({label}) PGD-{PGD_STEPS} B={BATCH} bf16 {self.card}: "
-                  f"unprofiled {wall_ms:.2f} ms/batch; one traced call: device busy "
+            print(f"profile {name} ({label}) {what} {self.card}: "
+                  f"unprofiled {wall_ms:.2f} ms/call; one traced call: device busy "
                   f"{busy:.2f} ms (union of {len(spans)} kernel intervals), kernel time "
                   f"{total:.2f} ms, idle share of the unprofiled wall "
                   f"{max(0.0, 1 - busy / wall_ms):.1%}")
@@ -927,8 +1656,10 @@ def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext"), default=None,
-                    help="trace one warm PGD-10 call of this backbone instead of the smoke run")
+    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "train", "train_lora"),
+                    default=None,
+                    help="trace one warm PGD-10 call of this backbone (or one warm ViT-B training "
+                         "step, fields off and on) instead of the smoke run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -942,16 +1673,23 @@ def main(argv=None) -> None:
     err_w = s.window_vs_plain()
     err_d = s.dwconv_vs_plain()
     err_m = s.mlp_vs_plain()
+    err_f = s.fused_mlp_vs_plain()
+    err_a = s.attn_block_vs_plain()
+    err_h = s.bhnd_vs_plain()
 
     ka, kw, kd, km = s.ka, s.kw, s.kd, s.km
-    vit_entry, vit_cfg, vit_model, _, vit_norm, _ = s.model(
+    vit_entry, vit_cfg, vit_model, vit_tree, vit_norm, vit_model_tree = s.model(
         "google_vit", s.vit, "attention_packed", ka.attention_packed_reference)
     vit_l, vit_pgd, vit_x, vit_y, _, _ = s.attack(
         "google_vit", vit_entry, vit_cfg, vit_model, vit_norm,
         {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
         {"fwd": vit_cfg.depth * (PGD_STEPS + 1), "bwd": vit_cfg.depth * (PGD_STEPS + 1)})
+    s.vit_fields(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_model)
+    full_l = s.train_full(vit_entry, vit_tree, vit_norm)
+    lora_l = s.train_lora(vit_entry, vit_tree, vit_norm)
+    bhnd_l = s.attention_auto_entry()
 
-    swin_entry, swin_cfg, swin_model, swin_tree, swin_norm, _ = s.model(
+    swin_entry, swin_cfg, swin_model, swin_tree, swin_norm, swin_model_tree = s.model(
         "swin", s.swin, "window_attention", kw.window_attention_reference)
     blocks = sum(swin_cfg.depths)
     win_counters = {"fwd": (kw, "FWD_LAUNCHES"), "bwd": (kw, "BWD_LAUNCHES"),
@@ -961,7 +1699,9 @@ def main(argv=None) -> None:
         {"fwd": blocks * (PGD_STEPS + 1), "bwd": blocks * (PGD_STEPS + 1), "dbias": 0})
     swin_compose_s = s.compose("swin", swin_entry, swin_cfg, swin_tree, swin_x, swin_y, adv_f,
                                adv_p, win_counters, {"fwd": blocks, "bwd": 0, "dbias": 0})
-    del swin_tree, adv_f, adv_p
+    swin_fused = s.swin_fused_mlp(swin_entry, swin_cfg, swin_model_tree, swin_norm, swin_model,
+                                  win_counters)
+    del swin_tree, swin_model_tree, adv_f, adv_p
 
     cnx_entry, cnx_cfg, cnx_model, cnx_tree, cnx_norm, cnx_model_tree = s.model(
         "convnext", kernel_fields=CONVNEXT_KERNELS)
@@ -986,9 +1726,20 @@ def main(argv=None) -> None:
         pgd_ms = cuda_ms(lambda: pgd(model, x, y, torch.Generator(s.dev).manual_seed(2)), 3)
         print(f"phase 6 PGD-{PGD_STEPS} {name}+LoRA bf16 B={BATCH}: {pgd_ms:.2f} ms/batch, "
               f"{BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
+    f_pgd, f_model, f_x, f_y = swin_fused
+    pgd_ms = cuda_ms(lambda: f_pgd(f_model, f_x, f_y, torch.Generator(s.dev).manual_seed(2)), 2)
+    print(f"phase 6 PGD-{PGD_STEPS} swin+LoRA bf16 B={BATCH}, use_fused_mlp: {pgd_ms:.2f} "
+          f"ms/batch, {BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
+    del swin_model, swin_pgd, swin_fused, f_pgd, f_model
+    s.time_vit_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_x, vit_y)
     s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
+    s.time_training(vit_entry, vit_tree, vit_norm)
+    # launches: the full fine-tune's for attn_block (its parameter gradients
+    # too), the LoRA run's for the fused MLP, the entry point's for the
+    # head-major kernel; the attack paths' counts are in the phase 5 lines
     kernels = (s.time_attention(vit_l) + s.time_window(swin_l) + s.time_dwconv(cnx_l)
-               + s.time_mlp(cnx_l))
+               + s.time_mlp(cnx_l) + s.time_fused_mlp(lora_l) + s.time_attn_block(full_l)
+               + s.time_bhnd(bhnd_l))
     for name, wall in (("swin", swin_compose_s), ("convnext", cnx_compose_s)):
         print(f"phase 6 eval-compose {name} 4x3 matrix (B={BATCH} per dataset): wall "
               f"{wall:.3f} s {s.card}", flush=True)
@@ -996,11 +1747,17 @@ def main(argv=None) -> None:
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],
             "dwconv7_fwd": err_d["fwd"], "dwconv7_dx": err_d["dx"],
-            "ln_mlp_fwd": err_m["fwd"], "ln_mlp_bwd": err_m["bwd"]}
+            "ln_mlp_fwd": err_m["fwd"], "ln_mlp_bwd": err_m["bwd"],
+            "fused_mlp_fwd": err_f["fwd"], "fused_mlp_bwd": err_f["bwd"],
+            "attn_block_fwd": err_a["fwd"], "attn_block_bwd": err_a["bwd"],
+            "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    rows = [{**k, "max_abs_err": errs[k["name"]]} for k in kernels]
-    print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))
+    # composition_ms: where no one PyTorch call computes the function (library_ms null),
+    # the time of the library calls composed to compute it; null for the other kernels
+    rows = [{"composition_ms": None, **k, "max_abs_err": errs[k["name"]]} for k in kernels]
+    print(json.dumps({"kernels": [{key: row[key] for key in (*keys, "composition_ms")}
+                                  for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

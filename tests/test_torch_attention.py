@@ -124,3 +124,50 @@ def test_import_compiles_nothing(tmp_path):
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=str(tmp_path),
                    timeout=120)
+
+
+# --- the head-major kernel's side (``fused_attention`` of the JAX package) ----
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_major_plain_version_matches_jax_fused_attention(dtype):
+    """(B, H, N, hd) = (2, 3, 37, 32) through the port's plain versions and the
+    JAX Pallas kernel ``fused_attention`` in interpret mode (which pads N to
+    128 and masks the keys): f32 1e-5 / 1e-4, gradients 1e-4 / 1e-3; bf16
+    3e-2 forward, 5e-2 gradients (the packed kernel's limits)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models.vit import _as_tensor
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.kernels import attention as jatt
+
+    rng = np.random.default_rng(31)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, k, v, do = (jnp.asarray(rng.standard_normal((2, 3, 37, 32)).astype(np.float32), jd)
+                   for _ in range(4))
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(jatt.fused_attention, q, k, v)
+        want_grads = vjp(do)
+    tq, tk_, tv, tdo = (_as_tensor(np.asarray(a)) for a in (q, k, v, do))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk_, tv)]
+    got = tka.attention_auto(*leaves)  # the CPU route of the entry point
+    grads = torch.autograd.grad(got, leaves, tdo)
+    direct = tka.attention_bwd_reference(tq, tk_, tv, tdo)
+    f_tol, g_tol = (((1e-5, 1e-4), (1e-4, 1e-3)) if dtype == "float32"
+                    else ((3e-2, 3e-2), (5e-2, 5e-2)))
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               atol=f_tol[0], rtol=f_tol[1])
+    for g_auto, g_plain, w in zip(grads, direct, want_grads):
+        for g in (g_auto, g_plain):
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                       atol=g_tol[0], rtol=g_tol[1])
+
+
+def test_head_major_and_packed_plain_versions_agree_and_wrapper_refuses():
+    rng = np.random.default_rng(32)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 2, 9, 32)).astype(np.float32))
+               for _ in range(3))
+    packed = tka.attention_packed_reference(*(tka._merge(t) for t in (q, k, v)), 2)
+    assert torch.equal(tka._merge(tka.attention_reference(q, k, v)), packed)
+    with pytest.raises(ValueError):  # CPU tensors never reach the kernel
+        tka.fused_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        tka.fused_attention_fwd(q[0], k[0], v[0])

@@ -1,5 +1,5 @@
-"""The port's CLI (``synth-data``, ``attack``, ``eval-compose``) against the
-JAX CLI.
+"""The port's CLI (``synth-data``, ``train``, ``attack``, ``train-lora``,
+``eval-compose``) against the JAX CLI.
 
 Both CLIs attack the same checkpoint, written by the JAX package, on the
 CPU (``vit_test``, ``swin_test`` and ``convnext_test``). The JAX loader is pinned to its PIL
@@ -268,11 +268,12 @@ def test_convnext_attack_fgsm_pngs_match_jax_cli(convnext_runs):
     assert len(pgd_meta) == 15 and all(os.path.exists(p) for p in pgd_meta["image_path"])
 
 
-def test_fused_block_flag_sets_fuse_ln_mlp(convnext_runs, runs, tmp_path, monkeypatch):
+def test_fused_block_flag_sets_fuse_ln_mlp(convnext_runs, swin_runs, runs, tmp_path, monkeypatch):
     """``--fused_block`` is accepted for ConvNeXt and sets ``fuse_ln_mlp`` on
     the config the model is built with (in f32 on the CPU the field changes
     no number, so the PNGs equal the run without the flag); for a backbone
-    without the field it is an error, as in the JAX CLI."""
+    without a fused-block field (Swin) it is an error, as in the JAX CLI, and
+    so is ``--fused_mlp`` for ConvNeXt."""
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import registry as tregistry
 
     seen = []
@@ -291,8 +292,140 @@ def test_fused_block_flag_sets_fuse_ln_mlp(convnext_runs, runs, tmp_path, monkey
                                       "images" / n)) for d in ("fused", "plain"))
         np.testing.assert_array_equal(a, b)
     with pytest.raises(SystemExit, match="fused_block"):
-        tmain(["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "vit_test",
-               "--model_path", runs["ck"], "--splits", "test", "--fused_block"])
+        tmain(["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "swin_test",
+               "--model_path", swin_runs["ck"], "--splits", "test", "--fused_block"])
+    with pytest.raises(SystemExit, match="fused_mlp"):
+        tmain([*common, "--output_dir", str(tmp_path / "no"), "--fused_mlp"])
+
+
+def test_vit_kernel_flags_follow_the_jax_order(runs, tmp_path, monkeypatch):
+    """For the ViT family ``--fused_block`` sets ``fuse_attn_block`` (the
+    first fused-block field the config has, as in the JAX CLI), never
+    ``fuse_ln_mlp``; ``--fused_mlp`` sets ``use_fused_mlp``."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import registry as tregistry
+
+    seen = []
+    entry = tregistry.get_model("vit_test")
+    monkeypatch.setitem(tregistry._REGISTRY, "vit_test", dataclasses.replace(
+        entry, from_tree=lambda flat, cfg: (seen.append(cfg), entry.from_tree(flat, cfg))[1]))
+    common = ["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "vit_test",
+              "--model_path", runs["ck"], "--splits", "test", "--batch_size", "8",
+              "--attacks", "fgsm"]
+    for i, flags in enumerate((["--fused_block"], ["--fused_mlp"], [])):
+        assert tmain([*common, "--output_dir", str(tmp_path / str(i)), *flags]) == 0
+    assert [(c.fuse_attn_block, c.fuse_ln_mlp, c.use_fused_mlp) for c in seen] == [
+        (True, False, False), (False, False, True), (False, False, False)]
+
+
+def test_cli_refuses_to_run_without_a_card(tmp_path):
+    """No CUDA device and no ``--device cpu``: every stage stops with an error
+    that names ``--device cpu`` (``--device cuda`` is the default)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for argv in (["synth-data", "--output_dir", str(tmp_path / "d")],
+                 ["--device", "cuda:0", "train", "--data_root", str(tmp_path)],
+                 ["attack", "--data_root", str(tmp_path), "--model_path", "x.safetensors"]):
+        with pytest.raises(SystemExit, match="--device cpu"):
+            tmain(argv)
+    assert not (tmp_path / "d").exists()
+
+
+@pytest.fixture(scope="module")
+def pipeline(runs, tmp_path_factory):
+    """The five stages in the port alone on ``vit_test``: ``train`` (from a
+    checkpoint the JAX package wrote) -> ``attack`` -> ``train-lora`` ->
+    ``eval-compose``, over the module's synthetic dataset."""
+    root = tmp_path_factory.mktemp("pipeline")
+    C, data = ["--device", "cpu"], runs["data"]
+    out = {k: str(root / k) for k in ("t", "adv", "loras", "eval")}
+    assert tmain([*C, "train", "--data_root", data, "--model", "vit_test", "--output_dir", out["t"],
+                  "--checkpoint", runs["ck"], "--epochs", "2", "--batch_size", "8",
+                  "--resize", "32", "--learning_rate", "1e-3"]) == 0
+    ck = os.path.join(out["t"], "vit_test", "all", "vit_test_best_model_finetuned.safetensors")
+    assert tmain([*C, "attack", "--data_root", data, "--model", "vit_test", "--model_path", ck,
+                  "--output_dir", out["adv"], "--steps", "2", "--batch_size", "8"]) == 0
+    assert tmain([*C, "train-lora", "--data_root", data, "--model", "vit_test", "--model_path", ck,
+                  "--adv_root", out["adv"], "--output_dir", out["loras"], "--attacks", "fgsm", "pgd",
+                  "--ranks", "4", "--epochs", "1", "--batch_size", "8"]) == 0
+    common = ["eval-compose", "--data_root", data, "--model", "vit_test", "--model_path", ck,
+              "--adv_root", out["adv"], "--lora_root", out["loras"], "--rank", "4",
+              "--batch_size", "8"]
+    assert tmain([*C, *common, "--output_dir", out["eval"]]) == 0
+    return {**out, "ck": ck, "compose_args": common, "root": root}
+
+
+def test_pipeline_runs_in_the_port_alone(pipeline, runs):
+    """Every stage's files are where the next stage (of either package) looks."""
+    t_dir = os.path.dirname(pipeline["ck"])
+    for f in ("class_mappings.txt", "training_results.csv", "metrics.jsonl",
+              "vit_test_final_model.safetensors", "resume.state.safetensors"):
+        assert os.path.exists(os.path.join(t_dir, f)), f
+    for split in ("train", "val", "test"):
+        for attack in ("fgsm", "pgd"):
+            meta = pd.read_csv(os.path.join(pipeline["adv"], "vit_test", "all", split, attack,
+                                            "metadata.csv"))
+            assert len(meta) == 15
+    for attack in ("fgsm", "pgd"):
+        d = os.path.join(pipeline["loras"], "vit_test", "all", attack)
+        assert json.load(open(os.path.join(d, "results.json")))["rank4"]["rank"] == 4
+        for tag in ("best", "final"):
+            assert os.path.exists(os.path.join(d, f"rank4_{tag}_adapter", "adapter_config.json"))
+    assert set(json.load(open(os.path.join(pipeline["loras"], "global_results.json")))) == {
+        "fgsm", "pgd"}
+    got = json.load(open(os.path.join(pipeline["eval"], "test_results.json")))
+    assert list(got) == ["base", "lora_fgsm", "lora_pgd", "fgsm+pgd"]
+    assert all(m["support"] == 15 for per in got.values() for m in per.values())
+    # the trained checkpoint differs from the JAX-written one it started from
+    start, _ = jck.load_pytree(runs["ck"])
+    trained, _ = jck.load_pytree(pipeline["ck"])
+    assert not np.array_equal(np.asarray(start["head"]["w"]), np.asarray(trained["head"]["w"]))
+    with pytest.raises(SystemExit, match="safetensors"):
+        tmain(["--device", "cpu", "train", "--data_root", runs["data"], "--model", "vit_test",
+               "--checkpoint", "weights.pth"])
+
+
+def test_train_lora_exits_nonzero_when_a_pair_fails(pipeline, runs, tmp_path, monkeypatch):
+    """A failing (attack, rank) pair does not end the sweep (the other pair's
+    adapter is written and the error recorded), but the stage's exit code is 1."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.train import loop as tloop
+
+    orig = tloop.train_lora_adapter
+
+    def flaky(entry, tree, lcfg, *a, **k):
+        if lcfg.rank == 3:
+            raise RuntimeError("kernel launch failed")
+        return orig(entry, tree, lcfg, *a, **k)
+
+    monkeypatch.setattr(tloop, "train_lora_adapter", flaky)
+    out = str(tmp_path / "loras")
+    assert tmain(["--device", "cpu", "train-lora", "--data_root", runs["data"], "--model",
+                  "vit_test", "--model_path", pipeline["ck"], "--adv_root", pipeline["adv"],
+                  "--output_dir", out, "--attacks", "fgsm", "--ranks", "3", "4", "--epochs", "1",
+                  "--batch_size", "8"]) == 1
+    res = json.load(open(os.path.join(out, "vit_test", "all", "fgsm", "results.json")))
+    assert res["rank3"] == {"error": "kernel launch failed"} and res["rank4"]["rank"] == 4
+    assert os.path.exists(os.path.join(out, "vit_test", "all", "fgsm", "rank4_best_adapter"))
+
+
+def test_jax_cli_accepts_the_ports_checkpoint_and_adapters(pipeline, tmp_path):
+    """The JAX ``eval-compose`` over the checkpoint the port trained, the
+    port's adversarial PNGs and the adapter directories the port's
+    ``train-lora`` wrote: the same matrix as the port's own ``eval-compose``
+    (accuracy and support equal, F1 and loss within rtol 1e-4)."""
+    with _jax_pil_decode():
+        assert jmain(["--platform", "cpu", *pipeline["compose_args"],
+                      "--output_dir", str(tmp_path / "jax")]) == 0
+    got = json.load(open(os.path.join(pipeline["eval"], "test_results.json")))
+    want = json.load(open(tmp_path / "jax" / "test_results.json"))
+    assert list(got) == list(want)
+    for variant, per_ds in want.items():
+        for ds, m in per_ds.items():
+            g = got[variant][ds]
+            assert g["accuracy"] == m["accuracy"] and g["support"] == m["support"]
+            np.testing.assert_allclose(g["f1"], m["f1"], rtol=1e-4)
+            np.testing.assert_allclose(g["loss"], m["loss"], rtol=1e-4)
 
 
 def _jax_adapters(lora_root, model, params, targets, head_dim, classes, seed):

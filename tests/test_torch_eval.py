@@ -110,7 +110,7 @@ def test_composability_matrix_matches_jax(name):
     got = tcompose.run_composability_eval(
         tentry, ttrees.unflatten_from_paths(ttrees.map_leaves(torch.from_numpy, flat)), tad,
         {ds: [TBatch(*b, []) for b in bs] for ds, bs in data.items()}, CLASSES,
-        cfg=tentry.config(CLASSES), log=lambda s: None)
+        cfg=tentry.config(CLASSES), device="cpu", log=lambda s: None)
 
     assert list(got) == list(want) == ["base", "lora_fgsm", "lora_pgd", "fgsm+pgd"]
     for variant in want:

@@ -157,13 +157,11 @@ def test_kernel_wrapper_refuses_before_any_build(case):
 def test_diagnose_script_edits_find_their_places():
     """``tools/ln_mlp_diagnose`` times edited copies of ``csrc/ln_mlp.cu``; each
     edit must still find its place in the source (it raises otherwise)."""
-    import os
-
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import ln_mlp_diagnose
 
-    with open(os.path.join(_build.CSRC, "ln_mlp.cu")) as f:
-        text = f.read()
+    text = _build.inlined("ln_mlp.cu")  # the source with the csrc headers it includes
+    assert '#include "' not in text
     out = ln_mlp_diagnose.variants(text)
     assert list(out) == ["kernel", "no gelu", "no weight loads", "no mma", "no ldmatrix",
                          "no barriers"]
@@ -172,3 +170,78 @@ def test_diagnose_script_edits_find_their_places():
     assert '"ldmatrix.sync' not in out["no ldmatrix"] and "__syncthreads();" not in out["no barriers"]
     with pytest.raises(RuntimeError, match="found nothing"):
         ln_mlp_diagnose.variants(text.replace("erff(pre", "erf_(pre"))
+
+
+# --- the fused MLP without LayerNorm (``fused_mlp`` of the JAX package) -------
+
+def _mlp_args(seed=12):
+    a = _args(seed)
+    return (a[0], *a[3:])  # x, w1, b1, w2, b2
+
+
+MLP_NAMES = ("x", "w1", "b1", "w2", "b2")
+
+
+def _jax_mlp_reference(x, w1, b1, w2, b2):
+    """The JAX library composition with ``ops.nn`` numerics."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import nn as jnn
+
+    cd = x.dtype
+    h = jnn.gelu(jnn.dense({"w": w1, "b": b1}, x, compute_dtype=cd))
+    return jnn.dense({"w": w2, "b": b2}, h, compute_dtype=cd)
+
+
+@pytest.mark.parametrize("which", ["ref", "pallas"])
+def test_mlp_forward_and_all_grads_match_jax_f32(which):
+    """f32: forward 2e-5 / 1e-4, gradients 1e-4 / 1e-3 against the library
+    composition; against the Pallas kernel forward and dx 1e-5 / 1e-4 looser
+    in absolute terms (5e-5, 2e-4), because that kernel takes erf from a
+    polynomial good to 1.5e-7 where the port, like the library, calls erf."""
+    args = _mlp_args()
+    fn = _jax_mlp_reference if which == "ref" else jm.fused_mlp
+    g = np.random.default_rng(5).standard_normal(args[0].shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(fn, *map(jnp.asarray, args))
+        want_grads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    before = tm.MLP_PARAM_GRAD_CALLS
+    got = tm.mlp(*targs)
+    grads = torch.autograd.grad(got, targs, torch.from_numpy(g))
+    assert tm.MLP_PARAM_GRAD_CALLS == before + 1
+    f_atol, g_atol = (2e-5, 1e-4) if which == "ref" else (5e-5, 2e-4)
+    np.testing.assert_allclose(got.detach().numpy(), _f32(want), atol=f_atol, rtol=1e-4)
+    for name, gt, gw in zip(MLP_NAMES, grads, want_grads):
+        assert gt.shape == gw.shape, name
+        np.testing.assert_allclose(gt.numpy(), _f32(gw), atol=g_atol, rtol=1e-3, err_msg=name)
+
+
+def test_mlp_forward_and_dx_match_jax_bf16():
+    args = _mlp_args()
+    xj = jnp.asarray(args[0], jnp.bfloat16)
+    rest = tuple(jnp.asarray(a) for a in args[1:])
+    gj = jnp.asarray(np.random.default_rng(6).standard_normal(args[0].shape), jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a: jm.fused_mlp(a, *rest), xj)
+        (want_dx,) = vjp(gj)
+    xt = _as_tensor(np.asarray(xj)).requires_grad_(True)
+    trest = [torch.from_numpy(a) for a in args[1:]]
+    before = tm.MLP_PARAM_GRAD_CALLS
+    got = tm.mlp(xt, *trest)
+    (dx,) = torch.autograd.grad(got, xt, _as_tensor(np.asarray(gj)))
+    assert got.dtype == dx.dtype == torch.bfloat16 and got.shape == xt.shape
+    assert tm.MLP_PARAM_GRAD_CALLS == before
+    np.testing.assert_allclose(got.detach().float().numpy(), _f32(want), atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(dx.float().numpy(), _f32(want_dx), atol=2e-2, rtol=2e-2)
+
+
+def test_mlp_is_ln_mlp_without_the_layer_norm():
+    """One device code, one set of rounding points: the LN-fused plain version
+    on x equals the plain MLP on LN(x) rounded to the compute dtype."""
+    args = _args(seed=9)
+    x = torch.from_numpy(args[0]).to(torch.bfloat16)
+    rest = [torch.from_numpy(a) for a in args[1:]]
+    h = tk.ln_fwd_f32(x.float(), rest[0], rest[1], EPS)[2].to(torch.bfloat16)
+    assert torch.equal(tm.ln_mlp_reference(x, *rest, EPS), tm.mlp_reference(h, *rest[2:]))
+    with pytest.raises(ValueError):
+        tm.fused_mlp_fwd(torch.zeros(4, 100, dtype=torch.bfloat16), torch.zeros(100, 128),
+                         torch.zeros(128), torch.zeros(128, 100), torch.zeros(100))

@@ -240,5 +240,82 @@ def test_lora_merge_broadcasts_swin_pair_axes():
 
 
 def test_lora_config_carries_dropout():
-    assert tlora.LoRAConfig().dropout == 0.0
-    assert tlora.LoRAConfig(dropout=0.1).dropout == 0.1
+    """The defaults are the JAX package's: rate 0.1, PEFT's mask placement."""
+    j, t = jlora.LoRAConfig(), tlora.LoRAConfig()
+    assert (t.dropout, t.dropout_mode) == (j.dropout, j.dropout_mode) == (0.1, "input")
+    assert tlora.LoRAConfig(dropout=0.0, dropout_mode="post_a").dropout_mode == "post_a"
+
+
+@pytest.mark.parametrize("mode", ["input", "post_a"])
+def test_lora_dropout_keep_rate_and_unbiased(mode):
+    """The adapter branch alone is dropped: keep rate 1 - p (within 4 sigma
+    of a binomial), inverted scale, and the mean over many masks is the eval
+    form's output, which is the identity on the branch (within 8% of the
+    branch's largest value: 2000 masks, and with rank 4 and p = 0.25 one
+    mask moves an element by at most 0.58 of it, so 8% is 6 sigma)."""
+    rng = _rng(7)
+    d, r, o = 32, 4, 6
+    p = {"w": rng.standard_normal((d, o)).astype(np.float32) * 0.2,
+         "b": rng.standard_normal(o).astype(np.float32),
+         "lora_a": rng.standard_normal((d, r)).astype(np.float32) * 0.3,
+         "lora_b": rng.standard_normal((r, o)).astype(np.float32) * 0.3,
+         "lora_s": np.float32(2.0)}
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal((50, d)).astype(np.float32))
+    drop = tnn.LoRADropout(0.25, mode, torch.Generator().manual_seed(0))
+    scale = drop.scale((200, 500), "cpu")
+    kept = float((scale > 0).float().mean())
+    assert abs(kept - 0.75) < 4 * (0.75 * 0.25 / 1e5) ** 0.5
+    assert scale.unique().tolist() == pytest.approx([0.0, 1.0 / 0.75])
+    eval_out = tnn.dense(tp, x)
+    base_out = tnn.dense({"w": tp["w"], "b": tp["b"]}, x)
+    outs = torch.stack([tnn.dense({**tp, "lora_drop": drop}, x) for _ in range(2000)])
+    assert not torch.equal(outs[0], outs[1])  # a fresh mask per call
+    branch = (eval_out - base_out).abs().max()
+    assert float((outs.mean(0) - eval_out).abs().max()) < 0.08 * float(branch)
+    # the frozen path sees the undropped input: with B = 0 dropout changes nothing
+    zero_b = {**tp, "lora_b": torch.zeros_like(tp["lora_b"]), "lora_drop": drop}
+    _close(tnn.dense(zero_b, x), base_out.numpy())
+
+
+def test_lora_attach_training_form_streams():
+    """One seed per target and per stacked layer, all distinct; the eval form
+    carries none; ``detach`` strips them; a ViT built from the training form
+    drops only in training mode, and equals the JAX eval form otherwise."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import vit as tvit
+
+    rng = _rng(8)
+    params = _stacked_params(rng, depth=3)
+    targets = tuple(f"blocks/attn/{t}" for t in "qkvo")
+    _, tp = _both(params)
+    ad = _both_adapter(_adapter(rng, params, targets, rank=2))[1]
+    cfg = tlora.LoRAConfig(rank=2, targets=targets, dropout=0.2, dropout_mode="post_a")
+    train = tlora.attach(tp, ad, cfg, dropout_seed=5)
+    seeds = torch.cat([train["blocks"]["attn"][t]["lora_rng_pa"] for t in "qkvo"])
+    assert seeds.shape == (12,) and len(set(seeds.tolist())) == 12
+    assert float(train["blocks"]["attn"]["q"]["lora_p"][0]) == pytest.approx(0.2)
+    other = tlora.attach(tp, ad, cfg, dropout_seed=6)
+    assert not set(seeds.tolist()) & set(other["blocks"]["attn"]["q"]["lora_rng_pa"].tolist())
+    evalf = tlora.attach(tp, ad, cfg)
+    assert "lora_rng_pa" not in evalf["blocks"]["attn"]["q"]
+    no_drop = tlora.attach(tp, ad, tlora.LoRAConfig(rank=2, targets=targets, dropout=0.0),
+                           dropout_seed=5)
+    assert "lora_rng" not in no_drop["blocks"]["attn"]["q"]
+    assert set(ttrees.flatten_with_paths(tlora.detach(train))) == set(ttrees.flatten_with_paths(tp))
+
+    vcfg = tvit.VIT_TEST
+    base = tvit.init(vcfg, torch.Generator().manual_seed(0))
+    lcfg = tlora.LoRAConfig(rank=2, targets=tvit.LORA_TARGETS_DEFAULT, dropout=0.5)
+    vad = tlora.init(torch.Generator().manual_seed(1), base, lcfg)
+    for fac in vad.values():
+        fac["b"] = torch.randn(fac["b"].shape, generator=torch.Generator().manual_seed(2)) * 0.1
+    model = tvit.params_from_jax(tlora.attach(base, vad, lcfg, dropout_seed=0), vcfg)
+    plain = tvit.params_from_jax(tlora.attach(base, vad, lcfg), vcfg)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        model.eval()
+        assert torch.equal(model(x), plain(x))
+        model.train()
+        a, b = model(x), model(x)
+        assert not torch.equal(a, plain(x)) and not torch.equal(a, b)
+    assert set(tvit.params_to_jax(model)) == set(tvit.params_to_jax(plain))

@@ -186,3 +186,49 @@ def test_create_model_forward():
     with torch.no_grad():
         out = entry.apply(cfg, model, torch.zeros(2, 32, 32, 3))
     assert out.shape == (2, 4) and out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+# --- the opt-in fused MLP ---------------------------------------------------------
+
+def _count_mlp(monkeypatch):
+    calls = []
+    orig = tswin.mlp
+    monkeypatch.setattr(tswin, "mlp", lambda *a: (calls.append(a[0].shape[-1]), orig(*a))[1])
+    return calls
+
+
+def test_use_fused_mlp_matches_jax_model_flag(monkeypatch):
+    """``swin_test`` in bf16 compute with ``use_fused_mlp`` on in both packages
+    (the JAX kernel in interpret mode behind a pretended TPU backend): logits
+    within 2e-2, the JAX flag tests' limit in bf16; the port reaches the fused
+    MLP once per block, at every stage width."""
+    jcfg = dataclasses.replace(jswin.SWIN_TEST, compute_dtype="bfloat16", use_fused_mlp=True)
+    tcfg = dataclasses.replace(tswin.SWIN_TEST, compute_dtype="bfloat16", use_fused_mlp=True)
+    jparams = jax.jit(jswin.init, static_argnums=1)(jax.random.key(0), jcfg)
+    x = _images(jcfg, 11)
+    with pltpu.force_tpu_interpret_mode(), mock.patch("jax.default_backend", return_value="tpu"):
+        want = np.asarray(jswin.apply(jcfg, jparams, x))
+    calls = _count_mlp(monkeypatch)
+    model = tswin.params_from_jax(_flat_np(jparams), tcfg)
+    np.testing.assert_allclose(_logits(tcfg, model, x), want, atol=2e-2, rtol=2e-2)
+    assert len(calls) == sum(tcfg.depths)
+    assert sorted(set(calls)) == [tcfg.stage_dim(s) for s in range(tcfg.num_stages)]
+
+
+def test_use_fused_mlp_stands_aside_for_f32_and_for_lora(monkeypatch):
+    jcfg, tcfg = CONFIGS["swin_test"]
+    jparams = jax.jit(jswin.init, static_argnums=1)(jax.random.key(0), jcfg)
+    x = _images(jcfg, 12)
+    calls = _count_mlp(monkeypatch)
+    on = dataclasses.replace(tcfg, use_fused_mlp=True)  # f32 compute: the field does nothing
+    assert np.array_equal(_logits(on, tswin.params_from_jax(_flat_np(jparams), on), x),
+                          _logits(tcfg, tswin.params_from_jax(_flat_np(jparams), tcfg), x))
+    assert calls == []
+    # bf16 compute, unmerged factors on fc1/fc2 of stage 0: those blocks stay unfused
+    on16 = dataclasses.replace(on, compute_dtype="bfloat16")
+    base = ttrees.unflatten_from_paths(ttrees.map_leaves(torch.from_numpy, _flat_np(jparams)))
+    targets = ("stages/0/blocks/mlp/fc1", "stages/0/blocks/mlp/fc2")
+    lcfg = tlora.LoRAConfig(rank=2, targets=targets)
+    attached = tlora.attach(base, tlora.init(torch.Generator().manual_seed(0), base, lcfg), lcfg)
+    _logits(on16, tswin.params_from_jax(attached, on16), x)
+    assert len(calls) == sum(on16.depths[1:]) and on16.stage_dim(0) not in calls

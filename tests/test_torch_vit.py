@@ -169,3 +169,115 @@ def test_create_model_forward():
     with torch.no_grad():
         out = entry.apply(cfg, model, torch.zeros(2, 32, 32, 3))
     assert out.shape == (2, 4) and out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+# --- the three opt-in kernel fields --------------------------------------------
+
+FIELDS = ("use_fused_mlp", "fuse_ln_mlp", "fuse_attn_block")
+
+
+def _which_ops(field):
+    """The port ops a field must reach: (attn_block, ln_mlp, mlp, packed attention)."""
+    return {"use_fused_mlp": (0, 0, 1, 1), "fuse_ln_mlp": (0, 1, 0, 1),
+            "fuse_attn_block": (1, 1, 0, 0)}[field]
+
+
+def _count_ops(monkeypatch):
+    calls = {"attn_block": 0, "ln_mlp": 0, "mlp": 0, "attention_packed": 0}
+    for name in calls:
+        orig = getattr(tvit, name)
+        monkeypatch.setattr(tvit, name, lambda *a, _n=name, _o=orig: (
+            calls.__setitem__(_n, calls[_n] + 1), _o(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_kernel_field_matches_jax_model_flag(field, jparams, monkeypatch):
+    """bf16 compute, the field on in both packages (the JAX kernels in interpret
+    mode behind a pretended TPU backend): logits and the image gradient within
+    2e-2, the JAX flag tests' own limit against their plain model; the port
+    reaches exactly the ops the field names, once per block."""
+    x = _images(7, b=2)
+    jcfg = dataclasses.replace(JCFG, compute_dtype="bfloat16", **{field: True})
+    tcfg = dataclasses.replace(TCFG, compute_dtype="bfloat16", **{field: True})
+    with pltpu.force_tpu_interpret_mode(), mock.patch("jax.default_backend", return_value="tpu"):
+        want = np.asarray(jvit.apply(jcfg, jparams, x))
+        want_g = np.asarray(jax.grad(lambda im: jnp.sum(jvit.apply(jcfg, jparams, im)))(
+            jnp.asarray(x)))
+    model = tvit.params_from_jax(_flat_np(jparams), tcfg)
+    calls = _count_ops(monkeypatch)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = tvit.apply(tcfg, model, xt)
+    (g,) = torch.autograd.grad(out.sum(), xt)
+    assert tuple(calls.values()) == tuple(TCFG.depth * n for n in _which_ops(field)), calls
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(g.numpy(), want_g, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_kernel_field_does_nothing_with_f32_compute(field, jparams, monkeypatch):
+    tcfg = dataclasses.replace(TCFG, **{field: True})
+    model = tvit.params_from_jax(_flat_np(jparams), tcfg)
+    plain = tvit.params_from_jax(_flat_np(jparams), TCFG)
+    calls = _count_ops(monkeypatch)
+    x = _images(8)
+    assert np.array_equal(_logits(model, x), _logits(plain, x))
+    assert (calls["attn_block"], calls["ln_mlp"], calls["mlp"]) == (0, 0, 0)
+
+
+def test_kernel_fields_fall_back_with_lora(jparams, monkeypatch):
+    """With q/k/v/o adapters attached ``fuse_attn_block`` leaves the attention
+    half unfused (the kernel has no adapter branch) and still fuses the MLP
+    half; the adapter's contribution stays in the output (against the JAX
+    model with the same flag, 2e-2). With fc1/fc2 adapters the MLP fields
+    fall back too."""
+    x = _images(9, b=2)
+    ad = _adapter_np(rank=2, seed=8)
+    jl = jlora.LoRAConfig(rank=2, alpha=16.0, targets=jvit.LORA_TARGETS_DEFAULT)
+    tl = tlora.LoRAConfig(rank=2, alpha=16.0, targets=tvit.LORA_TARGETS_DEFAULT)
+    ja = jlora.attach(jparams, {p: {k: jnp.asarray(v) for k, v in f.items()}
+                                for p, f in ad.items()}, jl)
+    base_t = ttrees.unflatten_from_paths(ttrees.map_leaves(torch.from_numpy, _flat_np(jparams)))
+    ta = tlora.attach(base_t, {p: {k: torch.from_numpy(v) for k, v in f.items()}
+                               for p, f in ad.items()}, tl)
+    jcfg = dataclasses.replace(JCFG, compute_dtype="bfloat16", fuse_attn_block=True)
+    tcfg = dataclasses.replace(TCFG, compute_dtype="bfloat16", fuse_attn_block=True)
+    with pltpu.force_tpu_interpret_mode(), mock.patch("jax.default_backend", return_value="tpu"):
+        want = np.asarray(jvit.apply(jcfg, ja, x))
+    calls = _count_ops(monkeypatch)
+    with torch.no_grad():
+        got = tvit.apply(tcfg, tvit.params_from_jax(ta, tcfg), torch.from_numpy(x)).numpy()
+        no_adapter = tvit.apply(tcfg, tvit.params_from_jax(base_t, tcfg),
+                                torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    assert np.abs(got - no_adapter).max() > 0.05
+    # the attached model: no half-block; the base model after it: one per block
+    assert calls == {"attn_block": TCFG.depth, "ln_mlp": 2 * TCFG.depth, "mlp": 0,
+                     "attention_packed": TCFG.depth}
+
+    rng = np.random.default_rng(3)
+    d, m, depth = TCFG.hidden_dim, TCFG.mlp_dim, TCFG.depth
+    mlp_ad = {"blocks/mlp/fc1": {"a": torch.from_numpy(rng.standard_normal((depth, d, 2)).astype(np.float32)),
+                                 "b": torch.zeros(depth, 2, m)},
+              "blocks/mlp/fc2": {"a": torch.from_numpy(rng.standard_normal((depth, m, 2)).astype(np.float32)),
+                                 "b": torch.zeros(depth, 2, d)}}
+    tm = tlora.attach(base_t, mlp_ad, tlora.LoRAConfig(rank=2, targets=tuple(mlp_ad)))
+    for field in FIELDS:
+        cfg = dataclasses.replace(TCFG, compute_dtype="bfloat16", **{field: True})
+        for k in calls:
+            calls[k] = 0
+        with torch.no_grad():
+            tvit.apply(cfg, tvit.params_from_jax(tm, cfg), torch.from_numpy(x))
+        assert (calls["ln_mlp"], calls["mlp"]) == (0, 0), (field, calls)
+        assert calls["attn_block"] == (depth if field == "fuse_attn_block" else 0)
+
+
+def test_remat_gives_the_same_gradients(jparams):
+    x = torch.from_numpy(_images(10, b=2))
+    grads = []
+    for remat in (False, True):
+        model = tvit.params_from_jax(_flat_np(jparams), dataclasses.replace(TCFG, remat=remat))
+        loss = tvit.apply(TCFG, model, x).square().sum()
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
