@@ -7,49 +7,49 @@
 // _attn_bwd_core: the softmax(Q K^T * hd^-1/2) V of one ViT layer over q/k/v
 // in the packed (B, N, H*hd) layout the dense projections produce, heads as
 // contiguous hd-wide channel slices, or in the head-major (B, H, N, hd)
-// layout. One device code serves both: a kernel gets the batch stride, the
-// head stride and the row stride of its operands and reads them in place
-// (no transposed or padded copy exists; the TPU whole-head kernel pads N to
-// 128 with an additive key mask, here the ragged tail is masked as below).
-// Scores, softmax and every accumulation are f32; P
-// is rounded to the input dtype before P.V (forward) and P^T.dO (backward),
-// dS to the input dtype before dS.K and dS^T.Q, as the Pallas kernel does.
-// P is never written to device memory in either pass.
+// layout. One device code serves both layouts: a kernel gets the operands'
+// strides (or tensor maps built from them) and reads them in place (no
+// transposed or padded copy exists; the TPU whole-head kernel pads N to 128
+// with an additive key mask, here the ragged tail is masked as below).
+// Scores, softmax and every accumulation are f32; P is rounded to the input
+// dtype before P.V (forward) and P^T.dO (backward), dS to the input dtype
+// before dS.K and dS^T.Q, as the Pallas kernel does. P is never written to
+// device memory in either pass.
 //
-// What bounds it on the H100: at ViT-B shapes (B=64, N=197, H=12, hd=64) one
-// (batch, head) pair reads 3-4 tiles of 197x64 and does ~2*N^2*hd (forward)
-// and 5-8*N^2*hd (backward, with recompute) multiply-adds: ~100 FMA per byte
-// read, so the work is compute, not bytes, and it has to run on the tensor
-// cores to get near the card's bf16 rate.
+// What bounds it on the H100: at ViT-B shapes (B=64, N=197, H=12, hd=64) a
+// head does ~100 FLOP per byte it reads, under the card's bf16 ridge of 295:
+// the bytes bound it (23 us forward, 41 us backward), with the tensor-core
+// time at the dense peak close behind, so the products have to run on the
+// tensor cores at a rate only wgmma reaches, and the loads have to overlap
+// them.
 //
-// What the design does about it. Two variants share the grid and the
-// two-phase structure:
-// * one CTA per (batch, head): 768 CTAs at ViT-B, enough to fill 132 SMs
-//   (the Pallas grid of one program per batch element would give 64);
-// * the head's K and V (and, in the backward, Q and dO) are staged once in
-//   shared memory with padded rows, so lanes walking different rows hit
-//   different banks; a shape that needs more than 48 KB is opted in with
-//   cudaFuncSetAttribute, one that does not fit is refused with the CUDA
-//   error code;
-// * the backward runs two phases inside the CTA. Phase 1 (query-row owners)
-//   recomputes P, forms dP, the row statistic D = rowsum(dP*P) and dS, and
-//   writes dQ; it leaves (max, sum, D) per row in shared memory. Phase 2
-//   (key-row owners) recomputes P and dS from those statistics and
-//   accumulates dK and dV in registers. Every sum has one owner and a fixed
-//   order: no atomics, results are bitwise reproducible from run to run;
-// * the ragged N (197) is masked explicitly: keys >= N get P = 0, rows >= N
-//   are never written.
-// The tensor-core variant (namespace tc: bf16, N <= 256, the ViT path) runs
-// every product on mma.sync m16n8k16 with ldmatrix operands, a warp owning
-// 16 rows with their whole score row in registers (exact two-pass softmax).
-// The CUDA-core variant (f32, and bf16 with N > 256) gives a warp one row
-// and a lane one key at a time.
+// Three variants, chosen by an explicit test of (dtype, N, hd) in fwd_any /
+// bwd_any below (kernels/attention.py:kernel_variant is the same test; no
+// flag chooses):
+// * "wgmma": bf16, hd = 64, N <= 256, the ViT-B path. The Hopper core of
+//   attn_wgmma.cuh: wgmma.mma_async from TMA-loaded, 128-byte-swizzled tiles
+//   behind mbarriers, the 64 x N scores of a warpgroup in its accumulators,
+//   a seven-product backward from the forward's log-sum-exp. Its header
+//   says what it does about the bound;
+// * "mma_sync": bf16, hd = 32, N <= 256 (no model of the package has this
+//   shape; a 64-byte row would need the 64-byte swizzle and its own tile
+//   format). namespace tc below: the core of attn_core.cuh, which
+//   attn_block.cu also uses: a warp owns 16 rows with their whole score row
+//   in registers, mma.sync m16n8k16 with ldmatrix operands;
+// * "cuda_core": f32, and bf16 with N > 256: a warp per row, a lane per key.
+// All three: one CTA (or a few) per (batch, head); the backward in two
+// phases, query-row owners for dQ, key-row owners for dK and dV, every sum
+// with one owner and a fixed order: no atomics, bitwise reproducible; keys
+// >= N get P = 0, rows >= N are never written. The forward writes the row
+// log-sum-exp (B, H, N) f32 and the backward reads it and the forward's
+// output only in the wgmma variant; the other two ignore those pointers.
 //
 // C interface (loaded with ctypes): each entry point returns the CUDA error
 // code of its launch (cudaGetLastError), 0 on success, -1 for an
-// unsupported dtype or head dim.
+// unsupported dtype or head dim, -2 if a tensor map could not be encoded.
 
 #include "attn_core.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -336,8 +336,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant for bf16 operands with N <= 256: the same math with
-// every product on mma.sync m16n8k16 (bf16 in, f32 accumulate), from the
+// mma.sync variant for bf16 operands with hd = 32 and N <= 256: the same math
+// with every product on mma.sync m16n8k16 (bf16 in, f32 accumulate), from the
 // shared attention core (attn_core.cuh). Tiles are staged in shared memory
 // with rows padded by 16 bytes (ldmatrix reads 8 rows of 16 bytes without
 // bank conflicts); ldmatrix .trans gives the operand fragments that need a
@@ -469,16 +469,16 @@ Layout layout_of(int layout, int N, int H, int hd) {
   return Layout{(long long)N * H * hd, (long long)hd, H * hd};
 }
 
-int fwd_any(const void* q, const void* k, const void* v, void* o, int B, int N, int H, int hd,
-            int dtype, int layout, float scale, void* stream) {
+int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse, int B, int N, int H,
+            int hd, int dtype, int layout, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(layout, N, H, hd);
+  if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
+    return apvt::wg::launch_fwd(q, k, v, o, static_cast<float*>(lse), B, N, H, layout, scale, s);
   if (dtype == 0 && hd == 32) return launch_fwd<float, 32>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 0 && hd == 64) return launch_fwd<float, 64>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 1 && N <= kTcMaxN && hd == 32)
     return launch_fwd_tc<32>(q, k, v, o, B, N, H, lay, scale, s);
-  if (dtype == 1 && N <= kTcMaxN && hd == 64)
-    return launch_fwd_tc<64>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
     return launch_fwd<__nv_bfloat16, 32>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 64)
@@ -486,19 +486,20 @@ int fwd_any(const void* q, const void* k, const void* v, void* o, int B, int N, 
   return -1;
 }
 
-int bwd_any(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-            void* dv, int B, int N, int H, int hd, int dtype, int layout, float scale,
-            void* stream) {
+int bwd_any(const void* q, const void* k, const void* v, const void* dout, const void* o,
+            const void* lse, void* dq, void* dk, void* dv, int B, int N, int H, int hd, int dtype,
+            int layout, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(layout, N, H, hd);
+  if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
+    return apvt::wg::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse), dq, dk, dv, B, N,
+                                H, layout, scale, s);
   if (dtype == 0 && hd == 32)
     return launch_bwd<float, 32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 0 && hd == 64)
     return launch_bwd<float, 64>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && N <= kTcMaxN && hd == 32)
     return launch_bwd_tc<32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
-  if (dtype == 1 && N <= kTcMaxN && hd == 64)
-    return launch_bwd_tc<64>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
     return launch_bwd<__nv_bfloat16, 32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 64)
@@ -510,28 +511,30 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, void*
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. hd: 32 or 64. Operands (B, N, H*hd).
-int apvt_attn_packed_fwd(const void* q, const void* k, const void* v, void* o, int B, int N,
-                         int H, int hd, int dtype, float scale, void* stream) {
-  return fwd_any(q, k, v, o, B, N, H, hd, dtype, 0, scale, stream);
+// dtype: 0 = float32, 1 = bfloat16. hd: 32 or 64. Operands (B, N, H*hd); lse
+// (B, H, N) f32, written by the forward and read (with o) by the backward in
+// the wgmma variant only.
+int apvt_attn_packed_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                         int N, int H, int hd, int dtype, float scale, void* stream) {
+  return fwd_any(q, k, v, o, lse, B, N, H, hd, dtype, 0, scale, stream);
 }
 
 int apvt_attn_packed_bwd(const void* q, const void* k, const void* v, const void* dout,
-                         void* dq, void* dk, void* dv, int B, int N, int H, int hd, int dtype,
-                         float scale, void* stream) {
-  return bwd_any(q, k, v, dout, dq, dk, dv, B, N, H, hd, dtype, 0, scale, stream);
+                         const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
+                         int N, int H, int hd, int dtype, float scale, void* stream) {
+  return bwd_any(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, hd, dtype, 0, scale, stream);
 }
 
 // The same over head-major operands (B, H, N, hd).
-int apvt_attn_bhnd_fwd(const void* q, const void* k, const void* v, void* o, int B, int N,
-                       int H, int hd, int dtype, float scale, void* stream) {
-  return fwd_any(q, k, v, o, B, N, H, hd, dtype, 1, scale, stream);
+int apvt_attn_bhnd_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                       int N, int H, int hd, int dtype, float scale, void* stream) {
+  return fwd_any(q, k, v, o, lse, B, N, H, hd, dtype, 1, scale, stream);
 }
 
-int apvt_attn_bhnd_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                       void* dk, void* dv, int B, int N, int H, int hd, int dtype, float scale,
-                       void* stream) {
-  return bwd_any(q, k, v, dout, dq, dk, dv, B, N, H, hd, dtype, 1, scale, stream);
+int apvt_attn_bhnd_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const void* o, const void* lse, void* dq, void* dk, void* dv, int B, int N,
+                       int H, int hd, int dtype, float scale, void* stream) {
+  return bwd_any(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, hd, dtype, 1, scale, stream);
 }
 
 const char* apvt_cuda_error_string(int code) {

@@ -22,11 +22,20 @@ stored scores to bf16 first, so the two differ by about one bf16 ulp in P.
 
 Dispatch (:func:`attention_packed`): a CPU tensor takes the plain forward,
 differentiated by autograd; a CUDA tensor launches the kernel
-(``csrc/attention_packed.cu``) or raises. Inside the kernel library, bf16
-with N <= 256 (the ViT path) runs on the tensor cores; f32, and bf16 with
-longer sequences, on the CUDA cores. ``FWD_LAUNCHES`` and
-``BWD_LAUNCHES`` count the packed kernel's launches, ``BHND_FWD_LAUNCHES``
-and ``BHND_BWD_LAUNCHES`` the head-major kernel's, so a run can show it went
+(``csrc/attention_packed.cu``) or raises. Inside the kernel library the
+shape picks the variant (:func:`kernel_variant` is the same test in Python):
+bf16 with hd = 64 and N <= 256 (the ViT path) runs on ``wgmma`` with TMA
+loads (``csrc/attn_wgmma.cuh``); bf16 with hd = 32 and N <= 256 on
+``mma.sync``; f32, and bf16 with longer sequences, on the CUDA cores. The
+``wgmma`` forward also returns the row log-sum-exp ``(B, H, N)`` in f32, and
+its backward takes that and the forward's output, so that P needs no second
+max/sum pass and ``D = rowsum(dO * O)`` no second product
+(:func:`attention_bwd_from_saved` is that arithmetic in plain PyTorch; it
+differs from :func:`attention_bwd_reference` only by the rounding of O). The
+``autograd.Function``s save both; a direct call of a backward wrapper without
+them runs the forward kernel first. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES``
+count the packed kernel's launches, ``BHND_FWD_LAUNCHES`` and
+``BHND_BWD_LAUNCHES`` the head-major kernel's, so a run can show it went
 through the kernel.
 """
 
@@ -42,6 +51,7 @@ BHND_FWD_LAUNCHES = 0
 BHND_BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64)
+WGMMA_MAX_N = 256  # the wgmma and mma.sync variants hold a whole score row in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "attention_packed.cu"
 
@@ -85,6 +95,30 @@ def attention_bwd_reference(q, k, v, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Row log-sum-exp of the scaled scores, ``(B, H, N)`` f32, from head-major
+    operands: what the ``wgmma`` forward kernel writes beside its output."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    return torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_from_saved(q, k, v, do, o, lse):
+    """Plain PyTorch version of the ``wgmma`` backward kernel over head-major
+    operands: P from the saved log-sum-exp, ``D = rowsum(dO * O)`` from the
+    saved output; every other step and rounding point as in
+    :func:`attention_bwd_reference`. Returns ``(dq, dk, dv)``."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    row = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = ((p * (dp - row)) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                heads: int) -> torch.Tensor:
     """Plain PyTorch version of the packed kernel's forward (differentiable)."""
@@ -99,15 +133,30 @@ def attention_packed_bwd_reference(q, k, v, do, heads: int):
 
 # --- the CUDA kernel ----------------------------------------------------------
 
+def kernel_variant(dtype: torch.dtype, n: int, hd: int) -> str:
+    """Which device code of ``csrc/attention_packed.cu`` a shape takes (the
+    same test as its C launcher; nothing else chooses): ``"wgmma"``,
+    ``"mma_sync"`` or ``"cuda_core"``. Raises on what no variant takes."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIMS})")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype} unsupported by the CUDA kernel")
+    if n < 1:
+        raise ValueError(f"sequence length {n} unsupported by the CUDA kernel")
+    if dtype == torch.bfloat16 and n <= WGMMA_MAX_N:
+        return "wgmma" if hd == 64 else "mma_sync"
+    return "cuda_core"
+
+
 def _lib():
     from . import _build
 
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_apvt_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.apvt_attn_packed_fwd.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+        lib.apvt_attn_packed_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
         lib.apvt_attn_packed_fwd.restype = i
-        lib.apvt_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.apvt_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.apvt_attn_packed_bwd.restype = i
         lib.apvt_attn_bhnd_fwd.argtypes = lib.apvt_attn_packed_fwd.argtypes
         lib.apvt_attn_bhnd_fwd.restype = i
@@ -135,10 +184,7 @@ def _check(*tensors: torch.Tensor, heads: int | None) -> tuple[int, int, int, in
         if heads <= 0 or c % heads:
             raise ValueError(f"channels {c} not divisible by heads {heads}")
         hd = c // heads
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIMS})")
-    if ref.dtype not in _DTYPE_CODE:
-        raise TypeError(f"dtype {ref.dtype} unsupported by the CUDA kernel")
+    kernel_variant(ref.dtype, n, hd)
     for t in tensors:
         if not t.is_cuda or t.device != ref.device:
             raise ValueError("attention operands must share one CUDA device")
@@ -154,53 +200,80 @@ def _check(*tensors: torch.Tensor, heads: int | None) -> tuple[int, int, int, in
 def _raise_on(code: int, lib, what: str) -> None:
     if code == -1:
         raise ValueError(f"{what}: unsupported dtype or head dim")
+    if code == -2:
+        raise RuntimeError(f"{what}: no tensor map could be encoded for these operands")
     if code != 0:
         msg = lib.apvt_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def fused_attention_packed_fwd(q, k, v, heads: int) -> torch.Tensor:
-    """Launch the forward kernel on CUDA tensors; returns o (B, N, C)."""
-    global FWD_LAUNCHES
-    b, n, _, hd, code = _check(q, k, v, heads=heads)
+def _launch_fwd(q, k, v, heads: int | None):
+    """The forward kernel over packed (``heads`` given) or head-major operands:
+    ``(o, lse)``; ``lse`` ``(B, H, N)`` f32 is written by the wgmma variant only."""
+    b, n, h, hd, code = _check(q, k, v, heads=heads)
     lib = _lib()
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.apvt_attn_packed_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  b, n, heads, hd, code, hd ** -0.5, stream)
+    fn = lib.apvt_attn_bhnd_fwd if heads is None else lib.apvt_attn_packed_fwd
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, n, h, hd, code, hd ** -0.5, stream)
     _raise_on(rc, lib, "attention forward")
-    FWD_LAUNCHES += 1
-    return o
+    return o, lse
 
 
-def fused_attention_packed_bwd(q, k, v, do, heads: int):
-    """Launch the backward kernel on CUDA tensors; returns (dq, dk, dv)."""
-    global BWD_LAUNCHES
-    b, n, _, hd, code = _check(q, k, v, do, heads=heads)
+def _launch_bwd(q, k, v, do, o, lse, heads: int | None):
+    """The backward kernel: ``(dq, dk, dv)``. ``o`` and ``lse`` are the
+    forward's; the variants other than wgmma do not read them."""
+    b, n, h, hd, code = _check(q, k, v, do, o, heads=heads)
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("the log-sum-exp must be (B, H, N) float32, contiguous")
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.apvt_attn_packed_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                  b, n, heads, hd, code, hd ** -0.5, stream)
+    fn = lib.apvt_attn_bhnd_bwd if heads is None else lib.apvt_attn_packed_bwd
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, n, h, hd, code, hd ** -0.5, stream)
     _raise_on(rc, lib, "attention backward")
-    BWD_LAUNCHES += 1
     return dq, dk, dv
 
 
+def fused_attention_packed_fwd(q, k, v, heads: int, *, with_lse: bool = False):
+    """Launch the forward kernel on CUDA tensors; returns o (B, N, C), or
+    ``(o, lse)`` with ``with_lse``."""
+    global FWD_LAUNCHES
+    o, lse = _launch_fwd(q, k, v, heads)
+    FWD_LAUNCHES += 1
+    return (o, lse) if with_lse else o
+
+
+def fused_attention_packed_bwd(q, k, v, do, heads: int, o=None, lse=None):
+    """Launch the backward kernel on CUDA tensors; returns (dq, dk, dv).
+    Without the forward's ``o`` and ``lse`` the forward kernel runs first."""
+    global BWD_LAUNCHES
+    if o is None or lse is None:
+        o, lse = fused_attention_packed_fwd(q, k, v, heads, with_lse=True)
+    grads = _launch_bwd(q, k, v, do, o, lse, heads)
+    BWD_LAUNCHES += 1
+    return grads
+
+
 class _PackedAttention(torch.autograd.Function):
-    """The kernel pair as one differentiable op; saves only q, k, v."""
+    """The kernel pair as one differentiable op; saves q, k, v, the output
+    and the row log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads):
         ctx.heads = heads
-        ctx.save_for_backward(q, k, v)
-        return fused_attention_packed_fwd(q, k, v, heads)
+        o, lse = fused_attention_packed_fwd(q, k, v, heads, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = fused_attention_packed_bwd(q, k, v, do.contiguous(), ctx.heads)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_packed_bwd(q, k, v, do.contiguous(), ctx.heads, o, lse)
         return dq, dk, dv, None
 
 
@@ -218,46 +291,41 @@ def attention_packed(q, k, v, heads: int) -> torch.Tensor:
 
 # --- head-major (B, H, N, hd) ---------------------------------------------------
 
-def fused_attention_fwd(q, k, v) -> torch.Tensor:
-    """Launch the forward kernel on head-major CUDA tensors; returns o (B, H, N, hd)."""
+def fused_attention_fwd(q, k, v, *, with_lse: bool = False):
+    """Launch the forward kernel on head-major CUDA tensors; returns o
+    (B, H, N, hd), or ``(o, lse)`` with ``with_lse``."""
     global BHND_FWD_LAUNCHES
-    b, n, h, hd, code = _check(q, k, v, heads=None)
-    lib = _lib()
-    o = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.apvt_attn_bhnd_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                b, n, h, hd, code, hd ** -0.5, stream)
-    _raise_on(rc, lib, "attention forward")
+    o, lse = _launch_fwd(q, k, v, None)
     BHND_FWD_LAUNCHES += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
-def fused_attention_bwd(q, k, v, do):
-    """Launch the backward kernel on head-major CUDA tensors; returns (dq, dk, dv)."""
+def fused_attention_bwd(q, k, v, do, o=None, lse=None):
+    """Launch the backward kernel on head-major CUDA tensors; returns
+    (dq, dk, dv). Without the forward's ``o`` and ``lse`` the forward kernel
+    runs first."""
     global BHND_BWD_LAUNCHES
-    b, n, h, hd, code = _check(q, k, v, do, heads=None)
-    lib = _lib()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.apvt_attn_bhnd_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                b, n, h, hd, code, hd ** -0.5, stream)
-    _raise_on(rc, lib, "attention backward")
+    if o is None or lse is None:
+        o, lse = fused_attention_fwd(q, k, v, with_lse=True)
+    grads = _launch_bwd(q, k, v, do, o, lse, None)
     BHND_BWD_LAUNCHES += 1
-    return dq, dk, dv
+    return grads
 
 
 class _Attention(torch.autograd.Function):
-    """The head-major kernel pair as one differentiable op; saves only q, k, v."""
+    """The head-major kernel pair as one differentiable op; saves q, k, v, the
+    output and the row log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return fused_attention_fwd(q, k, v)
+        o, lse = fused_attention_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        return fused_attention_bwd(*ctx.saved_tensors, do.contiguous())
+        q, k, v, o, lse = ctx.saved_tensors
+        return fused_attention_bwd(q, k, v, do.contiguous(), o, lse)
 
 
 def fused_attention(q, k, v) -> torch.Tensor:

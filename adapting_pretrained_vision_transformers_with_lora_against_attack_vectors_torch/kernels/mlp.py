@@ -31,7 +31,13 @@ path and a frozen base ask for none. ``PARAM_GRAD_CALLS`` and
 Dispatch (:func:`ln_mlp`, :func:`mlp`): one ``autograd.Function`` each for
 both devices; CPU tensors take the plain versions in forward and backward,
 CUDA tensors launch the kernels (``csrc/ln_mlp.cu``) or raise. The kernels take bf16 only, D in
-``KERNEL_DIMS`` and M a multiple of ``HIDDEN_MULTIPLE``. A model calls
+``KERNEL_DIMS`` and M a multiple of ``HIDDEN_MULTIPLE``. Inside the library
+the shape picks the device code (:func:`kernel_variant` is the same test in
+Python): the ``wgmma`` kernels (TMA-fed ring of weight slabs, 64 token rows
+per pass, a cluster of two CTAs splitting D at D >= 512) take every shape
+but D >= 512 with M not a multiple of 256 and the LayerNorm-fused forward at
+D = 128 (measured 3% slower there), which keep the first, ``mma.sync``
+kernels (``csrc/ln_mlp_mma.cuh``). A model calls
 :func:`ln_mlp` only with bf16 compute (the JAX dtype gate: with f32 compute
 its block runs the library composition) and lets an unsupported width raise.
 ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the LN-fused kernels' launches,
@@ -56,6 +62,8 @@ MLP_PARAM_GRAD_CALLS = 0
 
 KERNEL_DIMS = (128, 256, 384, 512, 768, 1024)
 HIDDEN_MULTIPLE = 128
+CLUSTER_MIN_DIM = 512  # from this width on a cluster of two CTAs splits D ...
+CLUSTER_HIDDEN_MULTIPLE = 256  # ... and a hidden chunk is 128 columns per CTA of the cluster
 _SOURCE = "ln_mlp.cu"
 _SQRT_HALF = 0.7071067811865476
 
@@ -187,6 +195,23 @@ def _lib():
     return lib
 
 
+def kernel_variant(d: int, m: int, what: str = "mlp_fwd") -> str:
+    """Which device code of ``csrc/ln_mlp.cu`` a width ``d`` with hidden width
+    ``m`` takes for ``what`` (``"ln_mlp_fwd"``, ``"ln_mlp_bwd"``, ``"mlp_fwd"``
+    or ``"mlp_bwd"``); the same test as its C launcher, nothing else chooses:
+    ``"wgmma"`` or ``"mma_sync"``. Raises on what no kernel takes."""
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"width {d} unsupported by the CUDA kernel (takes {KERNEL_DIMS})")
+    if m < HIDDEN_MULTIPLE or m % HIDDEN_MULTIPLE:
+        raise ValueError(f"hidden width {m} unsupported by the CUDA kernel "
+                         f"(takes multiples of {HIDDEN_MULTIPLE})")
+    if d >= CLUSTER_MIN_DIM and m % CLUSTER_HIDDEN_MULTIPLE:
+        return "mma_sync"
+    if what == "ln_mlp_fwd" and d == 128:
+        return "mma_sync"  # measured 3% slower on wgmma at the ConvNeXt-B stage-1 shape
+    return "wgmma"
+
+
 def _prep(x, w1, b1, w2, *, ln=None, b2=None, dy=None):
     """Validate, and cast the parameters as the kernels want them: LN rows
     (``ln`` = ``(scale, bias)``, absent for the plain MLP) and biases f32,
@@ -199,7 +224,7 @@ def _prep(x, w1, b1, w2, *, ln=None, b2=None, dy=None):
     m = w1.shape[-1]
     if d not in KERNEL_DIMS:
         raise ValueError(f"width {d} unsupported by the CUDA kernel (takes {KERNEL_DIMS})")
-    if tuple(w1.shape) != (d, m) or tuple(w2.shape) != (m, d) or m % HIDDEN_MULTIPLE:
+    if tuple(w1.shape) != (d, m) or tuple(w2.shape) != (m, d) or m % HIDDEN_MULTIPLE or m == 0:
         raise ValueError(f"weights {tuple(w1.shape)} / {tuple(w2.shape)} do not fit width {d} "
                          f"with a hidden width that is a multiple of {HIDDEN_MULTIPLE}")
     rows = {"b1": (b1, m)}
@@ -227,6 +252,8 @@ def _prep(x, w1, b1, w2, *, ln=None, b2=None, dy=None):
 def _raise_on(code: int, lib, what: str) -> None:
     if code == -1:
         raise ValueError(f"{what}: unsupported shape")
+    if code == -2:
+        raise RuntimeError(f"{what}: no tensor map could be encoded for these operands")
     if code != 0:
         msg = lib.apvt_ln_mlp_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

@@ -1,23 +1,25 @@
-"""What limits the LayerNorm-fused MLP kernels on the card: time them with one
-part of the work taken out at a time.
+"""What limits the fused MLP kernels on the card: time them with one part of
+the work taken out at a time.
 
 Builds ``csrc/ln_mlp.cu`` and edited copies of it (the copies compute wrong
 values; they exist only to be timed):
 
 * ``no gelu``: ``erff``/``expf`` replaced by a multiply (the cost of the
-  exact GELU on the CUDA cores);
-* ``no weight loads``: the cp.async copies of the weight slabs from L2
-  skipped (the cost of streaming the weights once per CTA);
-* ``no mma``: every ``mma.sync`` replaced by four adds (whether the tensor
-  cores are on the critical path at all);
-* ``no ldmatrix``: every ``ldmatrix`` replaced by register moves (the cost
-  of feeding the fragments from shared memory);
-* ``no barriers``: every ``__syncthreads`` replaced by ``__syncwarp`` (the
-  cost of the two block-wide barriers per weight slab; the copy races).
+  exact GELU on the CUDA cores between the products);
+* ``no weight loads``: the TMA loads of the weight boxes replaced by a credit
+  of their bytes to the stage's barrier (the cost of streaming the weights
+  from L2 once per 64 token rows: the ring's barriers and the producer stay);
+* ``no mma``: every ``wgmma.mma_async`` replaced by one add (whether the
+  tensor cores, and the shared-memory reads that feed them, are on the
+  critical path at all);
+* ``no chunk wait``: the consumers do not wait for the other warpgroups'
+  slices of a hidden chunk (the cost of the one meeting point per chunk; the
+  copy races).
 
-Each variant runs forward and backward at the ConvNeXt-B stage shapes
-(B=64), in two turns, CUDA events over 20 launches; one line per variant and
-turn, with the card's name and power limit.
+Each variant runs the LayerNorm-fused forward and backward at three
+ConvNeXt-B stage shapes (B=64) and at the ViT-B/16 shape, in two turns, CUDA
+events over 20 launches; one line per variant and turn, with the card's name
+and power limit.
 
 Run on a machine with a CUDA card, from the repository root:
 ``python3 -m apvt_lora_torch.tools.ln_mlp_diagnose``.
@@ -25,18 +27,18 @@ Run on a machine with a CUDA card, from the repository root:
 
 from __future__ import annotations
 
-import re
 import subprocess
 
-SHAPES = ((200704, 128, 512), (12544, 512, 2048), (3136, 1024, 4096))  # (T, D, M)
+SHAPES = ((200704, 128, 512), (12544, 512, 2048), (3136, 1024, 4096),
+          (12608, 768, 3072))  # (T, D, M)
 
 _GELU = "return 0.5f * pre * (1.f + erff(pre * 0.7071067811865476f));"
 _GELU_GRAD = """  const float phi = expf(-0.5f * pre * pre) * 0.3989422804014327f;
   const float cdf = 0.5f * (1.f + erff(pre * 0.7071067811865476f));
   return cdf + pre * phi;"""
-_COPY = "    cp_async16(dst + r * (COLS + 8) + c * 8, src + (size_t)r * ld + c * 8);"
-_LDSM = re.compile(r'  asm volatile\("ldmatrix\.sync.*?\(smem_addr\(p\)\)\);', re.S)
-_MMA = re.compile(r'  asm(?: volatile)?\(\n      "mma\.sync.*?\(b1\)\);', re.S)
+_LOAD = "  tma_load_2d(dst, map, bar, c0, c1);\n}"
+_MMA = "  Wgmma<N>::template ss<0, TB>(d, a, b, acc);"
+_WAIT = "  mbar_wait_cluster(&bars->hfull[buf], use & 1);"
 
 
 def variants(text: str) -> dict[str, str]:
@@ -44,12 +46,10 @@ def variants(text: str) -> dict[str, str]:
     out = {"kernel": text}
     out["no gelu"] = text.replace(_GELU, "return 0.5f * pre;").replace(
         _GELU_GRAD, "  return 0.5f + pre;")
-    out["no weight loads"] = text.replace(_COPY, "    if (blockIdx.x > 0x7ffffff0u) " + _COPY.strip())
-    out["no mma"] = _MMA.sub(
-        "  d[0] += __uint_as_float(a[0] ^ b0); d[1] += __uint_as_float(a[1] ^ b1);\n"
-        "  d[2] += __uint_as_float(a[2]); d[3] += __uint_as_float(a[3]);", text)
-    out["no ldmatrix"] = _LDSM.sub("  r[0] = r[1] = r[2] = r[3] = smem_addr(p);", text)
-    out["no barriers"] = text.replace("__syncthreads();", "__syncwarp();")
+    out["no weight loads"] = text.replace(_LOAD, "  mbar_complete_tx(bar, bytes);\n}")
+    out["no mma"] = text.replace(
+        _MMA, "  d[0] = __uint_as_float((uint32_t)(a ^ b)) + (acc ? d[0] : 0.f);")
+    out["no chunk wait"] = text.replace(_WAIT, "")
     same = [k for k, v in out.items() if k != "kernel" and v == text]
     if same:
         raise RuntimeError(f"ln_mlp.cu changed: the edits for {same} found nothing to replace")

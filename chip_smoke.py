@@ -6,7 +6,8 @@ the hand-written kernels:
 
 * ``google_vit`` ViT-B/16 with a rank-8 LoRA merged into q/k/v/o, in bf16,
   through FGSM and PGD-10 at batch 64: the packed-attention kernel
-  (``csrc/attention_packed.cu``), forward and backward; then the same with
+  (``csrc/attention_packed.cu``, at this shape the wgmma core of
+  ``csrc/attn_wgmma.cuh``), forward and backward; then the same with
   ``fuse_attn_block`` on (the fused attention half-block,
   ``csrc/attn_block.cu``, and the LN-fused MLP on a ViT path) and with
   ``use_fused_mlp`` on (the fused MLP without LayerNorm, ``csrc/ln_mlp.cu``);
@@ -35,10 +36,14 @@ Phases, one line each (or a few):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every kernel source compiled with nvcc from the checkout, in
-   parallel; ptxas registers and spills of each;
+   parallel; per source nvcc's seconds, ptxas registers and spills and any
+   wgmma serialisation warning, and each wgmma kernel's own line;
 3. kernels against their plain PyTorch versions on the card, forward and
    gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
-   (64, 197, 12, 64) and (bf16) (2, 300, 2, 64); window attention at the
+   (64, 197, 12, 64), (bf16) (2, 300, 2, 64) and (bf16) the tile edges of
+   the wgmma kernels, N = 1, 63, 64, 65, 128, 208, 256 at (2, N, 2, 64), the
+   backward with the forward's output and log-sum-exp as autograd passes
+   them and without (the same bits), the log-sum-exp itself; window attention at the
    four Swin-B stage shapes (B=64; the shift mask on stages 1-3, zeros on
    stage 4) and at a ragged (2, 4, 16, 2), with a relative-position bias at
    the scale of a pretrained Swin's (std 1-2, another per head), and the
@@ -51,7 +56,10 @@ Phases, one line each (or a few):
    scale/bias and b1/b2 at std 0.5, and the plain version without each of
    them shown to miss the limit by a factor of 5 or more (so the check sees
    every one); the fused MLP without LayerNorm at the ViT-B shape, a Swin-B
-   stage shape and the ragged one, the same way; the attention half-block at
+   stage shape and the ragged one, the same way; both fused MLPs at the
+   edges of the wgmma kernels' 64-row tiles (T = 1, 63 ... 129 over every
+   width, with and without the two-CTA cluster) and at a shape that keeps
+   the mma.sync kernels; the attention half-block at
    (64, 197, 768) with 12 heads and a ragged (2, 37, 192) with 3, bf16, with
    LN scale/bias and the four biases at std 0.5 (each seen by the check) and
    q/k weights scaled up so that the softmax is far from uniform; the
@@ -89,8 +97,11 @@ Phases, one line each (or a few):
    card's published peak and its bytes over 3.35 TB/s) and the time of the
    one PyTorch call, or library composition, that computes the same
    function (measured here only; the port never calls it in place of a
-   kernel), and the eval-compose matrices' wall times. ViT-B and Swin-B PGD
-   are timed over 3 calls, ConvNeXt-B over 2 calls per variant and turn.
+   kernel), and the eval-compose matrices' wall times. A kernel and its
+   library call or composition are timed in turns (kernel, library, three
+   times over) and the best of each is kept, because a library call's time
+   moves between runs on one shape. ViT-B and Swin-B PGD are timed over 3
+   calls, ConvNeXt-B over 2 calls per variant and turn.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -126,10 +137,13 @@ PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_
 JAX_SRC = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu/kernels"
 
 # packed attention (B, N, H, hd): the ViT-B/16 main-path shape, a ragged
-# small case, and (bf16 only) a sequence past the tensor-core variant's N <= 256
+# small case (bf16: the mma.sync variant), (bf16 only) a sequence past the
+# register-resident variants' N <= 256, and (bf16 only) the tile edges of the
+# wgmma variant (64-row tiles, 64-key blocks)
 MAIN = (64, 197, 12, 64)
+EDGE_N = (1, 63, 64, 65, 128, 208, 256)
 SHAPES = {"float32": ((2, 37, 3, 32), MAIN),
-          "bfloat16": ((2, 37, 3, 32), (2, 300, 2, 64), MAIN)}
+          "bfloat16": ((2, 37, 3, 32), (2, 300, 2, 64), *((2, n, 2, 64) for n in EDGE_N), MAIN)}
 # window attention (B, nW, n, heads, mask): the four Swin-B stages at B=64
 # (window 7, hd 32) and a ragged window-4 case
 WIN_SHAPES = ((64, 64, 49, 4, "shift"), (64, 16, 49, 8, "shift"), (64, 4, 49, 16, "shift"),
@@ -148,6 +162,13 @@ DW_SHAPES = ((64, 56, 56, 128), (64, 28, 28, 256), (64, 14, 14, 512), (64, 7, 7,
 # shape (64 x 197 tokens) and a ragged case
 MLP_SHAPES = ((200704, 128, 512), (50176, 256, 1024), (12544, 512, 2048), (3136, 1024, 4096),
               (12608, 768, 3072), (70, 128, 512))
+# ... and the edges of the wgmma kernels' 64-row tiles, without and with the
+# two-CTA cluster (D >= 768), the one-buffer width (1024), a width whose
+# warpgroup slice is 192 columns (384), and the shape that keeps the
+# mma.sync kernels (D >= 768 with M = 128 mod 256); both fused MLPs take them
+MLP_EDGE_SHAPES = ((1, 128, 512), (63, 128, 128), (64, 256, 1024), (65, 384, 1536),
+                   (127, 512, 2048), (128, 768, 3072), (129, 768, 768), (65, 1024, 4096),
+                   (100, 768, 384))
 # fwd (atol, rtol), dx (atol, rtol) of the LN-fused MLP in bf16 (the limits of
 # the JAX kernel's bf16 parity tests)
 MLP_TOL = ((1e-2, 1e-2), (2e-2, 2e-2))
@@ -214,12 +235,21 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def turns(kernel, plain, iters: int = 20) -> tuple[float, float]:
-    """(kernel ms, plain ms), each the best of two in plain-kernel-kernel-plain order."""
-    times = {"plain": [], "kernel": []}
-    for turn in ("plain", "kernel", "kernel", "plain"):
-        times[turn].append(cuda_ms(kernel if turn == "kernel" else plain, iters))
-    return min(times["kernel"]), min(times["plain"])
+def turns(kernel, plain, iters: int = 20, library=None) -> tuple:
+    """(kernel ms, plain ms), each the best of two in plain-kernel-kernel-plain
+    order. With ``library`` (the one PyTorch call, or the library composition,
+    that computes the same function), (kernel ms, plain ms, library ms): the
+    kernel and the library call take turns kernel-library three times between
+    the plain runs and the best of each is kept, because a library call's time
+    moves between runs on one shape."""
+    fns = {"plain": plain, "kernel": kernel, "library": library}
+    order = (("plain", "kernel", "kernel", "plain") if library is None else
+             ("plain", "kernel", "library", "kernel", "library", "kernel", "library", "plain"))
+    times = {name: [] for name in order}
+    for turn in order:
+        times[turn].append(cuda_ms(fns[turn], iters))
+    best = (min(times["kernel"]), min(times["plain"]))
+    return best if library is None else (*best, min(times["library"]))
 
 
 @contextlib.contextmanager
@@ -285,11 +315,23 @@ class Smoke:
             ptxas = self.build_mod.BUILD_LOG.get(src, "")
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
             spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas))
+            serial = [ln.strip() for ln in ptxas.splitlines() if "wgmma" in ln.lower()]
             print(f"phase 2 build: {src} -> {self.build_mod.build_dir()} "
                   f"(nvcc {self.build_mod.BUILD_SECONDS.get(src, 0.0):.2f} s; all sources in "
                   f"parallel {wall:.2f} s); ptxas: {len(regs)} kernels, registers "
-                  f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores {spills} bytes",
-                  flush=True)
+                  f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores {spills} bytes, "
+                  f"wgmma serialisation warnings {len(serial)}", flush=True)
+            for ln in serial[:4]:
+                print(f"phase 2 build: {src}: {ln[:300]}", flush=True)
+            # the wgmma kernels one by one: a spill in a main loop would be silent
+            for fn, spill, used in re.findall(
+                    r"Compiling entry function '(\w+)'(?:.*\n)+?.*?(\d+) bytes spill stores.*\n"
+                    r".*Used (\d+) registers", ptxas):
+                short = re.search(r"(wg_mlp_(?:fwd|bwd)ILi\d+ELb[01]|2wg\d+attn_(?:fwd|bwd)"
+                                  r"(?:ILi\d+)?)", fn)
+                if short:
+                    print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
+                          f"spill stores {spill} bytes", flush=True)
 
     # 3. kernels against plain, on the card
     def packed_vs_plain(self) -> dict:
@@ -302,19 +344,25 @@ class Smoke:
                 q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, n, h, hd)}"
-                e_f = close(ka.fused_attention_packed_fwd(q, k, v, h),
-                            ka.attention_packed_reference(q, k, v, h), fa, fr, f"fwd {tag}")
-                got = ka.fused_attention_packed_bwd(q, k, v, do, h)
+                o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+                e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, f"fwd {tag}")
+                if ka.kernel_variant(dtype, n, hd) == "wgmma":
+                    close(lse, ka.attention_lse_reference(ka._split(q, h), ka._split(k, h)),
+                          1e-4, 1e-4, f"lse {tag}")
+                # as autograd calls it: with the forward's output and log-sum-exp
+                got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
                 want = ka.attention_packed_bwd_reference(q, k, v, do, h)
                 e_b = max(close(g_, w_, ga, gr, f"d{nm} {tag}")
                           for nm, g_, w_ in zip("qkv", got, want))
+                # ... and without them (the wrapper runs the forward first)
                 again = ka.fused_attention_packed_bwd(q, k, v, do, h)
                 check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
                       f"backward not reproducible {tag}")
                 torch.cuda.synchronize()
                 if dtype == torch.bfloat16 and (b, n, h, hd) == MAIN:
                     err = {"fwd": e_f, "bwd": e_b}
-                print(f"phase 3 attention_packed vs plain {tag}: fwd max|err| {e_f:.3e}, "
+                print(f"phase 3 attention_packed vs plain {tag} "
+                      f"[{ka.kernel_variant(dtype, n, hd)}]: fwd max|err| {e_f:.3e}, "
                       f"dq/dk/dv max|err| {e_b:.3e}, backward bitwise reproducible", flush=True)
         return err
 
@@ -442,9 +490,10 @@ class Smoke:
         km, eps = self.km, 1e-6
         (fa, fr), (ga, gr) = MLP_TOL
         err = {"fwd": 0.0, "bwd": 0.0}  # max over the ConvNeXt-B stages
-        for shape in MLP_SHAPES:
+        for shape in MLP_SHAPES + MLP_EDGE_SHAPES:
             x, dy, p = self.mlp_operands(shape)
-            tag = f"bfloat16 {shape}"
+            tag = (f"bfloat16 {shape} [{km.kernel_variant(*shape[1:], 'ln_mlp_fwd')} / "
+                   f"{km.kernel_variant(*shape[1:], 'ln_mlp_bwd')}]")
 
             def plain(q):
                 fwd = km.ln_mlp_reference(x, q["ln_scale"], q["ln_bias"], q["w1"], q["b1"],
@@ -463,6 +512,11 @@ class Smoke:
             check(torch.equal(got_b, km.fused_ln_mlp_bwd(
                 x, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"], dy, eps)),
                 f"ln_mlp backward not reproducible {tag}")
+            if shape in MLP_EDGE_SHAPES:
+                torch.cuda.synchronize()
+                print(f"phase 3 ln_mlp vs plain {tag} (tile edge): fwd max|err| {e_f:.3e}, dx "
+                      f"max|err| {e_b:.3e}; backward bitwise reproducible", flush=True)
+                continue
             # can the check see each row parameter? The plain version without
             # it must miss the limit by far (b2 does not enter dx)
             moved = {}
@@ -515,9 +569,9 @@ class Smoke:
         km = self.km
         (fa, fr), (ga, gr) = MLP_TOL
         err = {"fwd": 0.0, "bwd": 0.0}  # at the ViT-B shape
-        for shape in FMLP_SHAPES:
+        for shape in FMLP_SHAPES + MLP_EDGE_SHAPES:
             x, dy, p = self.mlp_operands(shape)
-            tag = f"bfloat16 {shape}"
+            tag = f"bfloat16 {shape} [{km.kernel_variant(*shape[1:])}]"
 
             def plain(q):
                 return (km.mlp_reference(x, q["w1"], q["b1"], q["w2"], q["b2"]),
@@ -530,6 +584,11 @@ class Smoke:
             e_b = close(got_b, want_b, ga, gr, f"fused_mlp dx {tag}")
             check(torch.equal(got_b, km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy)),
                   f"fused_mlp backward not reproducible {tag}")
+            if shape in MLP_EDGE_SHAPES:
+                torch.cuda.synchronize()
+                print(f"phase 3 fused_mlp vs plain {tag} (tile edge): fwd max|err| {e_f:.3e}, dx "
+                      f"max|err| {e_b:.3e}; backward bitwise reproducible", flush=True)
+                continue
             moved = {}
             for name in ("b1", "b2"):
                 wo_f, wo_b = plain({**p, name: torch.zeros_like(p[name])})
@@ -1171,25 +1230,28 @@ class Smoke:
         b, n, h, hd = MAIN
         q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
                        .to(torch.bfloat16) for _ in range(4))
-        kf, pf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                       lambda: ka.attention_packed_reference(q, k, v, h))
-        kb, pb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h),
-                       lambda: ka.attention_packed_bwd_reference(q, k, v, do, h))
         # the one library call: SDPA on (B, H, N, hd) views of the packed operands
         qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v))
         doh = do.view(b, n, h, hd).transpose(1, 2)
-        lf = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
         out = F.scaled_dot_product_attention(qh, kh, vh)
-        lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 20)
+        # the backward as autograd calls it: with the forward's output and log-sum-exp
+        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                           lambda: ka.attention_packed_reference(q, k, v, h),
+                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
+                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                               retain_graph=True))
         unit = b * h * n * n * hd
         tensor = b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
         print(f"phase 6 attention_packed {MAIN} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} ms; "
-              f"plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; "
-              f"bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}",
-              flush=True)
+              f"plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA (in turns with the kernel, best of "
+              f"3) fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} "
+              f"ms ({bb_by}) {self.card}", flush=True)
         src = f"{PKG}/csrc/attention_packed.cu"
         return [
             {"name": "attention_packed_fwd", "route": "cuda", "source": src,
@@ -1303,10 +1365,6 @@ class Smoke:
             # weights in bf16, as the attack path holds them (no cast inside the timed calls)
             p["w1"], p["w2"] = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
             args = (p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"])
-            kf, pf = turns(lambda: km.fused_ln_mlp_fwd(x, *args, p["b2"], eps),
-                           lambda: km.ln_mlp_reference(x, *args, p["b2"], eps), 10)
-            kb, pb = turns(lambda: km.fused_ln_mlp_bwd(x, *args, dy, eps),
-                           lambda: km.ln_mlp_bwd_reference(x, *args, dy, eps), 10)
             w1t, w2t = p["w1"].t(), p["w2"].t()
             b1h, b2h = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
 
@@ -1314,10 +1372,14 @@ class Smoke:
                 hn = F.layer_norm(xi.float(), (d,), p["ln_scale"], p["ln_bias"], eps).to(xi.dtype)
                 return F.linear(F.gelu(F.linear(hn, w1t, b1h)), w2t, b2h)
 
-            cf = cuda_ms(lambda: library(x), 10)
             xg = x.detach().requires_grad_(True)
             y = library(xg)
-            cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+            kf, pf, cf = turns(lambda: km.fused_ln_mlp_fwd(x, *args, p["b2"], eps),
+                               lambda: km.ln_mlp_reference(x, *args, p["b2"], eps), 10,
+                               library=lambda: library(x))
+            kb, pb, cb = turns(lambda: km.fused_ln_mlp_bwd(x, *args, dy, eps),
+                               lambda: km.ln_mlp_bwd_reference(x, *args, dy, eps), 10,
+                               library=lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
             del y
             weights = 2 * d * m * 2
             bf, bf_by = bound_ms(4 * t * d * m, 2 * t * d * 2 + weights, PEAK_BF16)
@@ -1326,7 +1388,7 @@ class Smoke:
             label = f"stage {stage}" if stage <= 4 else "ViT-B shape"
             print(f"phase 6 ln_mlp {label} {shape} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} "
                   f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single "
-                  f"call) fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd "
+                  f"call; in turns with the kernel, best of 3) fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd "
                   f"{bb:.4f} ms ({bb_by}); kernel at {4e-9 * t * d * m / kf:.1f} / "
                   f"{6e-9 * t * d * m / kb:.1f} TFLOP/s {self.card}", flush=True)
         kf, kb, pf, pb, bf, bf_by, bb, bb_by, cf, cb = rows[3]
@@ -1352,17 +1414,17 @@ class Smoke:
         t, d, m = shape = FMLP_SHAPES[0]
         x, dy, p = self.mlp_operands(shape)
         p["w1"], p["w2"] = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
-        kf, pf = turns(lambda: km.fused_mlp_fwd(x, p["w1"], p["b1"], p["w2"], p["b2"]),
-                       lambda: km.mlp_reference(x, p["w1"], p["b1"], p["w2"], p["b2"]), 10)
-        kb_, pb = turns(lambda: km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy),
-                        lambda: km.mlp_bwd_reference(x, p["w1"], p["b1"], p["w2"], dy), 10)
         w1t, w2t = p["w1"].t(), p["w2"].t()
         b1h, b2h = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
         library = lambda xi: F.linear(F.gelu(F.linear(xi, w1t, b1h)), w2t, b2h)
-        cf = cuda_ms(lambda: library(x), 10)
         xg = x.detach().requires_grad_(True)
         y = library(xg)
-        cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+        kf, pf, cf = turns(lambda: km.fused_mlp_fwd(x, p["w1"], p["b1"], p["w2"], p["b2"]),
+                           lambda: km.mlp_reference(x, p["w1"], p["b1"], p["w2"], p["b2"]), 10,
+                           library=lambda: library(x))
+        kb_, pb, cb = turns(lambda: km.fused_mlp_bwd(x, p["w1"], p["b1"], p["w2"], dy),
+                            lambda: km.mlp_bwd_reference(x, p["w1"], p["b1"], p["w2"], dy), 10,
+                            library=lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
         del y
         weights = 2 * d * m * 2
         bf, bf_by = bound_ms(4 * t * d * m, 2 * t * d * 2 + weights, PEAK_BF16)
@@ -1395,10 +1457,6 @@ class Smoke:
         for t in "qkvo":
             p[f"w{t}"] = p[f"w{t}"].to(torch.bfloat16)
         args = [p[k] for k in self.AB_ORDER]
-        kf, pf = turns(lambda: kb.fused_attn_block_fwd(x, *args, h, eps),
-                       lambda: kb.attn_block_reference(x, *args, h, eps), 10)
-        kbw, pb = turns(lambda: kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps),
-                        lambda: kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps), 10)
         wt = {t: p[f"w{t}"].t() for t in "qkvo"}
         bh = {t: p[f"b{t}"].to(torch.bfloat16) for t in "qkvo"}
 
@@ -1409,10 +1467,14 @@ class Smoke:
             a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
             return F.linear(a, wt["o"], bh["o"])
 
-        cf = cuda_ms(lambda: library(x), 10)
         xg = x.detach().requires_grad_(True)
         y = library(xg)
-        cb = cuda_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), 10)
+        kf, pf, cf = turns(lambda: kb.fused_attn_block_fwd(x, *args, h, eps),
+                           lambda: kb.attn_block_reference(x, *args, h, eps), 10,
+                           library=lambda: library(x))
+        kbw, pb, cb = turns(lambda: kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps),
+                            lambda: kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps), 10,
+                            library=lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
         del y
         side = 4 * c * c * 2 + 6 * c * 4
         bf, bf_by = bound_ms(b * (8 * n * c * c + 4 * n * n * c), 2 * b * n * c * 2 + side,
@@ -1443,14 +1505,16 @@ class Smoke:
         b, n, h, hd = MAIN
         q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
                        .to(torch.bfloat16) for _ in range(4))
-        kf, pf = turns(lambda: ka.fused_attention_fwd(q, k, v),
-                       lambda: ka.attention_reference(q, k, v))
-        kb_, pb = turns(lambda: ka.fused_attention_bwd(q, k, v, do),
-                        lambda: ka.attention_bwd_reference(q, k, v, do))
         qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
-        lf = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
         out = F.scaled_dot_product_attention(qh, kh, vh)
-        lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True), 20)
+        o, lse = ka.fused_attention_fwd(q, k, v, with_lse=True)
+        kf, pf, lf = turns(lambda: ka.fused_attention_fwd(q, k, v),
+                           lambda: ka.attention_reference(q, k, v),
+                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kb_, pb, lb = turns(lambda: ka.fused_attention_bwd(q, k, v, do, o, lse),
+                            lambda: ka.attention_bwd_reference(q, k, v, do),
+                            library=lambda: torch.autograd.grad(out, (qh, kh, vh), do,
+                                                                retain_graph=True))
         unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
@@ -1599,8 +1663,8 @@ class Smoke:
 
             calls = {label: pgd_call(vcfg, model) for label, (vcfg, model) in runs.items()}
         groups = (("dwconv7 (this repo)", r"dwconv7_kernel"),
-                  ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd"),
-                  ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd"),
+                  ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
+                  ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
                   ("attn_block fwd (this repo)", r"heads_fwd|oproj_fwd"),
                   ("attn_block bwd (this repo)", r"heads_bwd|dh_bwd"),
                   ("attention fwd (this repo)", r"win_fwd|attn_fwd"),

@@ -171,3 +171,124 @@ def test_head_major_and_packed_plain_versions_agree_and_wrapper_refuses():
         tka.fused_attention_fwd(q, k, v)
     with pytest.raises(ValueError):
         tka.fused_attention_fwd(q[0], k[0], v[0])
+
+
+# --- the tile edges of the wgmma kernels (64-row tiles, 64-key blocks, N <= 256) ---
+
+EDGES = [1, 63, 64, 65, 128, 197, 208, 256]
+
+
+def _edge_grads_torch(q, k, v, do, heads, dtype):
+    ts = [torch.from_numpy(x).to(dtype) for x in (q, k, v, do)]
+    out = tka.attention_packed_reference(*ts[:3], heads)
+    return out, tka.attention_packed_bwd_reference(*ts, heads)
+
+
+def _edge_grads_jax(q, k, v, do, heads, dtype):
+    args = [jnp.asarray(x).astype(dtype) for x in (q, k, v)]
+    out, vjp = jax.vjp(lambda q, k, v: jka.attention_packed_reference(q, k, v, heads), *args)
+    return out, vjp(jnp.asarray(do).astype(dtype))
+
+
+@pytest.mark.parametrize("n", EDGES)
+def test_plain_f32_at_tile_edges_matches_jax(n):
+    """Forward and the three gradients in f32, atol 1e-5 (rtol 1e-4: sums of
+    up to 256 terms in another order)."""
+    q, k, v, do = _inputs(1, n, 2, 64, seed=10 + n)
+    o_t, g_t = _edge_grads_torch(q, k, v, do, 2, torch.float32)
+    o_j, g_j = _edge_grads_jax(q, k, v, do, 2, jnp.float32)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5, rtol=1e-4)
+    for a, bb in zip(g_t, g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(bb), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", EDGES)
+def test_plain_bf16_at_tile_edges_matches_jax(n):
+    """The same in bf16 at the kernels' limits (3e-2 forward, 5e-2 gradients):
+    the packages round P and dS at the same places, the matmuls differ."""
+    q, k, v, do = _inputs(1, n, 2, 64, seed=30 + n)
+    o_t, g_t = _edge_grads_torch(q, k, v, do, 2, torch.bfloat16)
+    o_j, g_j = _edge_grads_jax(q, k, v, do, 2, jnp.bfloat16)
+    assert o_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j.astype(jnp.float32)),
+                               atol=3e-2, rtol=3e-2)
+    for a, bb in zip(g_t, g_j):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(bb.astype(jnp.float32)),
+                                   atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype, n, hd, want", [
+    (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 1, 64, "wgmma"),
+    (torch.bfloat16, 256, 64, "wgmma"), (torch.bfloat16, 257, 64, "cuda_core"),
+    (torch.bfloat16, 37, 32, "mma_sync"), (torch.bfloat16, 300, 32, "cuda_core"),
+    (torch.float32, 197, 64, "cuda_core"), (torch.float32, 37, 32, "cuda_core")])
+def test_kernel_variant_by_shape(dtype, n, hd, want):
+    assert tka.kernel_variant(dtype, n, hd) == want
+
+
+@pytest.mark.parametrize("dtype, n, hd, exc, msg", [
+    (torch.bfloat16, 197, 48, ValueError, "head dim 48"),
+    (torch.bfloat16, 197, 128, ValueError, "head dim 128"),
+    (torch.float16, 197, 64, TypeError, "float16"),
+    (torch.bfloat16, 0, 64, ValueError, "sequence length 0")])
+def test_kernel_variant_refuses(dtype, n, hd, exc, msg):
+    with pytest.raises(exc, match=msg):
+        tka.kernel_variant(dtype, n, hd)
+
+
+@pytest.mark.parametrize("n", [5, 64, 197])
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-5), (torch.bfloat16, 5e-2)])
+def test_backward_from_saved_output_and_lse_gives_the_same_gradients(n, dtype, atol):
+    """The wgmma backward's arithmetic (P from the saved log-sum-exp, D from
+    dO * O) against the recomputing plain backward: equal in f32 up to
+    summation order; in bf16 D sees O's rounding, far inside the 5e-2 limit."""
+    q, k, v, do = (tka._split(torch.from_numpy(x).to(dtype), 2)
+                   for x in _inputs(2, n, 2, 64, seed=50 + n))
+    o = tka.attention_reference(q, k, v)
+    lse = tka.attention_lse_reference(q, k)
+    assert lse.shape == (2, 2, n) and lse.dtype == torch.float32
+    got = tka.attention_bwd_from_saved(q, k, v, do, o, lse)
+    want = tka.attention_bwd_reference(q, k, v, do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=1e-4 if atol < 1e-3 else atol)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+def test_autograd_function_saves_output_and_lse_and_launches_once_each(monkeypatch, layout):
+    """With the launchers replaced by their plain versions (no card here):
+    the backward gets the forward's o and lse, the forward is not run again,
+    and the gradients are the plain ones."""
+    seen = {}
+
+    def fake_fwd(q, k, v, heads):
+        qs, ks, vs = (t if heads is None else tka._split(t, heads) for t in (q, k, v))
+        o, lse = tka.attention_reference(qs, ks, vs), tka.attention_lse_reference(qs, ks)
+        return (o if heads is None else tka._merge(o)), lse
+
+    def fake_bwd(q, k, v, do, o, lse, heads):
+        seen["o"], seen["lse"] = o, lse
+        ts = [t if heads is None else tka._split(t, heads) for t in (q, k, v, do, o)]
+        grads = tka.attention_bwd_from_saved(*ts, lse)
+        return grads if heads is None else tuple(tka._merge(g) for g in grads)
+
+    monkeypatch.setattr(tka, "_launch_fwd", fake_fwd)
+    monkeypatch.setattr(tka, "_launch_bwd", fake_bwd)
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 9, 2, 64, seed=70))
+    if layout == "packed":
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        names = ("FWD_LAUNCHES", "BWD_LAUNCHES")
+        out = tka.fused_attention_packed(*ts, 2)
+        want = tka.attention_packed_bwd_reference(q, k, v, do, 2)
+    else:
+        q, k, v, do = (tka._split(t, 2).contiguous() for t in (q, k, v, do))
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        names = ("BHND_FWD_LAUNCHES", "BHND_BWD_LAUNCHES")
+        out = tka.fused_attention(*ts)
+        want = tka.attention_bwd_reference(q, k, v, do)
+    before = tuple(getattr(tka, nm) for nm in names)
+    out.backward(do)
+    assert tuple(getattr(tka, nm) for nm in names) == (before[0], before[1] + 1)
+    assert torch.equal(seen["o"], out.detach()) and seen["lse"].shape == (1, 2, 9)
+    for t, w in zip(ts, want):
+        torch.testing.assert_close(t.grad, w, atol=1e-5, rtol=1e-4)

@@ -163,13 +163,75 @@ def test_diagnose_script_edits_find_their_places():
     text = _build.inlined("ln_mlp.cu")  # the source with the csrc headers it includes
     assert '#include "' not in text
     out = ln_mlp_diagnose.variants(text)
-    assert list(out) == ["kernel", "no gelu", "no weight loads", "no mma", "no ldmatrix",
-                         "no barriers"]
-    assert out["kernel"] == text and len({*out.values()}) == 6
-    assert "erff(pre" not in out["no gelu"] and '"mma.sync' not in out["no mma"]
-    assert '"ldmatrix.sync' not in out["no ldmatrix"] and "__syncthreads();" not in out["no barriers"]
+    assert list(out) == ["kernel", "no gelu", "no weight loads", "no mma", "no chunk wait"]
+    assert out["kernel"] == text and len({*out.values()}) == 5
+    assert "erff(pre" not in out["no gelu"] and "Wgmma<N>::template ss" not in out["no mma"]
+    assert "mbar_complete_tx(bar, bytes);" in out["no weight loads"]
+    assert "mbar_wait_cluster(&bars->hfull" not in out["no chunk wait"]
     with pytest.raises(RuntimeError, match="found nothing"):
         ln_mlp_diagnose.variants(text.replace("erff(pre", "erf_(pre"))
+
+
+# --- the wgmma kernels' tile edges (64 token rows a pass) and shape gates ------
+
+T_EDGES = [1, 127, 128, 129]
+
+
+def _rows_args(t, seed):
+    rng = np.random.default_rng(seed)
+    r = lambda shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    return (r((t, D)), 1.0 + 0.1 * r((D,)), 0.1 * r((D,)), r((D, M), 0.1), r((M,), 0.1),
+            r((M, D), 0.1), r((D,), 0.1)), r((t, D))
+
+
+@pytest.mark.parametrize("t", T_EDGES)
+@pytest.mark.parametrize("ln", [True, False], ids=["ln_mlp", "mlp"])
+def test_plain_versions_at_row_tile_edges_match_jax(t, ln):
+    """T = 1, 127, 128, 129 token rows through the plain forward and dx of
+    both fused MLPs against the JAX package's reference (f32: forward 2e-5 /
+    1e-4, dx 1e-4 / 1e-3, the limits of this file)."""
+    args, g = _rows_args(t, seed=100 + t)
+    if ln:
+        jfn = lambda x: jm.ln_mlp_reference(x, *map(jnp.asarray, args[1:]), EPS)
+        got = tm.ln_mlp_reference(*map(torch.from_numpy, args), EPS)
+        dx = tm.ln_mlp_bwd_reference(*map(torch.from_numpy, args[:6]), torch.from_numpy(g), EPS)
+    else:
+        jfn = lambda x: _jax_mlp_reference(x, *map(jnp.asarray, args[3:]))
+        got = tm.mlp_reference(*map(torch.from_numpy, (args[0], *args[3:])))
+        dx = tm.mlp_bwd_reference(*map(torch.from_numpy, (args[0], *args[3:6])),
+                                  torch.from_numpy(g))
+    want, vjp = jax.vjp(jfn, jnp.asarray(args[0]))
+    (want_dx,) = vjp(jnp.asarray(g))
+    assert got.shape == dx.shape == (t, D)
+    np.testing.assert_allclose(got.numpy(), _f32(want), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(dx.numpy(), _f32(want_dx), atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d, m, want", [
+    (128, 512, "wgmma"), (128, 128, "wgmma"), (256, 1024, "wgmma"), (384, 1536, "wgmma"),
+    (384, 640, "wgmma"), (512, 2048, "wgmma"), (768, 3072, "wgmma"), (1024, 4096, "wgmma"),
+    (512, 384, "mma_sync"), (768, 384, "mma_sync"), (1024, 128, "mma_sync")])
+def test_kernel_variant_by_shape(d, m, want):
+    """Every main-path width (ViT-B 768 x 3072, the ConvNeXt-B and Swin-B
+    stages 128-1024 x 4) takes the wgmma kernels; from D = 512 on a hidden
+    width that is 128 mod 256 keeps the mma.sync ones."""
+    assert tm.kernel_variant(d, m) == want
+    assert tm.kernel_variant(d, m, "mlp_bwd") == tm.kernel_variant(d, m, "ln_mlp_bwd") == want
+
+
+@pytest.mark.parametrize("d, want", [(128, "mma_sync"), (256, "wgmma"), (1024, "wgmma")])
+def test_ln_fused_forward_at_the_narrowest_width_keeps_mma_sync(d, want):
+    """Measured on the card: at D = 128 the wgmma forward with the LayerNorm
+    is 3% slower than the kernel it would replace."""
+    assert tm.kernel_variant(d, 4 * d, "ln_mlp_fwd") == want
+
+
+@pytest.mark.parametrize("d, m, msg", [
+    (100, 512, "width 100"), (640, 2560, "width 640"), (2048, 8192, "width 2048"),
+    (128, 200, "hidden width 200"), (128, 0, "hidden width 0"), (768, 64, "hidden width 64")])
+def test_kernel_variant_refuses(d, m, msg):
+    with pytest.raises(ValueError, match=msg):
+        tm.kernel_variant(d, m)
 
 
 # --- the fused MLP without LayerNorm (``fused_mlp`` of the JAX package) -------
