@@ -59,20 +59,30 @@ def generate_adversarial_split(
         stem, ext = os.path.splitext(name)
         return f"{stem}__{k}{ext}"
 
+    def wait(futures) -> None:
+        for f in futures:
+            f.result()
+
+    # batch k-1's PNG encodes run on the pool while the device runs batch k's
+    # attack; at most one batch is pending, as in the JAX package
+    pending: list = []
     with ThreadPoolExecutor(max_workers=8) as pool:
         for k, batch in enumerate(loader):
             images = torch.from_numpy(batch.images).to(device)
             labels = torch.from_numpy(batch.labels).to(device)
             gen = torch.Generator(device).manual_seed(seed * _SEED_STRIDE + k)
-            adv = attack_fn(params, images, labels, gen).cpu()
+            adv = attack_fn(params, images, labels, gen)
+            wait(pending)
+            adv = adv.cpu()
             keep = [i for i, v in enumerate(batch.valid) if v > 0]
             origs = [batch.filenames[i] for i in keep]
             uniq = [unique_name(n) for n in origs]
-            data_io.save_images(adv[keep], uniq, img_dir, pool=pool)
+            pending = data_io.save_images(adv[keep], uniq, img_dir, pool=pool)
             all_names.extend(uniq)
             all_origs.extend(origs)
             if batch.ids is not None:
                 all_ids.extend(int(batch.ids[i]) for i in keep)
+        wait(pending)
 
     frame = getattr(getattr(loader, "index", None), "frame", None)
     if frame is not None and len(all_ids) == len(all_names):

@@ -9,13 +9,19 @@ Counterpart of the JAX package's ``attacks/whitebox.py``, same semantics:
   ball around the clean image intersected with [0,1].
 
 The gradient is taken with respect to the images only
-(``torch.autograd.grad(loss, x)``) with every model parameter frozen, so no
-weight gradient is ever computed. ``sign(0) = 0``. The random start draws
+(``torch.autograd.grad(loss, x)``) with every model parameter frozen for the
+length of the attack, so no weight gradient is ever computed; the caller's
+``requires_grad`` flags are restored when the attack returns or raises (the
+JAX attacks are pure functions of ``params``). Frozen, not merely left out
+of ``autograd.grad``: a kernel's ``autograd.Function`` decides at forward
+time from ``requires_grad`` whether its backward recomputes the parameter
+gradients. ``sign(0) = 0``. The random start draws
 from a ``torch.Generator`` on the images' device.
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable, Optional
 
@@ -35,10 +41,19 @@ def _loss_grad(apply_fn: Callable, normalize: Normalizer):
     return grad
 
 
-def _freeze(params) -> None:
-    if isinstance(params, torch.nn.Module):
-        for p in params.parameters():
-            p.requires_grad_(False)
+@contextlib.contextmanager
+def _frozen(params):
+    """Every parameter of a module ``params`` frozen inside the block, each
+    one's ``requires_grad`` restored on the way out."""
+    saved = ([(p, p.requires_grad) for p in params.parameters()]
+             if isinstance(params, torch.nn.Module) else [])
+    for p, _ in saved:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in saved:
+            p.requires_grad_(flag)
 
 
 @torch.no_grad()
@@ -74,9 +89,9 @@ def make_fgsm(entry_apply: Callable, cfg, *, eps: float,
     apply_fn = partial(entry_apply, cfg)
 
     def run(params, images, labels):
-        _freeze(params)
-        return fgsm(apply_fn, params, to_unit_floats(images), labels, eps=eps,
-                    normalize=normalize)
+        with _frozen(params):
+            return fgsm(apply_fn, params, to_unit_floats(images), labels, eps=eps,
+                        normalize=normalize)
 
     return run
 
@@ -87,9 +102,9 @@ def make_pgd(entry_apply: Callable, cfg, *, eps: float, alpha: float, steps: int
     apply_fn = partial(entry_apply, cfg)
 
     def run(params, images, labels, generator=None):
-        _freeze(params)
-        return pgd(apply_fn, params, to_unit_floats(images), labels, eps=eps,
-                   alpha=alpha, steps=steps, random_start=random_start,
-                   generator=generator, normalize=normalize)
+        with _frozen(params):
+            return pgd(apply_fn, params, to_unit_floats(images), labels, eps=eps,
+                       alpha=alpha, steps=steps, random_start=random_start,
+                       generator=generator, normalize=normalize)
 
     return run

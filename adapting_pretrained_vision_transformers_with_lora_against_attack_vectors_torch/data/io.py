@@ -19,7 +19,7 @@ the write side and of adversarial-image persistence:
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
@@ -47,12 +47,16 @@ def save_metadata(df: pd.DataFrame, path: str) -> None:
 
 def save_images(images, filenames: Sequence[str], output_dir: str, *,
                 max_workers: int = 8,
-                pool: Optional[ThreadPoolExecutor] = None) -> None:
+                pool: Optional[ThreadPoolExecutor] = None) -> list[Future]:
     """Write a batch of [0,1] NHWC float images as uint8 PNGs (PIL encoder;
     PNG is lossless, so the pixels equal any other encoder's).
 
     ``pool``: optional caller-owned executor, so per-batch callers (e.g.
-    ``attacks.generate``) reuse one pool for a whole split."""
+    ``attacks.generate``) reuse one pool for a whole split. With a pool the
+    encodes are only submitted: the futures are returned and the caller waits
+    for them (``attacks.generate`` overlaps them with the next batch's
+    attack). Without one the files are written when this returns (and the
+    list is empty)."""
     # lazy: data.io <-> attacks would otherwise import each other
     from ..attacks.common import uint8_quantize
 
@@ -64,13 +68,14 @@ def save_images(images, filenames: Sequence[str], output_dir: str, *,
         Image.fromarray(arr[i]).save(os.path.join(output_dir, name))
 
     if pool is not None:
-        list(pool.map(write, enumerate(filenames)))
-    elif len(filenames) > 1:
+        return [pool.submit(write, item) for item in enumerate(filenames)]
+    if len(filenames) > 1:
         with ThreadPoolExecutor(max_workers=max_workers) as own:
             list(own.map(write, enumerate(filenames)))
     else:
         for item in enumerate(filenames):
             write(item)
+    return []
 
 
 def create_adv_metadata(clean_meta: str | pd.DataFrame, filenames: Iterable[str],

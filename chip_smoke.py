@@ -115,7 +115,9 @@ fails with a non-zero exit.
 Run: ``python3 chip_smoke.py`` from the repository root. ``python3
 chip_smoke.py --profile google_vit|swin|convnext`` instead builds that
 backbone, traces one warm PGD-10 call with ``torch.profiler`` and prints the
-device time by kernel group (ConvNeXt: kernel fields on, then off);
+device time by kernel group, one group per device function of this repo
+(ViT-B: fields off, then ``fuse_attn_block``; ConvNeXt: kernel fields on,
+then off);
 ``--profile train|train_lora`` traces one warm ViT-B training step, fields
 off and then on. It prints no result lines.
 """
@@ -1648,8 +1650,11 @@ class Smoke:
             module, attn, plain = {
                 "google_vit": (self.vit, "attention_packed", self.ka.attention_packed_reference),
                 "swin": (self.swin, "window_attention", self.kw.window_attention_reference)}[name]
-            entry, cfg, model, _, normalize, _ = self.model(name, module, attn, plain)
+            entry, cfg, model, _, normalize, model_tree = self.model(name, module, attn, plain)
             runs = {"kernel path": (cfg, model)}
+            if name == "google_vit":
+                bcfg = dataclasses.replace(cfg, fuse_attn_block=True)
+                runs["fuse_attn_block"] = (bcfg, entry.from_tree(model_tree, bcfg))
         if name not in ("train", "train_lora"):
             rng = np.random.default_rng(1)
             x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
@@ -1665,10 +1670,15 @@ class Smoke:
         groups = (("dwconv7 (this repo)", r"dwconv7_kernel"),
                   ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
                   ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
-                  ("attn_block fwd (this repo)", r"heads_fwd|oproj_fwd"),
-                  ("attn_block bwd (this repo)", r"heads_bwd|dh_bwd"),
-                  ("attention fwd (this repo)", r"win_fwd|attn_fwd"),
-                  ("attention bwd (this repo)", r"win_bwd|attn_bwd"),
+                  ("attn_block heads fwd: LN, q/k/v, attention (this repo)", r"heads_fwd"),
+                  ("attn_block o-projection fwd (this repo)", r"oproj_fwd"),
+                  ("attn_block heads bwd: recompute, da, attention bwd (this repo)",
+                   r"heads_bwd"),
+                  ("attn_block dh + LN backward (this repo)", r"dh_bwd"),
+                  ("window attention fwd (this repo)", r"win_fwd"),
+                  ("window attention bwd (this repo)", r"win_bwd"),
+                  ("packed attention fwd (this repo)", r"attn_fwd"),
+                  ("packed attention bwd (this repo)", r"attn_bwd"),
                   ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
                   ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
                   ("optimizer (foreach Adam/AdamW)", r"multi_tensor|adam|Adam"),

@@ -8,6 +8,8 @@ the attacks must agree on >= 99% of pixels within 1e-6, and every pixel must
 stay in the eps-ball.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,11 +85,13 @@ def test_sum_cross_entropy_matches_jax():
 def test_fgsm_matches_jax(models, batch):
     jp, model = models
     u8, labels = batch
+    flags = [p.requires_grad for p in model.parameters()]
     want = jwb.make_fgsm(jvit.apply, jvit.VIT_TEST, eps=EPS)(jp, jnp.asarray(u8), jnp.asarray(labels))
     got = twb.make_fgsm(tvit.apply, tvit.VIT_TEST, eps=EPS)(
         model, torch.from_numpy(u8), torch.from_numpy(labels))
     assert got.dtype == torch.float32 and got.shape == u8.shape
-    assert all(not p.requires_grad for p in model.parameters())
+    # frozen only while the attack ran: the caller's flags are back
+    assert [p.requires_grad for p in model.parameters()] == flags
     _agree(got.numpy(), want)
     assert float(got.min()) >= 0 and float(got.max()) <= 1
 
@@ -180,3 +184,162 @@ def test_convnext_pgd_with_kernel_fields_takes_no_parameter_gradient(convnext_mo
         ce = lambda im: float(tcommon.sum_cross_entropy(
             tcnx.apply(cfg, model, tcommon.IMAGENET(im)), y))
     assert ce(adv) > ce(clean)
+
+
+def _vit_bf16_block_model(models):
+    """VIT_TEST in bf16 with ``fuse_attn_block`` on (its plain versions on the
+    CPU go through the same ``autograd.Function`` as the kernels on a card)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(tvit.VIT_TEST, compute_dtype="bfloat16", fuse_attn_block=True)
+    return cfg, tvit.params_from_jax(tvit.params_to_jax(models[1]), cfg)
+
+
+@pytest.mark.parametrize("attack", ["fgsm", "pgd"])
+def test_attacks_restore_the_callers_requires_grad_flags(models, batch, attack):
+    """The attack freezes the module only while it runs: each parameter's
+    flag (some on, some off) is as the caller left it afterwards."""
+    cfg, model = _vit_bf16_block_model(models)
+    params = list(model.parameters())
+    for i, p in enumerate(params):
+        p.requires_grad_(i % 3 != 0)
+    flags = [p.requires_grad for p in params]
+    u8, labels = batch
+    x, y = torch.from_numpy(u8), torch.from_numpy(labels).long()
+    if attack == "fgsm":
+        twb.make_fgsm(tvit.apply, cfg, eps=EPS)(model, x, y)
+    else:
+        twb.make_pgd(tvit.apply, cfg, eps=EPS, alpha=ALPHA, steps=2)(
+            model, x, y, torch.Generator().manual_seed(0))
+    assert [p.requires_grad for p in params] == flags
+    assert any(flags) and not all(flags)
+
+
+def test_attack_restores_the_flags_when_it_raises(models, batch):
+    """An exception inside the attack restores the flags too, and the
+    parameters were frozen while the model ran."""
+    cfg, model = _vit_bf16_block_model(models)
+    seen = []
+
+    def failing_apply(c, m, images):
+        seen.append([p.requires_grad for p in m.parameters()])
+        raise RuntimeError("boom")
+
+    u8, labels = batch
+    x, y = torch.from_numpy(u8), torch.from_numpy(labels).long()
+    for make in (lambda: twb.make_fgsm(failing_apply, cfg, eps=EPS),
+                 lambda: twb.make_pgd(failing_apply, cfg, eps=EPS, alpha=ALPHA, steps=2)):
+        with pytest.raises(RuntimeError, match="boom"):
+            make()(model, x, y)
+        assert all(p.requires_grad for p in model.parameters())
+    assert seen and not any(any(flags) for flags in seen)
+
+
+def test_vit_block_and_swin_attacks_take_no_parameter_or_bias_gradient(models, batch):
+    """Through a ``vit_test`` attack with ``fuse_attn_block`` and a
+    ``swin_test`` attack (bf16), no parameter-gradient recompute of the
+    half-block and no bias-gradient recompute of window attention."""
+    import dataclasses
+
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import attn_block as tab
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import window_attention as twin
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import swin as tswin
+
+    u8, labels = batch
+    x, y = torch.from_numpy(u8), torch.from_numpy(labels).long()
+    vcfg, vmodel = _vit_bf16_block_model(models)
+    scfg = dataclasses.replace(tswin.SWIN_TEST, compute_dtype="bfloat16")
+    smodel = tswin.params_from_jax(tswin.init(scfg, torch.Generator().manual_seed(1)), scfg)
+    before = (tab.PARAM_GRAD_CALLS, twin.DBIAS_CALLS)
+    for apply, cfg, model in ((tvit.apply, vcfg, vmodel), (tswin.apply, scfg, smodel)):
+        adv = twb.make_pgd(apply, cfg, eps=EPS, alpha=ALPHA, steps=2)(
+            model, x, y, torch.Generator().manual_seed(3))
+        assert float((adv - tcommon.to_unit_floats(x)).abs().max()) <= EPS + 1e-6
+        twb.make_fgsm(apply, cfg, eps=EPS)(model, x, y)
+    assert (tab.PARAM_GRAD_CALLS, twin.DBIAS_CALLS) == before
+    # the module is trainable again afterwards, as it was built
+    assert all(p.requires_grad for p in vmodel.parameters())
+
+
+class _RecordingPool:
+    """A stand-in executor: records when each encode is submitted and when
+    its result is awaited, and runs the encode at that wait."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def submit(self, fn, item):
+        log = self.log
+        log.append(("submit", item[1]))
+
+        class _Future:
+            def result(self):
+                log.append(("wait", item[1]))
+                return fn(item)
+
+        return _Future()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, monkeypatch):
+    """Batch k's attack is issued before batch k-1's encodes are awaited; at
+    most one batch is pending; every file is written before the metadata;
+    names and metadata order are those of the serial writer."""
+    import pandas as pd
+
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import generate as tgen
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.data import io as tio
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.data.loader import Batch
+
+    rng = np.random.default_rng(0)
+    names = [["a.png", "b.png"], ["a.png", "c.png"], ["d.png", "pad.png"]]
+    batches = [Batch(images=rng.integers(0, 256, (2, 8, 8, 3), dtype=np.uint8),
+                     labels=np.zeros(2, np.int32),
+                     valid=np.array([1.0, 1.0 if k < 2 else 0.0], np.float32), filenames=fs)
+               for k, fs in enumerate(names)]
+    log = []
+    monkeypatch.setattr(tgen, "ThreadPoolExecutor", lambda max_workers: _RecordingPool(log))
+    saved = tio.save_metadata
+
+    def save_metadata(df, path):
+        log.append(("metadata", None))
+        saved(df, path)
+
+    monkeypatch.setattr(tio, "save_metadata", save_metadata)
+
+    def attack(params, images, labels, gen):
+        log.append(("attack", None))
+        return images.float() / 255.0
+
+    clean = pd.DataFrame({"image_path": [f"/clean/{n}" for n in ("a.png", "b.png", "a.png",
+                                                                  "c.png", "d.png")],
+                          "source": "s", "original_class": "x", "unified_class": "x"})
+    meta = tgen.generate_adversarial_split(attack, None, batches, out_dir=str(tmp_path),
+                                           clean_metadata=clean, device="cpu")
+    kinds = [k for k, _ in log]
+    attacks = [i for i, k in enumerate(kinds) if k == "attack"]
+    assert len(attacks) == 3
+    written = ({"a.png", "b.png"}, {"a__1.png", "c.png"}, {"d.png"})
+    for k, files in enumerate(written):
+        submits = [i for i, (kind, n) in enumerate(log) if kind == "submit" and n in files]
+        waits = [i for i, (kind, n) in enumerate(log) if kind == "wait" and n in files]
+        assert len(submits) == len(waits) == len(files)
+        # submitted after its own attack, not awaited before the next one was issued
+        assert all(attacks[k] < i for i in submits)
+        if k + 1 < len(attacks):
+            assert all(i < attacks[k + 1] for i in submits), log
+            assert all(i > attacks[k + 1] for i in waits), log
+        # at most one batch pending: awaited before the attack after next
+        if k + 2 < len(attacks):
+            assert all(i < attacks[k + 2] for i in waits), log
+    assert kinds[-1] == "metadata" and kinds.count("wait") == kinds.count("submit") == 5
+    assert sorted(p.name for p in (tmp_path / "images").iterdir()) == [
+        "a.png", "a__1.png", "b.png", "c.png", "d.png"]
+    assert [os.path.basename(p) for p in meta["image_path"]] == [
+        "a.png", "b.png", "a__1.png", "c.png", "d.png"]
+    assert (tmp_path / "metadata.csv").exists()
