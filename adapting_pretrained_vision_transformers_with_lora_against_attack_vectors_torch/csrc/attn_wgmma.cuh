@@ -78,19 +78,6 @@ struct Strides {
   int row;
 };
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (saddr(p) & 1023u)) & 1023u);
-}
-
 // A 64 x 64 f32 accumulator block as bf16 into a swizzled tile.
 __device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&acc)[32], int warp,
                                             int g, int t) {
@@ -104,6 +91,70 @@ __device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&a
 }
 
 // --- forward -------------------------------------------------------------------
+
+// One warpgroup, one 64-row query tile Qt against the NW (>= N, a multiple
+// of 16) keys of the stacked tiles Ks, Vs: o (the 64 x 64 accumulator) =
+// softmax(Qt K^T * scale) V, and each of this thread's two rows' max m
+// (log2 domain, scaled) and sum l of exp2. before_pv() runs after the
+// softmax and before the P V products (the kernel waits for V there).
+template <int NW, typename BeforePV>
+__device__ __forceinline__ void fwd_tile(float (&o)[32], float (&m)[2], float (&l)[2],
+                                         const bf16* Qt, const bf16* Ks, const bf16* Vs, int N,
+                                         float scale_log2, int t, BeforePV before_pv) {
+  float s[NW / 2];
+  {
+    const uint64_t dq = mdesc(Qt), dk = mdesc(Ks);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<NW>::template ss<0, 0>(s, madvance(dq, 32 * kk), madvance(dk, 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  // exact two-pass softmax of rows g and g + 8 of this warp's 16
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+    s[i] = col < N ? s[i] * scale_log2 : -INFINITY;
+    if (i & 2)
+      m1 = fmaxf(m1, s[i]);
+    else
+      m0 = fmaxf(m0, s[i]);
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    s[i] = ex2(s[i] - ((i & 2) ? m1 : m0));
+    if (i & 2)
+      l1 += s[i];
+    else
+      l0 += s[i];
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  m[0] = m0, m[1] = m1, l[0] = l0, l[1] = l1;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  uint32_t pa[NW / 16][4];
+#pragma unroll
+  for (int c = 0; c < NW / 16; ++c) {
+    pa[c][0] = pack_bf16(s[8 * c] * inv0, s[8 * c + 1] * inv0);
+    pa[c][1] = pack_bf16(s[8 * c + 2] * inv1, s[8 * c + 3] * inv1);
+    pa[c][2] = pack_bf16(s[8 * c + 4] * inv0, s[8 * c + 5] * inv0);
+    pa[c][3] = pack_bf16(s[8 * c + 6] * inv1, s[8 * c + 7] * inv1);
+  }
+
+  before_pv();
+  const uint64_t dv = mdesc(Vs);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NW / 16; ++c) Wgmma<64>::template rs<1>(o, pa[c], madvance(dv, 2048 * c), c);
+  wgmma_commit();
+  wgmma_wait<0>();
+}
 
 template <int NW>
 constexpr size_t fwd_smem() {
@@ -153,67 +204,14 @@ attn_fwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
   for (int tt = 0; tt < ntile; ++tt) {
     bf16* Qt = Qs + tt * kTile;
     mbar_wait(&bars[tt == 0 ? 0 : 2], 0);
-
-    float s[NW / 2];
-    {
-      const uint64_t dq = mdesc(Qt), dk = mdesc(Ks);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wgmma<NW>::template ss<0, 0>(s, madvance(dq, 32 * kk), madvance(dk, 32 * kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-    }
-
-    // exact two-pass softmax of rows g and g + 8 of this warp's 16
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) {
-      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
-      s[i] = col < N ? s[i] * scale_log2 : -INFINITY;
-      if (i & 2)
-        m1 = fmaxf(m1, s[i]);
-      else
-        m0 = fmaxf(m0, s[i]);
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) {
-      s[i] = ex2(s[i] - ((i & 2) ? m1 : m0));
-      if (i & 2)
-        l1 += s[i];
-      else
-        l0 += s[i];
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float o[32], m[2], l[2];
+    fwd_tile<NW>(o, m, l, Qt, Ks, Vs, N, scale_log2, t, [&] {
+      if (tt == 0) mbar_wait(&bars[1], 0);
+    });
     const int row0 = (t0 + tt) * 64 + warp * 16 + g;
     if (t == 0) {
-      if (row0 < N) lse[(size_t)bh * N + row0] = (m0 + log2f(l0)) * kLn2;
-      if (row0 + 8 < N) lse[(size_t)bh * N + row0 + 8] = (m1 + log2f(l1)) * kLn2;
-    }
-    uint32_t pa[NW / 16][4];
-#pragma unroll
-    for (int c = 0; c < NW / 16; ++c) {
-      pa[c][0] = pack_bf16(s[8 * c] * inv0, s[8 * c + 1] * inv0);
-      pa[c][1] = pack_bf16(s[8 * c + 2] * inv1, s[8 * c + 3] * inv1);
-      pa[c][2] = pack_bf16(s[8 * c + 4] * inv0, s[8 * c + 5] * inv0);
-      pa[c][3] = pack_bf16(s[8 * c + 6] * inv1, s[8 * c + 7] * inv1);
-    }
-
-    if (tt == 0) mbar_wait(&bars[1], 0);
-    float o[32];
-    {
-      const uint64_t dv = mdesc(Vs);
-      wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < NW / 16; ++c)
-        Wgmma<64>::template rs<1>(o, pa[c], madvance(dv, 2048 * c), c);
-      wgmma_commit();
-      wgmma_wait<0>();
+      if (row0 < N) lse[(size_t)bh * N + row0] = (m[0] + log2f(l[0])) * kLn2;
+      if (row0 + 8 < N) lse[(size_t)bh * N + row0 + 8] = (m[1] + log2f(l[1])) * kLn2;
     }
 
     // the O tile over the Q tile (its products are done), then one TMA store

@@ -95,6 +95,7 @@
 
 #include "ln_mlp_mma.cuh"
 #include "sm90.cuh"
+#include "wg_ring.cuh"
 
 namespace {
 
@@ -150,16 +151,7 @@ struct Bars {
   uint64_t full[kStages], empty[kStages], hfull[2], hfree, xbar;
 };
 
-struct Pipe {
-  int s = 0;
-  uint32_t ph = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == kStages) {
-      s = 0;
-      ph ^= 1;
-    }
-  }
-};
+using Pipe = wring::Pipe<kStages>;
 
 __device__ __forceinline__ float gelu(float pre) {
   return 0.5f * pre * (1.f + erff(pre * 0.7071067811865476f));
@@ -184,27 +176,17 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint
   tma_load_2d(dst, map, bar, c0, c1);
 }
 
-// The producer warp's wait for a free stage, and the announcement of `bytes`
-// to come. The lanes then start the stage's boxes side by side, one each.
+// The ring of wg_ring.cuh over this kernel's barriers: acquire returns the stage.
 __device__ __forceinline__ unsigned char* acquire(Bars* b, unsigned char* ring, const Pipe& p,
                                                   int bytes, int lane) {
-  mbar_wait(&b->empty[p.s], p.ph ^ 1);
-  if (lane == 0) mbar_expect_tx(&b->full[p.s], bytes);
-  __syncwarp();
+  wring::acquire(b->full, b->empty, p, bytes, lane);
   return ring + p.s * kStage;
 }
-
-// A consumer warp is done with a stage (or passes over one it does not read).
 __device__ __forceinline__ void release(Bars* b, Pipe& p, int lane) {
-  if (lane == 0) mbar_arrive(&b->empty[p.s]);
-  p.next();
+  wring::release(b->empty, p, lane);
 }
-
-// The stage's products are under way: wait for them and free the stage.
 __device__ __forceinline__ void commit_stage(Bars* b, Pipe& p, int lane) {
-  wgmma_commit();
-  wgmma_wait<0>();
-  release(b, p, lane);
+  wring::commit_stage(b->empty, p, lane);
 }
 
 // The 64 rows of x that TMA has put into the swizzled tiles Xn, normalised in

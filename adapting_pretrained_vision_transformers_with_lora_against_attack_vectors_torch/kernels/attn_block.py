@@ -32,12 +32,18 @@ recomputes.
 Dispatch (:func:`attn_block`): one ``autograd.Function`` for both devices;
 CPU tensors take the plain versions in forward and backward, CUDA tensors
 launch the kernels or raise. The kernels take bf16 only, head dim 64, C in
-``KERNEL_DIMS`` and N up to 256 as far as a head's tiles fit in a thread
-block's shared memory (:func:`supported_shape`); anything else raises before
-any launch. A model calls :func:`attn_block` only with bf16 compute and only
+``KERNEL_DIMS`` and 1 <= N <= 256 (:func:`supported_shape`; the Hopper
+kernels' shared memory, :func:`_smem_bytes`, does not depend on N, so the
+backward takes every N the forward does: the first port's stopped at 208
+for C = 768); anything else raises before any launch. Every supported shape
+runs the Hopper device code (:func:`kernel_variant`, the same test as the C
+launcher). A model calls :func:`attn_block` only with bf16 compute and only
 where the four denses carry no LoRA factors. ``FWD_LAUNCHES`` and
 ``BWD_LAUNCHES`` count kernel calls (each is two launches in a row: the
 per-head kernel and the row-block kernel behind the scratch tensor).
+:func:`mma_sync_fwd` / :func:`mma_sync_bwd` run the first port's
+``mma.sync`` device code at the ViT-B width, uncounted, for timing the two
+designs against each other; no model path calls them.
 """
 
 from __future__ import annotations
@@ -146,17 +152,35 @@ def attn_block_param_grads(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
 
 # --- the CUDA kernels ---------------------------------------------------------
 
+_TILE = 64 * 64 * 2          # bytes of a swizzled 64 x 64 bf16 tile
+_STAGE = 2 * _TILE + 3 * _TILE  # a ring stage: 128 rows x 64 of x beside a 64 x 192 weight slab
+
+
 def _smem_bytes(n: int, c: int, backward: bool) -> int:
-    """Shared memory of the per-head kernel (``heads_smem`` in the source)."""
-    np_ = (n + 15) // 16 * 16
-    tiles = (4 if backward else 3) * np_ * (HEAD_DIM + 8)
-    return (tiles + 32 * (c + 8) + 2 * 64 * (3 * HEAD_DIM + 8)) * 2 + (12 * np_ if backward else 0)
+    """Shared memory of the per-head kernel (``HeadsCfg`` in the source): the
+    alignment slack, the Q (2 forward, 4 backward), K, V (and da) tiles of
+    the head's 256 padded rows, the ring (3 stages forward, 2 backward), the
+    row statistics and the ring's barriers. The same at every ``n`` <= 256
+    and every ``c``."""
+    stages, tiles = (2, 4 + 4 + 4 + 4) if backward else (3, 2 + 4 + 4)
+    stats = (768 if backward else 256) * 4
+    return 1024 + tiles * _TILE + stages * _STAGE + stats + 16 * stages
 
 
 def supported_shape(n: int, c: int, heads: int, *, backward: bool = True) -> bool:
     """Do the kernels take (N, C) with ``heads`` heads (by default: both of them)?"""
     return (c in KERNEL_DIMS and heads * HEAD_DIM == c and 1 <= n <= MAX_SEQ
             and _smem_bytes(n, c, backward) <= _MAX_SMEM)
+
+
+def kernel_variant(n: int, c: int, heads: int) -> str:
+    """Which device code of ``csrc/attn_block.cu`` a shape takes (the same
+    test as its C launcher; nothing else chooses): ``"wgmma"`` at every shape
+    the kernels take. Raises on what they do not take."""
+    if not supported_shape(n, c, heads):
+        raise ValueError(f"shape (N={n}, C={c}, heads={heads}) unsupported by the CUDA kernel "
+                         f"(takes C in {KERNEL_DIMS} with head dim {HEAD_DIM}, 1 <= N <= {MAX_SEQ})")
+    return "wgmma"
 
 
 def _lib():
@@ -169,6 +193,10 @@ def _lib():
         lib.apvt_attn_block_fwd.restype = i
         lib.apvt_attn_block_bwd.argtypes = [p] * 15 + [i, i, i, i, f, p]
         lib.apvt_attn_block_bwd.restype = i
+        lib.apvt_attn_block_fwd_mma_sync.argtypes = lib.apvt_attn_block_fwd.argtypes
+        lib.apvt_attn_block_fwd_mma_sync.restype = i
+        lib.apvt_attn_block_bwd_mma_sync.argtypes = lib.apvt_attn_block_bwd.argtypes
+        lib.apvt_attn_block_bwd_mma_sync.restype = i
         lib.apvt_attn_block_error_string.argtypes = [i]
         lib.apvt_attn_block_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
@@ -185,8 +213,8 @@ def _prep(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, heads: int, *, bo=No
     b, n, c = x.shape
     if not supported_shape(n, c, heads, backward=dy is not None):
         raise ValueError(f"shape (N={n}, C={c}, heads={heads}) unsupported by the CUDA kernel "
-                         f"(takes C in {KERNEL_DIMS} with head dim {HEAD_DIM}, N <= {MAX_SEQ} "
-                         f"as far as a head's tiles fit in shared memory)")
+                         f"(takes C in {KERNEL_DIMS} with head dim {HEAD_DIM}, 1 <= N <= "
+                         f"{MAX_SEQ}, in {_MAX_SMEM} bytes of shared memory)")
     weights = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
     rows = {"ln_scale": ln_scale, "ln_bias": ln_bias, "bq": bq, "bk": bk, "bv": bv}
     if bo is not None:
@@ -212,24 +240,50 @@ def _prep(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, heads: int, *, bo=No
 def _raise_on(code: int, lib, what: str) -> None:
     if code == -1:
         raise ValueError(f"{what}: unsupported shape")
+    if code == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA tensor map")
+    if code == -3:
+        raise RuntimeError(f"{what}: the compiled kernel holds fewer registers than its "
+                           f"warpgroups' setmaxnreg split needs")
     if code != 0:
         msg = lib.apvt_attn_block_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def fused_attn_block_fwd(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
-                         eps: float) -> torch.Tensor:
-    """Launch the forward kernels on CUDA tensors: x (B, N, C) bf16 -> (B, N, C) bf16."""
-    global FWD_LAUNCHES
+def _launch_fwd(entry: str, x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                eps: float) -> torch.Tensor:
     b, n, c, o = _prep(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, heads, bo=bo)
     lib = _lib()
     scratch, out = torch.empty_like(o["x"]), torch.empty_like(o["x"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [o[k].data_ptr() for k in ("x", "ln_scale", "ln_bias", "wq", "bq", "wk", "bk", "wv",
                                       "bv", "wo", "bo")]
-    rc = lib.apvt_attn_block_fwd(*ptrs, scratch.data_ptr(), out.data_ptr(), b, n, c, heads,
-                                 float(eps), stream)
+    rc = getattr(lib, entry)(*ptrs, scratch.data_ptr(), out.data_ptr(), b, n, c, heads,
+                             float(eps), stream)
     _raise_on(rc, lib, "attn_block forward")
+    return out
+
+
+def _launch_bwd(entry: str, x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, dy, heads: int,
+                eps: float) -> torch.Tensor:
+    b, n, c, o = _prep(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, heads, dy=dy)
+    lib = _lib()
+    dq, dk, dv, dx = (torch.empty_like(o["x"]) for _ in range(4))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [o[k].data_ptr() for k in ("x", "ln_scale", "ln_bias", "wq", "bq", "wk", "bk", "wv",
+                                      "bv", "wo", "dy")]
+    rc = getattr(lib, entry)(*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
+                             b, n, c, heads, float(eps), stream)
+    _raise_on(rc, lib, "attn_block backward")
+    return dx
+
+
+def fused_attn_block_fwd(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                         eps: float) -> torch.Tensor:
+    """Launch the forward kernels on CUDA tensors: x (B, N, C) bf16 -> (B, N, C) bf16."""
+    global FWD_LAUNCHES
+    out = _launch_fwd("apvt_attn_block_fwd", x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
+                      bo, heads, eps)
     FWD_LAUNCHES += 1
     return out
 
@@ -238,17 +292,23 @@ def fused_attn_block_bwd(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, dy, h
                          eps: float) -> torch.Tensor:
     """Launch the backward kernels on CUDA tensors: dx (B, N, C) bf16."""
     global BWD_LAUNCHES
-    b, n, c, o = _prep(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, heads, dy=dy)
-    lib = _lib()
-    dq, dk, dv, dx = (torch.empty_like(o["x"]) for _ in range(4))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [o[k].data_ptr() for k in ("x", "ln_scale", "ln_bias", "wq", "bq", "wk", "bk", "wv",
-                                      "bv", "wo", "dy")]
-    rc = lib.apvt_attn_block_bwd(*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 dx.data_ptr(), b, n, c, heads, float(eps), stream)
-    _raise_on(rc, lib, "attn_block backward")
+    dx = _launch_bwd("apvt_attn_block_bwd", x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, dy,
+                     heads, eps)
     BWD_LAUNCHES += 1
     return dx
+
+
+def mma_sync_fwd(*args) -> torch.Tensor:
+    """:func:`fused_attn_block_fwd` on the first port's ``mma.sync`` device
+    code, at C = 768 and N > 64 only (uncounted; for timing it against the
+    Hopper kernels at the ViT-B shape)."""
+    return _launch_fwd("apvt_attn_block_fwd_mma_sync", *args)
+
+
+def mma_sync_bwd(*args) -> torch.Tensor:
+    """:func:`fused_attn_block_bwd` on the ``mma.sync`` device code (uncounted;
+    raises where its shared memory does not hold the shape)."""
+    return _launch_bwd("apvt_attn_block_bwd_mma_sync", *args)
 
 
 class _AttnBlock(torch.autograd.Function):

@@ -24,9 +24,15 @@ gets no gradient.
 
 Dispatch (:func:`window_attention`): a CPU tensor takes the plain forward,
 differentiated by autograd; a CUDA tensor launches the kernel
-(``csrc/window_attention.cu``: bf16 on the tensor cores, f32 on the CUDA
-cores) or raises. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel
-launches, so a run can show it went through the kernel.
+(``csrc/window_attention.cu``) or raises. Which device code a shape takes is
+:func:`kernel_variant`, the same test as the C launcher (nothing else
+chooses): bf16 with an even head count runs the Hopper kernels (``wgmma`` +
+TMA, a CTA per window, head pair and batch chunk), bf16 with an odd head
+count the ``mma.sync`` kernels of the first port, f32 the CUDA-core ones.
+``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches, so a run can
+show it went through the kernel. :func:`mma_sync_fwd` / :func:`mma_sync_bwd`
+run the ``mma.sync`` device code at any bf16 shape, uncounted, for timing the
+two designs against each other; no model path calls them.
 """
 
 from __future__ import annotations
@@ -112,6 +118,26 @@ def window_attention_dbias(qkv, bias, mask, do, heads: int) -> torch.Tensor:
 
 # --- the CUDA kernel ----------------------------------------------------------
 
+def kernel_variant(dtype: torch.dtype, n: int, heads: int, hd: int = HEAD_DIM) -> str:
+    """Which device code of ``csrc/window_attention.cu`` a shape takes (the
+    same test as its C launcher; nothing else chooses): ``"wgmma"`` (bf16,
+    even head count: two heads of a window are one 128-byte tile row),
+    ``"mma_sync"`` (bf16, odd head count) or ``"cuda_core"`` (f32). Raises on
+    what no variant takes."""
+    if hd != HEAD_DIM:
+        raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIM})")
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"window of {n} tokens unsupported by the CUDA kernel "
+                         f"(takes 1 <= n <= {MAX_TOKENS})")
+    if heads < 1:
+        raise ValueError(f"head count {heads} unsupported by the CUDA kernel")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype} unsupported by the CUDA kernel")
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "wgmma" if heads % 2 == 0 else "mma_sync"
+
+
 def _lib():
     from . import _build
 
@@ -122,6 +148,10 @@ def _lib():
         lib.apvt_win_attn_fwd.restype = i
         lib.apvt_win_attn_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.apvt_win_attn_bwd.restype = i
+        lib.apvt_win_attn_fwd_mma_sync.argtypes = lib.apvt_win_attn_fwd.argtypes
+        lib.apvt_win_attn_fwd_mma_sync.restype = i
+        lib.apvt_win_attn_bwd_mma_sync.argtypes = lib.apvt_win_attn_bwd.argtypes
+        lib.apvt_win_attn_bwd_mma_sync.restype = i
         lib.apvt_win_error_string.argtypes = [i]
         lib.apvt_win_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
@@ -135,14 +165,7 @@ def _check(qkv, bias, mask, heads: int, do=None) -> tuple[int, int, int, int]:
     b, nw, n, c3 = qkv.shape
     if heads <= 0 or c3 % (3 * heads):
         raise ValueError(f"qkv channels {c3} not divisible by 3 * heads ({heads})")
-    hd = c3 // (3 * heads)
-    if hd != HEAD_DIM:
-        raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIM})")
-    if n > MAX_TOKENS:
-        raise ValueError(f"window of {n} tokens unsupported by the CUDA kernel "
-                         f"(takes n <= {MAX_TOKENS})")
-    if qkv.dtype not in _DTYPE_CODE:
-        raise TypeError(f"dtype {qkv.dtype} unsupported by the CUDA kernel")
+    kernel_variant(qkv.dtype, n, heads, c3 // (3 * heads))
     if tuple(bias.shape) != (heads, n, n) or tuple(mask.shape) != (nw, n, n):
         raise ValueError(f"bias {tuple(bias.shape)} / mask {tuple(mask.shape)} do not fit "
                          f"heads {heads}, {nw} windows of {n} tokens")
@@ -166,21 +189,40 @@ def _check(qkv, bias, mask, heads: int, do=None) -> tuple[int, int, int, int]:
 def _raise_on(code: int, lib, what: str) -> None:
     if code == -1:
         raise ValueError(f"{what}: unsupported dtype, head dim or window size")
+    if code == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA tensor map")
     if code != 0:
         msg = lib.apvt_win_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def fused_window_attention_fwd(qkv, bias, mask, heads: int) -> torch.Tensor:
-    """Launch the forward kernel on CUDA tensors; returns o (B, nW, n, C)."""
-    global FWD_LAUNCHES
+def _launch_fwd(qkv, bias, mask, heads: int, entry: str) -> torch.Tensor:
     b, nw, n, code = _check(qkv, bias, mask, heads)
     lib = _lib()
     o = torch.empty(b, nw, n, qkv.shape[-1] // 3, dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = lib.apvt_win_attn_fwd(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), o.data_ptr(),
-                               b, nw, n, heads, HEAD_DIM, code, HEAD_DIM ** -0.5, stream)
+    rc = getattr(lib, entry)(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), o.data_ptr(),
+                             b, nw, n, heads, HEAD_DIM, code, HEAD_DIM ** -0.5, stream)
     _raise_on(rc, lib, "window attention forward")
+    return o
+
+
+def _launch_bwd(qkv, bias, mask, do, heads: int, entry: str) -> torch.Tensor:
+    b, nw, n, code = _check(qkv, bias, mask, heads, do)
+    lib = _lib()
+    dqkv = torch.empty_like(qkv)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = getattr(lib, entry)(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), do.data_ptr(),
+                             dqkv.data_ptr(), b, nw, n, heads, HEAD_DIM, code, HEAD_DIM ** -0.5,
+                             stream)
+    _raise_on(rc, lib, "window attention backward")
+    return dqkv
+
+
+def fused_window_attention_fwd(qkv, bias, mask, heads: int) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors; returns o (B, nW, n, C)."""
+    global FWD_LAUNCHES
+    o = _launch_fwd(qkv, bias, mask, heads, "apvt_win_attn_fwd")
     FWD_LAUNCHES += 1
     return o
 
@@ -188,16 +230,20 @@ def fused_window_attention_fwd(qkv, bias, mask, heads: int) -> torch.Tensor:
 def fused_window_attention_bwd(qkv, bias, mask, do, heads: int) -> torch.Tensor:
     """Launch the backward kernel on CUDA tensors; returns dqkv (B, nW, n, 3C)."""
     global BWD_LAUNCHES
-    b, nw, n, code = _check(qkv, bias, mask, heads, do)
-    lib = _lib()
-    dqkv = torch.empty_like(qkv)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = lib.apvt_win_attn_bwd(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), do.data_ptr(),
-                               dqkv.data_ptr(), b, nw, n, heads, HEAD_DIM, code,
-                               HEAD_DIM ** -0.5, stream)
-    _raise_on(rc, lib, "window attention backward")
+    dqkv = _launch_bwd(qkv, bias, mask, do, heads, "apvt_win_attn_bwd")
     BWD_LAUNCHES += 1
     return dqkv
+
+
+def mma_sync_fwd(qkv, bias, mask, heads: int) -> torch.Tensor:
+    """The forward on the ``mma.sync`` device code whatever the head count
+    (uncounted; for timing it against the Hopper kernel)."""
+    return _launch_fwd(qkv, bias, mask, heads, "apvt_win_attn_fwd_mma_sync")
+
+
+def mma_sync_bwd(qkv, bias, mask, do, heads: int) -> torch.Tensor:
+    """The backward on the ``mma.sync`` device code (uncounted; for timing)."""
+    return _launch_bwd(qkv, bias, mask, do, heads, "apvt_win_attn_bwd_mma_sync")
 
 
 class _WindowAttention(torch.autograd.Function):

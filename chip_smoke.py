@@ -9,7 +9,8 @@ the hand-written kernels:
   (``csrc/attention_packed.cu``, at this shape the wgmma core of
   ``csrc/attn_wgmma.cuh``), forward and backward; then the same with
   ``fuse_attn_block`` on (the fused attention half-block,
-  ``csrc/attn_block.cu``, and the LN-fused MLP on a ViT path) and with
+  ``csrc/attn_block.cu``: its wgmma + TMA per-head and row-block kernels,
+  and the LN-fused MLP on a ViT path) and with
   ``use_fused_mlp`` on (the fused MLP without LayerNorm, ``csrc/ln_mlp.cu``);
 * ViT-B/16 training at batch 64, f32 parameters and bf16 compute, 5 steps
   each through ``train.loop.fit``: the full fine-tune (AdamW + StepLR,
@@ -20,7 +21,8 @@ the hand-written kernels:
   model path of the package calls it);
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
   in bf16, through FGSM and PGD-10 at batch 64: the window-attention kernel
-  (``csrc/window_attention.cu``), forward and backward; then the same with
+  (``csrc/window_attention.cu``, at every Swin-B stage its wgmma + TMA
+  device code), forward and backward; then the same with
   ``use_fused_mlp`` on (the fused MLP at the four Swin-B stage widths);
 * ``convnext`` ConvNeXt-B (all 36 blocks, dims 128-1024) with a rank-8 LoRA
   merged into every pwconv1/pwconv2, in bf16, both kernel fields on, through
@@ -45,7 +47,10 @@ Phases, one line each (or a few):
    backward with the forward's output and log-sum-exp as autograd passes
    them and without (the same bits), the log-sum-exp itself; window attention at the
    four Swin-B stage shapes (B=64; the shift mask on stages 1-3, zeros on
-   stage 4) and at a ragged (2, 4, 16, 2), with a relative-position bias at
+   stage 4), at a ragged (2, 4, 16, 2), at the Hopper kernel's tile edges
+   (one window of n = 16, 49, 64 tokens, random masks) and at an odd head
+   count (2, 4, 49, 3), which keeps the mma.sync kernel, each line naming
+   its device code, with a relative-position bias at
    the scale of a pretrained Swin's (std 1-2, another per head), and the
    kernel's change from a zero bias held against the plain version's;
    dwconv7 at the four ConvNeXt-B stage shapes (B=64) and a ragged
@@ -62,7 +67,9 @@ Phases, one line each (or a few):
    the mma.sync kernels; the attention half-block at
    (64, 197, 768) with 12 heads and a ragged (2, 37, 192) with 3, bf16, with
    LN scale/bias and the four biases at std 0.5 (each seen by the check) and
-   q/k weights scaled up so that the softmax is far from uniform; the
+   q/k weights scaled up so that the softmax is far from uniform, and at the
+   edges of its 64-row tiles and score widths, (3, N, 192) with 3 heads for
+   N = 1, 63, 64, 65, 128, 197, 208, 256; the
    head-major attention kernel at the packed kernel's shapes, equal bit for
    bit to the packed kernel on the transposed operands; the three parameter-
    gradient functions against autograd through the plain versions; every
@@ -100,7 +107,10 @@ Phases, one line each (or a few):
    kernel), and the eval-compose matrices' wall times. A kernel and its
    library call or composition are timed in turns (kernel, library, three
    times over) and the best of each is kept, because a library call's time
-   moves between runs on one shape. ViT-B and Swin-B PGD are timed over 3
+   moves between runs on one shape. Window attention (stages 1 and 3, three
+   masks) and the attention half-block (ViT-B) are timed in turns with the
+   mma.sync device code they replace, kept in the same sources behind
+   entry points that only this script calls. ViT-B and Swin-B PGD are timed over 3
    calls, ConvNeXt-B over 2 calls per variant and turn.
 
 The line before the last is a JSON object describing every kernel (with
@@ -147,9 +157,13 @@ EDGE_N = (1, 63, 64, 65, 128, 208, 256)
 SHAPES = {"float32": ((2, 37, 3, 32), MAIN),
           "bfloat16": ((2, 37, 3, 32), (2, 300, 2, 64), *((2, n, 2, 64) for n in EDGE_N), MAIN)}
 # window attention (B, nW, n, heads, mask): the four Swin-B stages at B=64
-# (window 7, hd 32) and a ragged window-4 case
+# (window 7, hd 32) and a ragged window-4 case; then the Hopper kernel's tile
+# edges (n = 16, 49, 64 in one window; a batch that its chunks do not divide)
+# and an odd head count, which keeps the mma.sync kernel
 WIN_SHAPES = ((64, 64, 49, 4, "shift"), (64, 16, 49, 8, "shift"), (64, 4, 49, 16, "shift"),
               (64, 1, 49, 32, "zeros"), (2, 4, 16, 2, "shift"))
+WIN_EDGE_SHAPES = ((3, 1, 16, 2, "random"), (5, 1, 49, 2, "random"), (3, 1, 64, 4, "random"),
+                   (2, 4, 49, 3, "shift"))
 WIN_TIMED = {"stage 1": WIN_SHAPES[0][:4], "stage 3": WIN_SHAPES[2][:4]}
 WIN_MASKS = ("zeros", "shift", "random")
 # std of the Swin-B bias tables in phase 4 (a pretrained Swin's are O(1-10))
@@ -180,6 +194,11 @@ FMLP_SHAPES = ((12608, 768, 3072), (200704, 128, 512), (70, 128, 512))
 # the attention half-block (B, N, C, heads): ViT-B/16 and a ragged small case;
 # fwd / dx limits of the JAX kernel's bf16 parity tests
 AB_SHAPES = ((64, 197, 768, 12), (2, 37, 192, 3))
+# ... and the edges of the Hopper kernels' 64-row tiles and of their score
+# widths (64, 128, 208, 256) at C = 192 with 3 heads (a cluster's second CTA
+# idle at N <= 128; a batch of 3, so that the row-block kernels' 128-row
+# blocks straddle batch elements)
+AB_EDGE_N = (1, 63, 64, 65, 128, 197, 208, 256)
 AB_TOL = ((3e-2, 3e-2), (5e-2, 5e-2))
 AB_QK_GAIN = 3.0  # on the 1/sqrt(C) init of wq and wk: at gain 1 every P is about 1/N
 # a parameter gradient against autograd through the plain version: max |err|
@@ -254,6 +273,18 @@ def turns(kernel, plain, iters: int = 20, library=None) -> tuple:
     return best if library is None else (*best, min(times["library"]))
 
 
+def rivals(fns: dict, iters: int = 20, rounds: int = 3) -> dict:
+    """``{name: ms}``: the callables take turns (in the given order, ``rounds``
+    times over) and the best of each is kept, so that a kernel, the kernel
+    it replaces and a library call are compared in one run on one card."""
+    best = {}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            ms = cuda_ms(fn, iters)
+            best[name] = min(best.get(name, ms), ms)
+    return best
+
+
 @contextlib.contextmanager
 def plain_path(module, name: str, plain):
     """Route a model module's attention through the plain version."""
@@ -289,6 +320,10 @@ class Smoke:
         torch.backends.cudnn.allow_tf32 = False
         self.dev = dev
         self.gen = torch.Generator(self.dev).manual_seed(0)
+        # the tile-edge checks of window attention and attn_block draw from a
+        # generator of their own, so that adding one leaves the inputs of
+        # every check after it as they were
+        self.edge_gen = torch.Generator(self.dev).manual_seed(6)
         self.card = ""
 
     # 1. device
@@ -330,10 +365,21 @@ class Smoke:
                     r"Compiling entry function '(\w+)'(?:.*\n)+?.*?(\d+) bytes spill stores.*\n"
                     r".*Used (\d+) registers", ptxas):
                 short = re.search(r"(wg_mlp_(?:fwd|bwd)ILi\d+ELb[01]|2wg\d+attn_(?:fwd|bwd)"
-                                  r"(?:ILi\d+)?)", fn)
+                                  r"(?:ILi\d+)?|3wgw7win_(?:fwd|bwd)|3wgb\d+(?:heads_fwd|"
+                                  r"heads_bwd|oproj_fwd|dh_bwd)ILi\d+E(?:Li\d+E)?)", fn)
                 if short:
                     print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
                           f"spill stores {spill} bytes", flush=True)
+        # the Hopper window and half-block kernels' dynamic shared memory, as
+        # their launchers pass it (the wrapper's budget must be the launcher's)
+        win = [self.kw._lib().apvt_win_attn_smem(i) for i in range(2)]
+        blk = [self.kb._lib().apvt_attn_block_smem(i) for i in range(4)]
+        check(blk[0] == self.kb._smem_bytes(MAIN[1], 768, False)
+              and blk[2] == self.kb._smem_bytes(MAIN[1], 768, True),
+              f"attn_block: the wrapper's shared-memory budget is not the launcher's ({blk})")
+        print(f"phase 2 build: dynamic shared memory, window_attention.cu win_fwd {win[0]} B, "
+              f"win_bwd {win[1]} B; attn_block.cu heads_fwd {blk[0]} B, oproj_fwd {blk[1]} B, "
+              f"heads_bwd {blk[2]} B, dh_bwd {blk[3]} B", flush=True)
 
     # 3. kernels against plain, on the card
     def packed_vs_plain(self) -> dict:
@@ -368,26 +414,28 @@ class Smoke:
                       f"dq/dk/dv max|err| {e_b:.3e}, backward bitwise reproducible", flush=True)
         return err
 
-    def window_operands(self, shape, mask_kind, dtype):
+    def window_operands(self, shape, mask_kind, dtype, gen=None):
         """qkv, bias, mask, dO and heads; the bias's std runs from 1 to 2 over
-        the heads (a constant offset per head would not change the softmax)."""
+        the heads (a constant offset per head would not change the softmax).
+        Drawn from ``gen``, by default ``self.gen``."""
         import torch
 
+        gen = gen or self.gen
         b, nw, n, h = shape
         c = 32 * h
-        qkv = torch.randn(b, nw, n, 3 * c, device=self.dev, generator=self.gen).to(dtype)
-        bias = (torch.randn(h, n, n, device=self.dev, generator=self.gen)
+        qkv = torch.randn(b, nw, n, 3 * c, device=self.dev, generator=gen).to(dtype)
+        bias = (torch.randn(h, n, n, device=self.dev, generator=gen)
                 * torch.linspace(1.0, 2.0, h, device=self.dev)[:, None, None])
         if mask_kind == "shift":
             window = round(n ** 0.5)
             mask = torch.from_numpy(self.swin._shift_attn_mask(
                 window * round(nw ** 0.5), window, window // 2)).to(self.dev)
         elif mask_kind == "random":
-            mask = torch.where(torch.rand(nw, n, n, device=self.dev, generator=self.gen) < 0.3,
+            mask = torch.where(torch.rand(nw, n, n, device=self.dev, generator=gen) < 0.3,
                                -100.0, 0.0)
         else:
             mask = torch.zeros(nw, n, n, device=self.dev)
-        do = torch.randn(b, nw, n, c, device=self.dev, generator=self.gen).to(dtype)
+        do = torch.randn(b, nw, n, c, device=self.dev, generator=gen).to(dtype)
         return qkv, bias, mask, do, h
 
     def window_vs_plain(self) -> dict:
@@ -396,8 +444,9 @@ class Smoke:
         kw, err = self.kw, {"fwd": 0.0, "bwd": 0.0}  # bf16, max over the Swin-B stages
         for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
             dtype = getattr(torch, dtype_name)
-            for *shape, mask_kind in WIN_SHAPES:
-                qkv, bias, mask, do, h = self.window_operands(shape, mask_kind, dtype)
+            for (*shape, mask_kind), gen in ([(s, self.gen) for s in WIN_SHAPES]
+                                             + [(s, self.edge_gen) for s in WIN_EDGE_SHAPES]):
+                qkv, bias, mask, do, h = self.window_operands(shape, mask_kind, dtype, gen)
                 tag = f"{dtype_name} {tuple(shape)} {mask_kind} mask"
                 got_f = kw.fused_window_attention_fwd(qkv, bias, mask, h)
                 want_f = kw.window_attention_reference(qkv, bias, mask, h)
@@ -427,7 +476,8 @@ class Smoke:
                 torch.cuda.synchronize()
                 if dtype == torch.bfloat16 and shape[0] == BATCH:
                     err = {"fwd": max(err["fwd"], e_f), "bwd": max(err["bwd"], e_b)}
-                print(f"phase 3 window_attention vs plain {tag}: fwd max|err| {e_f:.3e}, "
+                print(f"phase 3 window_attention vs plain {tag} "
+                      f"[{kw.kernel_variant(dtype, shape[2], h)}]: fwd max|err| {e_f:.3e}, "
                       f"dqkv max|err| {e_b:.3e}; bias contribution (max {moved['fwd']:.3e} fwd, "
                       f"{moved['dqkv']:.3e} dqkv) matches; backward bitwise reproducible",
                       flush=True)
@@ -618,18 +668,19 @@ class Smoke:
                   f"bitwise reproducible", flush=True)
         return err
 
-    def attn_block_operands(self, shape):
+    def attn_block_operands(self, shape, gen=None):
         """bf16 x and dy (B, N, C); LN scale/bias and the four biases at std
         MLP_PARAM_STD, the weights at std 1/sqrt(C), wq and wk times AB_QK_GAIN.
         The cotangent is drawn at std 1/16: with these peaked scores dx is then
         of order 1, as in the JAX kernel's parity test whose limits are used
-        (at std 1 it reaches 60, where one bf16 ulp of dq, dk or dv is 0.25)."""
+        (at std 1 it reaches 60, where one bf16 ulp of dq, dk or dv is 0.25).
+        Drawn from ``gen``, by default ``self.gen``."""
         import torch
 
         b, n, c, _ = shape
 
         def rand(*size):
-            return torch.randn(*size, device=self.dev, generator=self.gen)
+            return torch.randn(*size, device=self.dev, generator=gen or self.gen)
 
         x = (rand(b, n, c) + 0.5 * rand(b, n, 1)).to(torch.bfloat16)
         dy = (rand(b, n, c) / 16).to(torch.bfloat16)
@@ -694,12 +745,30 @@ class Smoke:
             torch.cuda.synchronize()
             if shape == AB_SHAPES[0]:
                 err = {"fwd": e_f, "bwd": e_b}
-            print(f"phase 3 attn_block vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
+            print(f"phase 3 attn_block vs plain {tag} [{kb.kernel_variant(*shape[1:])}]: fwd "
+                  f"max|err| {e_f:.3e}, dx max|err| "
                   f"{e_b:.3e}; mean row maximum of P {peak:.3f} (1/N = {1 / shape[1]:.4f}); "
                   f"dropping a row parameter moves plain fwd/dx by "
                   + ", ".join(f"{n} {a:.2f}/{b:.2f}" for n, (a, b) in moved.items())
                   + f"; param grads vs autograd within {e_p:.2e} of their scale; backward "
                   f"bitwise reproducible", flush=True)
+        edges = []
+        for n in AB_EDGE_N:
+            shape = (3, n, 192, 3)
+            x, dy, p = self.attn_block_operands(shape, self.edge_gen)
+            args = [p[k] for k in self.AB_ORDER]
+            tag = f"bfloat16 {shape[:3]} h3"
+            got_b = kb.fused_attn_block_bwd(x, *args[:-1], dy, 3, eps)
+            e_f = close(kb.fused_attn_block_fwd(x, *args, 3, eps),
+                        kb.attn_block_reference(x, *args, 3, eps), fa, fr, f"attn_block fwd {tag}")
+            e_b = close(got_b, kb.attn_block_bwd_reference(x, *args[:-1], dy, 3, eps), ga, gr,
+                        f"attn_block dx {tag}")
+            check(torch.equal(got_b, kb.fused_attn_block_bwd(x, *args[:-1], dy, 3, eps)),
+                  f"attn_block backward not reproducible {tag}")
+            edges.append(f"N={n} [{kb.kernel_variant(n, 192, 3)}] {e_f:.2e}/{e_b:.2e}")
+        torch.cuda.synchronize()
+        print("phase 3 attn_block vs plain at the tile edges, (3, N, 192) h3 bf16, fwd/dx max|err|: "
+              + ", ".join(edges) + "; every backward bitwise reproducible", flush=True)
         return err
 
     def bhnd_vs_plain(self) -> dict:
@@ -1264,8 +1333,10 @@ class Smoke:
              "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
     def time_window(self, swin_l) -> list[dict]:
-        """Window attention at Swin-B stages 1 and 3 under three masks; bound and
-        SDPA (bias + mask as ``attn_mask``) with the shift mask."""
+        """Window attention at Swin-B stages 1 and 3 under three masks: the
+        kernel, the mma.sync kernel it replaces and (shift mask) SDPA with
+        bias + mask as ``attn_mask``, in turns, best of 3; the plain version;
+        the bound."""
         import torch
         import torch.nn.functional as F
 
@@ -1274,37 +1345,42 @@ class Smoke:
         for label, shape in WIN_TIMED.items():
             for mask_kind in WIN_MASKS:
                 qkv, bias, mask, wdo, wh = self.window_operands(shape, mask_kind, torch.bfloat16)
-                wkf, wpf = turns(lambda: kw.fused_window_attention_fwd(qkv, bias, mask, wh),
-                                 lambda: kw.window_attention_reference(qkv, bias, mask, wh))
-                wkb, wpb = turns(
-                    lambda: kw.fused_window_attention_bwd(qkv, bias, mask, wdo, wh),
-                    lambda: kw.window_attention_bwd_reference(qkv, bias, mask, wdo, wh))
-                line = (f"phase 6 window_attention {label} {tuple(qkv.shape)} h{wh} {mask_kind} "
-                        f"mask bf16: kernel fwd {wkf:.4f} ms bwd {wkb:.4f} ms; plain fwd "
-                        f"{wpf:.4f} ms bwd {wpb:.4f} ms")
+                b, nw, n, _ = qkv.shape
+                hd, c = 32, wh * 32
+                fwd = {"kernel": lambda: kw.fused_window_attention_fwd(qkv, bias, mask, wh),
+                       "mma_sync": lambda: kw.mma_sync_fwd(qkv, bias, mask, wh)}
+                bwd = {"kernel": lambda: kw.fused_window_attention_bwd(qkv, bias, mask, wdo, wh),
+                       "mma_sync": lambda: kw.mma_sync_bwd(qkv, bias, mask, wdo, wh)}
                 if mask_kind == "shift":
-                    b, nw, n, _ = qkv.shape
-                    hd = 32
                     # every (window, head) pair as one SDPA head: (B, nW*h, n, hd),
                     # bias + mask as one additive mask shared by the batch
                     qh, kh, vh = (t.reshape(b, nw * wh, n, hd).detach().requires_grad_(True)
                                   for t in kw._heads(qkv, wh))
                     doh = wdo.view(b, nw, n, wh, hd).transpose(2, 3).reshape(b, nw * wh, n, hd)
                     am = (bias[None] + mask[:, None]).reshape(1, nw * wh, n, n).to(torch.bfloat16)
-                    lf = cuda_ms(lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=am), 20)
                     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
-                    lb = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                             retain_graph=True), 20)
-                    unit = b * nw * wh * n * n * hd
-                    c = wh * hd
-                    side = (bias.numel() + mask.numel()) * 4
-                    bf, bf_by = bound_ms(4 * unit, b * nw * n * 4 * c * 2 + side, PEAK_BF16)
-                    bb, bb_by = bound_ms(10 * unit, b * nw * n * 7 * c * 2 + side, PEAK_BF16)
-                    rows[label] = (wkf, wpf, wkb, wpb, lf, lb, bf, bf_by, bb, bb_by)
-                    line += (f"; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd {bf:.4f} ms "
-                             f"({bf_by}) bwd {bb:.4f} ms ({bb_by})")
-                print(f"{line} {self.card}", flush=True)
+                    fwd["sdpa"] = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+                    bwd["sdpa"] = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                              retain_graph=True)
+                tf, tb = rivals(fwd), rivals(bwd)
+                pf = cuda_ms(lambda: kw.window_attention_reference(qkv, bias, mask, wh), 5)
+                pb = cuda_ms(lambda: kw.window_attention_bwd_reference(qkv, bias, mask, wdo, wh), 5)
+                unit = b * nw * wh * n * n * hd
+                side = (bias.numel() + mask.numel()) * 4
+                bf, bf_by = bound_ms(4 * unit, b * nw * n * 4 * c * 2 + side, PEAK_BF16)
+                bb, bb_by = bound_ms(10 * unit, b * nw * n * 7 * c * 2 + side, PEAK_BF16)
+                line = (f"phase 6 window_attention {label} {tuple(qkv.shape)} h{wh} {mask_kind} "
+                        f"mask bf16 [{kw.kernel_variant(qkv.dtype, n, wh)}]: kernel fwd "
+                        f"{tf['kernel']:.4f} ms bwd {tb['kernel']:.4f} ms; the mma.sync kernel "
+                        f"it replaces fwd {tf['mma_sync']:.4f} ms bwd {tb['mma_sync']:.4f} ms "
+                        f"({tf['mma_sync'] / tf['kernel']:.2f}x / "
+                        f"{tb['mma_sync'] / tb['kernel']:.2f}x); plain fwd {pf:.4f} ms bwd "
+                        f"{pb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by})")
+                if mask_kind == "shift":
+                    rows[label] = (tf["kernel"], pf, tb["kernel"], pb, tf["sdpa"], tb["sdpa"], bf,
+                                   bf_by, bb, bb_by)
+                    line += f"; SDPA fwd {tf['sdpa']:.4f} ms bwd {tb['sdpa']:.4f} ms"
+                print(f"{line}; in turns, best of 3 {self.card}", flush=True)
         wkf, wpf, wkb, wpb, lf, lb, bf, bf_by, bb, bb_by = rows["stage 3"]
         src = f"{PKG}/csrc/window_attention.cu"
         return [
@@ -1447,9 +1523,11 @@ class Smoke:
              "composition_ms": cb}]
 
     def time_attn_block(self, launches) -> list[dict]:
-        """The attention half-block at the ViT-B shape: kernels, plain, bound,
-        and the bf16 library composition (``F.layer_norm`` -> 3 x ``F.linear``
-        -> SDPA -> ``F.linear``; no one PyTorch call computes the function)."""
+        """The attention half-block at the ViT-B shape: the kernels, the
+        mma.sync kernels they replace and the bf16 library composition
+        (``F.layer_norm`` -> 3 x ``F.linear`` -> SDPA -> ``F.linear``; no one
+        PyTorch call computes the function) in turns, best of 3; the plain
+        version; the bound."""
         import torch
         import torch.nn.functional as F
 
@@ -1471,32 +1549,38 @@ class Smoke:
 
         xg = x.detach().requires_grad_(True)
         y = library(xg)
-        kf, pf, cf = turns(lambda: kb.fused_attn_block_fwd(x, *args, h, eps),
-                           lambda: kb.attn_block_reference(x, *args, h, eps), 10,
-                           library=lambda: library(x))
-        kbw, pb, cb = turns(lambda: kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps),
-                            lambda: kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps), 10,
-                            library=lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
+        tf = rivals({"kernel": lambda: kb.fused_attn_block_fwd(x, *args, h, eps),
+                     "mma_sync": lambda: kb.mma_sync_fwd(x, *args, h, eps),
+                     "composition": lambda: library(x)}, 10)
+        tb = rivals({"kernel": lambda: kb.fused_attn_block_bwd(x, *args[:-1], dy, h, eps),
+                     "mma_sync": lambda: kb.mma_sync_bwd(x, *args[:-1], dy, h, eps),
+                     "composition": lambda: torch.autograd.grad(y, xg, dy, retain_graph=True)}, 10)
         del y
+        pf = cuda_ms(lambda: kb.attn_block_reference(x, *args, h, eps), 5)
+        pb = cuda_ms(lambda: kb.attn_block_bwd_reference(x, *args[:-1], dy, h, eps), 5)
         side = 4 * c * c * 2 + 6 * c * 4
         bf, bf_by = bound_ms(b * (8 * n * c * c + 4 * n * n * c), 2 * b * n * c * 2 + side,
                              PEAK_BF16)
         bb, bb_by = bound_ms(b * (14 * n * c * c + 10 * n * n * c), 3 * b * n * c * 2 + side,
                              PEAK_BF16)
-        print(f"phase 6 attn_block {shape[:3]} h{h} bf16: kernel fwd {kf:.4f} ms bwd {kbw:.4f} "
-              f"ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; library composition (no single call) "
-              f"fwd {cf:.4f} ms bwd {cb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms "
-              f"({bb_by}) {self.card}", flush=True)
+        print(f"phase 6 attn_block {shape[:3]} h{h} bf16 [{kb.kernel_variant(n, c, h)}]: kernel fwd "
+              f"{tf['kernel']:.4f} ms bwd {tb['kernel']:.4f} ms; the mma.sync kernels they replace "
+              f"fwd {tf['mma_sync']:.4f} ms bwd {tb['mma_sync']:.4f} ms "
+              f"({tf['mma_sync'] / tf['kernel']:.2f}x / {tb['mma_sync'] / tb['kernel']:.2f}x); "
+              f"library composition (no single call) fwd {tf['composition']:.4f} ms bwd "
+              f"{tb['composition']:.4f} ms; in turns, best of 3; plain fwd {pf:.4f} ms bwd "
+              f"{pb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
+              f"{self.card}", flush=True)
         src = f"{PKG}/csrc/attn_block.cu"
         return [
             {"name": "attn_block_fwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/attn_block.py:84", "launches": launches["attn_block_fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": None,
-             "composition_ms": cf},
+             "ms": tf["kernel"], "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by,
+             "library_ms": None, "composition_ms": tf["composition"]},
             {"name": "attn_block_bwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/attn_block.py:99", "launches": launches["attn_block_bwd"],
-             "ms": kbw, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
-             "composition_ms": cb}]
+             "ms": tb["kernel"], "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by,
+             "library_ms": None, "composition_ms": tb["composition"]}]
 
     def time_bhnd(self, launches) -> list[dict]:
         """Head-major attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""

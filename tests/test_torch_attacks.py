@@ -287,7 +287,7 @@ class _RecordingPool:
 
 
 def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, monkeypatch):
-    """Batch k's attack is issued before batch k-1's encodes are awaited; at
+    """Batch k's attack is launched before batch k-1's encodes are awaited; at
     most one batch is pending; every file is written before the metadata;
     names and metadata order are those of the serial writer."""
     import pandas as pd
@@ -329,7 +329,7 @@ def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, 
         submits = [i for i, (kind, n) in enumerate(log) if kind == "submit" and n in files]
         waits = [i for i, (kind, n) in enumerate(log) if kind == "wait" and n in files]
         assert len(submits) == len(waits) == len(files)
-        # submitted after its own attack, not awaited before the next one was issued
+        # submitted after its own attack, not awaited before the next one was launched
         assert all(attacks[k] < i for i in submits)
         if k + 1 < len(attacks):
             assert all(i < attacks[k + 1] for i in submits), log

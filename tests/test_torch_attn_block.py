@@ -139,8 +139,11 @@ def test_param_grads_are_taken_only_where_asked():
 
 
 @pytest.mark.parametrize("case", ["dtype", "width", "heads", "seq", "smem", "rank", "rows"])
-def test_kernel_wrapper_refuses_before_any_build(case):
-    """What the CUDA kernels do not take raises in the wrapper (no nvcc here)."""
+def test_kernel_wrapper_refuses_before_any_build(case, monkeypatch):
+    """What the CUDA kernels do not take raises in the wrapper (no nvcc here).
+    The shared-memory budget no longer depends on N: the backward takes N =
+    240 at C = 768 (the first port's did not), and a budget below what the
+    backward kernel needs is refused before any launch."""
     c = 256 if case == "width" else 768
     n = 300 if case == "seq" else (240 if case == "smem" else 197)
     heads = 6 if case == "heads" else c // 64
@@ -153,10 +156,59 @@ def test_kernel_wrapper_refuses_before_any_build(case):
     if case == "rows":
         rows[4] = torch.zeros(c + 1)
     with pytest.raises(TypeError if case == "dtype" else ValueError):
-        if case == "smem":  # the forward fits N = 240 at C = 768, the backward does not
-            assert tb.supported_shape(n, c, heads, backward=False)
-            tb.fused_attn_block_bwd(x, *rows[:-1], torch.zeros_like(x), heads, EPS)
+        if case == "smem":
+            assert tb.supported_shape(n, c, heads)
+            with monkeypatch.context() as m:
+                m.setattr(tb, "_MAX_SMEM", tb._smem_bytes(n, c, True) - 1)
+                assert tb.supported_shape(n, c, heads, backward=False)
+                tb.fused_attn_block_bwd(x, *rows[:-1], torch.zeros_like(x), heads, EPS)
         else:
             tb.fused_attn_block_fwd(x, *rows, heads, EPS)
     assert tb.supported_shape(197, 768, 12) and tb.supported_shape(37, 192, 3)
     assert not tb.supported_shape(197, 768, 6) and not tb.supported_shape(257, 768, 12)
+
+
+@pytest.mark.parametrize("n,c,heads", [(197, 768, 12), (1, 192, 3), (64, 192, 3), (65, 384, 6),
+                                       (208, 768, 12), (256, 768, 12)])
+def test_kernel_variant_is_the_hopper_kernel_at_every_supported_shape(n, c, heads):
+    assert tb.kernel_variant(n, c, heads) == "wgmma"
+    assert tb.supported_shape(n, c, heads) and tb.supported_shape(n, c, heads, backward=False)
+
+
+@pytest.mark.parametrize("n,c,heads", [(257, 768, 12), (0, 192, 3), (197, 768, 6),
+                                       (197, 256, 4), (197, 64, 1)])
+def test_kernel_variant_refuses_what_the_kernels_do_not_take(n, c, heads):
+    with pytest.raises(ValueError):
+        tb.kernel_variant(n, c, heads)
+
+
+def test_smem_budget_is_the_launchers_and_independent_of_n():
+    """``_smem_bytes`` mirrors ``HeadsCfg`` in ``csrc/attn_block.cu``: 1024
+    bytes of alignment slack, 10 (forward) or 16 (backward) 8 KB tiles, 3 or
+    2 ring stages of 40 KB, the row statistics and the ring's barriers."""
+    for n in (1, 64, 197, 208, 256):
+        for c in tb.KERNEL_DIMS:
+            assert tb._smem_bytes(n, c, False) == 206896
+            assert tb._smem_bytes(n, c, True) == 217120
+    assert tb._smem_bytes(256, 768, True) <= tb._MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 197])
+def test_plain_matches_jax_pallas_kernel_at_the_tile_edges(n):
+    """The plain forward and dx against the Pallas kernel (interpret mode)
+    at the Hopper kernels' 64-row tile edges, f32, one batch element."""
+    rng = np.random.default_rng(n)
+    r = lambda shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    args = [r((1, n, C)), 1.0 + 0.3 * r((C,)), 0.3 * r((C,))]
+    for t in "qkvo":
+        args += [r((C, C), (0.4 if t in "qk" else 0.125)), r((C,), 0.3)]
+    g = r((1, n, C))
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a: jb.fused_attn_block(a, *map(jnp.asarray, args[1:]), H, EPS),
+                            jnp.asarray(args[0]))
+        (want_dx,) = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a) for a in args]
+    got = tb.attn_block_reference(*targs, H, EPS)
+    dx = tb.attn_block_bwd_reference(*targs[:-1], torch.from_numpy(g), H, EPS)
+    np.testing.assert_allclose(got.numpy(), _f32(want), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(dx.numpy(), _f32(want_dx), atol=1e-4, rtol=1e-3)

@@ -20,6 +20,9 @@ from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tp
 # (B, nW, n, heads, hd): the window-7 shape of the kernel's path and a
 # window-4 shape at another head dim
 SHAPES = [(2, 4, 49, 2, 32), (2, 4, 16, 2, 16)]
+# the Hopper kernel's tile edges: windows of 16, 49 and 64 tokens (64-row
+# tiles, 49 and 16 ragged), one window per image
+EDGE_SHAPES = [(2, 1, 16, 2, 32), (2, 1, 49, 2, 32), (2, 1, 64, 2, 32)]
 FWD_TOL, GRAD_TOL = dict(atol=2e-5, rtol=1e-4), dict(atol=5e-5, rtol=1e-3)
 
 
@@ -32,7 +35,7 @@ def _inputs(b, nw, n, h, hd, seed=0):
     return qkv, bias, mask, do
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_plain_matches_jax_pallas_kernel_interpret(shape):
     h = shape[3]
     qkv, bias, mask, _ = _inputs(*shape)
@@ -105,3 +108,26 @@ def test_kernel_refuses_what_it_does_not_take(case, match):
             "mask_shape": (qkv, bias, mask[:1], 2)}[case]
     with pytest.raises(ValueError, match=match):
         tkw.fused_window_attention(*args)
+
+
+@pytest.mark.parametrize("dtype,n,heads,want", [
+    (torch.bfloat16, 49, 4, "wgmma"), (torch.bfloat16, 49, 32, "wgmma"),
+    (torch.bfloat16, 16, 2, "wgmma"), (torch.bfloat16, 64, 2, "wgmma"),
+    (torch.bfloat16, 49, 3, "mma_sync"), (torch.bfloat16, 1, 1, "mma_sync"),
+    (torch.float32, 49, 4, "cuda_core"), (torch.float32, 64, 3, "cuda_core")])
+def test_kernel_variant_by_shape(dtype, n, heads, want):
+    """bf16 with an even head count takes the Hopper kernel (two heads of a
+    window are one 128-byte tile row), an odd count the mma.sync one, f32 the
+    CUDA cores; the window size does not choose."""
+    assert tkw.kernel_variant(dtype, n, heads) == want
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(dtype=torch.bfloat16, n=49, heads=4, hd=16), ValueError),
+    (dict(dtype=torch.bfloat16, n=0, heads=4), ValueError),
+    (dict(dtype=torch.bfloat16, n=65, heads=4), ValueError),
+    (dict(dtype=torch.bfloat16, n=49, heads=0), ValueError),
+    (dict(dtype=torch.float16, n=49, heads=4), TypeError)])
+def test_kernel_variant_refuses_what_no_variant_takes(kw, err):
+    with pytest.raises(err):
+        tkw.kernel_variant(**kw)
