@@ -6,7 +6,10 @@
 // the JAX package. One device code serves both: the template flag LN folds
 // the LayerNorm in; without it h = x and dx = dhid, every other step and
 // rounding point is the same. Over token rows x (T, D) in bf16,
-//   h   = LN(x) * scale + bias            (f32, two-pass mean/var; rounded to bf16)
+//   h   = LN(x) * scale + bias            (f32, two-pass mean/var; the normalised value,
+//                                          its product with scale and the sum each
+//                                          rounded as the plain version rounds them,
+//                                          tiles.cuh:ln_affine; rounded to bf16)
 //   pre = h W1 + b1                       (f32 accumulation, bias added in f32)
 //   a   = gelu(pre)                       (exact, erff, f32; rounded to bf16)
 //   y   = a W2 + b2                       (f32 accumulation, bias in f32; rounded to bf16)
@@ -255,16 +258,70 @@ __device__ void ln_rows_swz(unsigned char* Xn, const float* __restrict__ ln_s,
       const int vec = gl + G * p;
       uint4 o = make_uint4(0u, 0u, 0u, 0u);
       if (live) {
-        o.x = pack(v[p][0] * rstd * sc[p][0] + bi[p][0], v[p][1] * rstd * sc[p][1] + bi[p][1]);
-        o.y = pack(v[p][2] * rstd * sc[p][2] + bi[p][2], v[p][3] * rstd * sc[p][3] + bi[p][3]);
-        o.z = pack(v[p][4] * rstd * sc[p][4] + bi[p][4], v[p][5] * rstd * sc[p][5] + bi[p][5]);
-        o.w = pack(v[p][6] * rstd * sc[p][6] + bi[p][6], v[p][7] * rstd * sc[p][7] + bi[p][7]);
+        o.x = pack(ln_affine(v[p][0], rstd, sc[p][0], bi[p][0]),
+                   ln_affine(v[p][1], rstd, sc[p][1], bi[p][1]));
+        o.y = pack(ln_affine(v[p][2], rstd, sc[p][2], bi[p][2]),
+                   ln_affine(v[p][3], rstd, sc[p][3], bi[p][3]));
+        o.z = pack(ln_affine(v[p][4], rstd, sc[p][4], bi[p][4]),
+                   ln_affine(v[p][5], rstd, sc[p][5], bi[p][5]));
+        o.w = pack(ln_affine(v[p][6], rstd, sc[p][6], bi[p][6]),
+                   ln_affine(v[p][7], rstd, sc[p][7], bi[p][7]));
       }
       if (vec < V)
         *reinterpret_cast<uint4*>(Xn + (vec >> 3) * kTileB + r * 128 +
                                   (((vec & 7) ^ (r & 7)) << 4)) = o;
     }
   }
+}
+
+// The kernels' LayerNorm prologue alone, for a diagnosis: rows of x (T, D)
+// put into the swizzled tiles as TMA puts them, normalised by ln_rows_swz,
+// then h (T, D) bf16 and the rows' mean and rstd (stats: 2 x T f32) written
+// out. The mma.sync forward (D = 128) normalises with tiles.cuh's ln_rows,
+// the same expressions in the same order.
+template <int D>
+__global__ void __launch_bounds__(256)
+ln_rows_probe(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+              const float* __restrict__ ln_b, bf16* __restrict__ h, float* __restrict__ stats,
+              int T, float eps) {
+  extern __shared__ __align__(1024) unsigned char raw[];
+  constexpr int V = D / 8;
+  const int row0 = blockIdx.x * 64;
+  float* st = reinterpret_cast<float*>(raw + (D / 64) * kTileB);
+  auto slot = [&](int r, int vec) {   // 8 columns of row r, where TMA puts them
+    return reinterpret_cast<uint4*>(raw + (vec >> 3) * kTileB + r * 128 +
+                                    (((vec & 7) ^ (r & 7)) << 4));
+  };
+  for (int i = threadIdx.x; i < 64 * V; i += 256) {
+    const int r = i / V, vec = i % V;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T) v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * D) + vec);
+    *slot(r, vec) = v;
+  }
+  __syncthreads();
+  ln_rows_swz<D>(raw, ln_s, ln_b, row0, T, eps, st, threadIdx.x >> 5, threadIdx.x & 31);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * V; i += 256) {
+    const int r = i / V, vec = i % V;
+    if (row0 + r < T) reinterpret_cast<uint4*>(h + (size_t)(row0 + r) * D)[vec] = *slot(r, vec);
+  }
+  if (threadIdx.x < 64 && row0 + threadIdx.x < T) {
+    stats[row0 + threadIdx.x] = st[threadIdx.x];
+    stats[T + row0 + threadIdx.x] = st[64 + threadIdx.x];
+  }
+}
+
+template <int D>
+int launch_ln_probe(const void* x, const void* ln_s, const void* ln_b, void* h, void* stats,
+                    int T, float eps, cudaStream_t stream) {
+  const int smem = (D / 64) * kTileB + 512;
+  cudaError_t err = cudaFuncSetAttribute(ln_rows_probe<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_rows_probe<D><<<(T + 63) / 64, 256, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(h), static_cast<float*>(stats), T, eps);
+  return (int)cudaGetLastError();
 }
 
 // The resident rows: awaited from TMA, then normalised by the consumers.
@@ -863,6 +920,23 @@ int apvt_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, 
 int apvt_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
                  void* dx, int T, int D, int M, void* stream) {
   return dispatch_bwd<false>(x, nullptr, nullptr, w1, b1, w2, dy, dx, T, D, M, 0.f, stream);
+}
+
+// The LayerNorm prologue of the kernels alone (x (T, D) bf16 -> h (T, D)
+// bf16, stats (2, T) f32: mean, rstd), for a diagnosis; no model path calls it.
+int apvt_ln_mlp_ln_rows(const void* x, const void* ln_s, const void* ln_b, void* h, void* stats,
+                        int T, int D, float eps, void* stream) {
+  if (T < 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return wgk::launch_ln_probe<128>(x, ln_s, ln_b, h, stats, T, eps, s);
+    case 256: return wgk::launch_ln_probe<256>(x, ln_s, ln_b, h, stats, T, eps, s);
+    case 384: return wgk::launch_ln_probe<384>(x, ln_s, ln_b, h, stats, T, eps, s);
+    case 512: return wgk::launch_ln_probe<512>(x, ln_s, ln_b, h, stats, T, eps, s);
+    case 768: return wgk::launch_ln_probe<768>(x, ln_s, ln_b, h, stats, T, eps, s);
+    case 1024: return wgk::launch_ln_probe<1024>(x, ln_s, ln_b, h, stats, T, eps, s);
+    default: return -1;
+  }
 }
 
 const char* apvt_ln_mlp_error_string(int code) {

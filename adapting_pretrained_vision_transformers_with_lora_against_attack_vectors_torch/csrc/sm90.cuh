@@ -154,6 +154,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// One box of a rank-4 tensor map; the start may be negative or past the
+// end: what lies outside the tensor arrives as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // One box from shared memory to the tensor (elements outside it are dropped).
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {
@@ -171,12 +181,21 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "r"(saddr(src)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(saddr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// Until the committed stores have read their shared memory.
+// Until the committed stores (all but the newest N groups) have read their shared memory.
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // Orders ordinary shared-memory writes before a TMA store or a wgmma that reads them.
 __device__ __forceinline__ void fence_async_shared() {
@@ -279,6 +298,23 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
   cuuint32_t es[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), gd,
             gs, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor of 4 dimensions, innermost first: sizes `dims`, byte strides
+// of dimensions 1-3 in `strides`, read in boxes of `box` elements, no
+// swizzle (a box lands in shared memory as a dense array, innermost
+// fastest), zeros for what lies outside. False if libcuda refuses.
+inline bool make_map_4d(CUtensorMap* map, const void* base, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t gd[4] = {dims[0], dims[1], dims[2], dims[3]};
+  cuuint64_t gs[3] = {strides[0], strides[1], strides[2]};
+  cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  cuuint32_t es[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gd, gs, bx, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

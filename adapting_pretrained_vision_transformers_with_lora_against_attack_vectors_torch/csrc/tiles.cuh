@@ -65,6 +65,15 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// One LayerNorm output in f32, rounded where the plain version rounds it:
+// (x - mean) * rstd, times the scale, plus the bias, each step on its own.
+// Contracted into one FMA, the last two steps put about three times as many
+// values on the other side of a bf16 rounding boundary from the plain
+// version's, and one such value moves every output of its row.
+__device__ __forceinline__ float ln_affine(float xc, float rstd, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(xc, rstd), scale), bias);
+}
+
 __device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
@@ -140,10 +149,14 @@ __device__ void ln_rows(bf16* Xn, const bf16* __restrict__ x, const float* __res
           const float4 s1 = __ldg(reinterpret_cast<const float4*>(ln_s + vec * 8 + 4));
           const float4 t0 = __ldg(reinterpret_cast<const float4*>(ln_b + vec * 8));
           const float4 t1 = __ldg(reinterpret_cast<const float4*>(ln_b + vec * 8 + 4));
-          o.x = pack(v[p][0] * rstd * s0.x + t0.x, v[p][1] * rstd * s0.y + t0.y);
-          o.y = pack(v[p][2] * rstd * s0.z + t0.z, v[p][3] * rstd * s0.w + t0.w);
-          o.z = pack(v[p][4] * rstd * s1.x + t1.x, v[p][5] * rstd * s1.y + t1.y);
-          o.w = pack(v[p][6] * rstd * s1.z + t1.z, v[p][7] * rstd * s1.w + t1.w);
+          o.x = pack(ln_affine(v[p][0], rstd, s0.x, t0.x),
+                     ln_affine(v[p][1], rstd, s0.y, t0.y));
+          o.y = pack(ln_affine(v[p][2], rstd, s0.z, t0.z),
+                     ln_affine(v[p][3], rstd, s0.w, t0.w));
+          o.z = pack(ln_affine(v[p][4], rstd, s1.x, t1.x),
+                     ln_affine(v[p][5], rstd, s1.y, t1.y));
+          o.w = pack(ln_affine(v[p][6], rstd, s1.z, t1.z),
+                     ln_affine(v[p][7], rstd, s1.w, t1.w));
         }
         *reinterpret_cast<uint4*>(Xn + r * LDX + vec * 8) = o;
       }

@@ -76,12 +76,22 @@ def _digest(text: bytes) -> str:
 _INCLUDE = re.compile(r'^#include "([^"]+)"$', re.M)
 
 
-def inlined(source: str) -> str:
+def inlined(source: str, _seen: set | None = None) -> str:
     """The text of ``csrc/<source>`` with its ``#include "..."`` lines (the
-    headers of ``csrc``) replaced by their text: what the compiler sees."""
+    headers of ``csrc``) replaced by their text, each header once, as its
+    ``#pragma once`` has the compiler read it: what the compiler sees, and a
+    source that compiles on its own."""
+    seen = set() if _seen is None else _seen
     with open(os.path.join(CSRC, source)) as f:
-        text = f.read()
-    return _INCLUDE.sub(lambda m: inlined(m.group(1)).replace("#pragma once\n", ""), text)
+        text = f.read().replace("#pragma once\n", "")
+
+    def header(m):
+        if m.group(1) in seen:
+            return ""
+        seen.add(m.group(1))
+        return inlined(m.group(1), seen)
+
+    return _INCLUDE.sub(header, text)
 
 
 def load(source: str) -> ctypes.CDLL:

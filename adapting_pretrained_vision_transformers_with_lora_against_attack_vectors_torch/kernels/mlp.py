@@ -189,6 +189,8 @@ def _lib():
         for fn in (lib.apvt_mlp_fwd, lib.apvt_mlp_bwd):
             fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
             fn.restype = i
+        lib.apvt_ln_mlp_ln_rows.argtypes = [p, p, p, p, p, i, i, f, p]
+        lib.apvt_ln_mlp_ln_rows.restype = i
         lib.apvt_ln_mlp_error_string.argtypes = [i]
         lib.apvt_ln_mlp_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
@@ -315,6 +317,27 @@ def fused_mlp_bwd(x, w1, b1, w2, dy) -> torch.Tensor:
     _raise_on(rc, lib, "mlp backward")
     MLP_BWD_LAUNCHES += 1
     return dx
+
+
+def kernel_ln_rows(x, ln_scale, ln_bias, eps: float) -> tuple:
+    """The LN-fused kernels' LayerNorm prologue alone on CUDA tensors: ``(h,
+    mean, rstd)``, h (T, D) bf16 as the kernels hand it to their first
+    product, mean and rstd (T,) f32. Uncounted; reachable from nothing but
+    ``chip_smoke.py`` and ``tools/ln_prologue_diagnose.py``, which hold it
+    against the plain version's. (The weights ``_prep`` checks are stand-ins.)"""
+    t, d, _, o = _prep(x, torch.empty(x.shape[-1], HIDDEN_MULTIPLE, device=x.device),
+                       torch.empty(HIDDEN_MULTIPLE, device=x.device),
+                       torch.empty(HIDDEN_MULTIPLE, x.shape[-1], device=x.device),
+                       ln=(ln_scale, ln_bias))
+    lib = _lib()
+    h = torch.empty_like(o["x"])
+    stats = torch.empty(2, t, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.apvt_ln_mlp_ln_rows(o["x"].data_ptr(), o["ln_scale"].data_ptr(),
+                                 o["ln_bias"].data_ptr(), h.data_ptr(), stats.data_ptr(), t, d,
+                                 float(eps), stream)
+    _raise_on(rc, lib, "ln_mlp LayerNorm prologue")
+    return h, stats[0], stats[1]
 
 
 class _LnMlp(torch.autograd.Function):

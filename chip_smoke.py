@@ -27,7 +27,8 @@ the hand-written kernels:
 * ``convnext`` ConvNeXt-B (all 36 blocks, dims 128-1024) with a rank-8 LoRA
   merged into every pwconv1/pwconv2, in bf16, both kernel fields on, through
   FGSM and PGD-10 at batch 64: the depthwise 7x7 kernel (``csrc/dwconv7.cu``,
-  forward and input-gradient roles) and the LayerNorm-fused MLP kernels
+  its TMA-ring device code, forward and input-gradient roles) and the
+  LayerNorm-fused MLP kernels
   (``csrc/ln_mlp.cu``, forward and backward);
 * the eval-compose stage for ``swin`` and ``convnext`` from memory: two
   adapters with heads through the port's PEFT writer and reader, then the
@@ -39,7 +40,9 @@ Phases, one line each (or a few):
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every kernel source compiled with nvcc from the checkout, in
    parallel; per source nvcc's seconds, ptxas registers and spills and any
-   wgmma serialisation warning, and each wgmma kernel's own line;
+   wgmma serialisation warning, each wgmma kernel's and dwconv7's TMA-ring
+   kernel's own line, and dwconv7's plan (tile, items, CTAs, ring) at the
+   ConvNeXt-B stages, its launcher's held equal to the wrapper's;
 3. kernels against their plain PyTorch versions on the card, forward and
    gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
    (64, 197, 12, 64), (bf16) (2, 300, 2, 64) and (bf16) the tile edges of
@@ -55,7 +58,9 @@ Phases, one line each (or a few):
    kernel's change from a zero bias held against the plain version's;
    dwconv7 at the four ConvNeXt-B stage shapes (B=64) and a ragged
    (2, 10, 9, 8), f32 and bf16, forward, input gradient, and the input
-   gradient equal to the forward with the flipped filter; the LN-fused MLP
+   gradient equal to the forward with the flipped filter, each line naming
+   its device code, bf16 equal bit for bit to the staged kernel it
+   replaced; the LN-fused MLP
    at the four ConvNeXt-B (T, D) shapes, at the ViT-B shape (12608, 768,
    3072) and at a ragged (70, 128, 512), bf16, forward and dx, with LN
    scale/bias and b1/b2 at std 0.5, and the plain version without each of
@@ -73,7 +78,14 @@ Phases, one line each (or a few):
    head-major attention kernel at the packed kernel's shapes, equal bit for
    bit to the packed kernel on the transposed operands; the three parameter-
    gradient functions against autograd through the plain versions; every
-   backward bitwise reproducible;
+   backward bitwise reproducible; then dwconv7 at its TMA-ring kernel's
+   edges (DW_EDGE_SHAPES: a 1 x 1 map, tiles ragged in H, W and channels, a
+   persistent schedule's ragged tail), both roles, against the plain
+   version and bit for bit against the staged kernel; and the LN-fused MLP
+   at (50176, 256, 1024) and the ConvNeXt-B stage-1 shape under 8 input
+   draws of their own (LN_SEEDS): forward and dx at MLP_TOL, the kernels'
+   LayerNorm prologue (h, mean, rstd) against the plain version's and f64
+   statistics, and the kernels against the plain version fed their own h;
 4. model, per backbone: merged bf16 state through the port's checkpoint
    writer/reader (byte-equal), then logits of the kernel path against the
    plain path (ViT, Swin: bf16 and f32, Swin's bias tables drawn at std 1.5)
@@ -110,7 +122,10 @@ Phases, one line each (or a few):
    moves between runs on one shape. Window attention (stages 1 and 3, three
    masks) and the attention half-block (ViT-B) are timed in turns with the
    mma.sync device code they replace, kept in the same sources behind
-   entry points that only this script calls. ViT-B and Swin-B PGD are timed over 3
+   entry points that only this script calls; so is dwconv7 (four stages,
+   both roles) with the staged kernel it replaced and ``F.conv2d(groups=C)``,
+   by CUDA-graph replay (device time: at stage 4 an eager call's host work
+   outlasts the kernel). ViT-B and Swin-B PGD are timed over 3
    calls, ConvNeXt-B over 2 calls per variant and turn.
 
 The line before the last is a JSON object describing every kernel (with
@@ -174,6 +189,12 @@ TOL = {"float32": ((1e-4, 1e-3), (1e-4, 1e-3)),
 # dwconv7 (B, H, W, C): the four ConvNeXt-B stages at B=64 and a ragged case
 DW_SHAPES = ((64, 56, 56, 128), (64, 28, 28, 256), (64, 14, 14, 512), (64, 7, 7, 1024),
              (2, 10, 9, 8))
+# ... and the bf16 kernel's edges: a 1 x 1 map with one ragged chunk of 8
+# channels; tiles ragged in H and W with a ragged chunk; a 15 x 13 map (one
+# row past a 14-row tile); a persistent schedule whose items do not divide
+# by the CTAs, with a ragged chunk; the stage-3 map with a ragged chunk
+DW_EDGE_SHAPES = ((3, 1, 1, 8), (2, 57, 55, 72), (5, 15, 13, 136), (65, 7, 7, 1032),
+                  (64, 14, 14, 520))
 # LN-fused MLP (T, D, M): the four ConvNeXt-B stages at B=64, the ViT-B/16
 # shape (64 x 197 tokens) and a ragged case
 MLP_SHAPES = ((200704, 128, 512), (50176, 256, 1024), (12544, 512, 2048), (3136, 1024, 4096),
@@ -189,6 +210,9 @@ MLP_EDGE_SHAPES = ((1, 128, 512), (63, 128, 128), (64, 256, 1024), (65, 384, 153
 # the JAX kernel's bf16 parity tests)
 MLP_TOL = ((1e-2, 1e-2), (2e-2, 2e-2))
 MLP_PARAM_STD = 0.5  # LN scale (around 1), LN bias, b1, b2
+# the LN-fused MLP under several input draws, each from a generator of its own
+LN_SEED_SHAPES = ((50176, 256, 1024), (200704, 128, 512))
+LN_SEEDS = tuple(range(100, 108))
 # the fused MLP without LayerNorm (T, D, M): the ViT-B/16 shape, Swin-B stage 1, a ragged case
 FMLP_SHAPES = ((12608, 768, 3072), (200704, 128, 512), (70, 128, 512))
 # the attention half-block (B, N, C, heads): ViT-B/16 and a ragged small case;
@@ -256,6 +280,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """The package's ``tools/timing.graph_ms``: device milliseconds per call
+    by CUDA-graph replay, no host time."""
+    return importlib.import_module(f"{PKG}.tools.timing").graph_ms(fn, iters)
+
+
 def turns(kernel, plain, iters: int = 20, library=None) -> tuple:
     """(kernel ms, plain ms), each the best of two in plain-kernel-kernel-plain
     order. With ``library`` (the one PyTorch call, or the library composition,
@@ -273,14 +303,15 @@ def turns(kernel, plain, iters: int = 20, library=None) -> tuple:
     return best if library is None else (*best, min(times["library"]))
 
 
-def rivals(fns: dict, iters: int = 20, rounds: int = 3) -> dict:
+def rivals(fns: dict, iters: int = 20, rounds: int = 3, timer=None) -> dict:
     """``{name: ms}``: the callables take turns (in the given order, ``rounds``
     times over) and the best of each is kept, so that a kernel, the kernel
-    it replaces and a library call are compared in one run on one card."""
+    it replaces and a library call are compared in one run on one card.
+    ``timer``: :func:`cuda_ms` (the default) or :func:`graph_ms`."""
     best = {}
     for _ in range(rounds):
         for name, fn in fns.items():
-            ms = cuda_ms(fn, iters)
+            ms = (timer or cuda_ms)(fn, iters)
             best[name] = min(best.get(name, ms), ms)
     return best
 
@@ -341,6 +372,8 @@ class Smoke:
 
     # 2. build
     def build(self) -> None:
+        import torch
+
         sources = ("attention_packed.cu", "window_attention.cu", "dwconv7.cu", "ln_mlp.cu",
                    "attn_block.cu")
         t0 = time.perf_counter()
@@ -366,7 +399,8 @@ class Smoke:
                     r".*Used (\d+) registers", ptxas):
                 short = re.search(r"(wg_mlp_(?:fwd|bwd)ILi\d+ELb[01]|2wg\d+attn_(?:fwd|bwd)"
                                   r"(?:ILi\d+)?|3wgw7win_(?:fwd|bwd)|3wgb\d+(?:heads_fwd|"
-                                  r"heads_bwd|oproj_fwd|dh_bwd)ILi\d+E(?:Li\d+E)?)", fn)
+                                  r"heads_bwd|oproj_fwd|dh_bwd)ILi\d+E(?:Li\d+E)?|"
+                                  r"dwconv7_tmaILi\d+E)", fn)
                 if short:
                     print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
                           f"spill stores {spill} bytes", flush=True)
@@ -377,6 +411,21 @@ class Smoke:
         check(blk[0] == self.kb._smem_bytes(MAIN[1], 768, False)
               and blk[2] == self.kb._smem_bytes(MAIN[1], 768, True),
               f"attn_block: the wrapper's shared-memory budget is not the launcher's ({blk})")
+        # the bf16 dwconv7 launcher's plan (tile, schedule, ring) is the wrapper's
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for shape in DW_SHAPES + DW_EDGE_SHAPES:
+            want = {k: v for k, v in self.kd.kernel_plan(shape, sms).items()
+                    if k not in ("chunks", "slot_bytes")}
+            got = self.kd.launcher_plan(shape)
+            check(got == want, f"dwconv7 {shape}: the launcher's plan {got} is not the "
+                  f"wrapper's {want}")
+        plans = [self.kd.kernel_plan(shape, sms) for shape in DW_SHAPES[:4]]
+        print("phase 2 build: dwconv7.cu tma_ring plan (tile, items, CTAs, ring slots, dynamic "
+              "shared memory) at the ConvNeXt-B stages: " + "; ".join(
+                  f"{p['tile'][0]}x{p['tile'][1]}, {p['items']}, {p['grid']}, {p['slots']} x "
+                  f"{p['slot_bytes']} B, {p['smem']} B" for p in plans)
+              + f"; the launcher's plan equals the wrapper's at {len(DW_SHAPES + DW_EDGE_SHAPES)} "
+              f"shapes ({sms} SMs)", flush=True)
         print(f"phase 2 build: dynamic shared memory, window_attention.cu win_fwd {win[0]} B, "
               f"win_bwd {win[1]} B; attn_block.cu heads_fwd {blk[0]} B, oproj_fwd {blk[1]} B, "
               f"heads_bwd {blk[2]} B, dh_bwd {blk[3]} B", flush=True)
@@ -483,13 +532,15 @@ class Smoke:
                       flush=True)
         return err
 
-    def dwconv_operands(self, shape, dtype):
-        """x, the filter (7, 7, C) f32 at std 0.15 and a cotangent."""
+    def dwconv_operands(self, shape, dtype, gen=None):
+        """x, the filter (7, 7, C) f32 at std 0.15 and a cotangent, drawn from
+        ``gen``, by default ``self.gen``."""
         import torch
 
-        x = torch.randn(*shape, device=self.dev, generator=self.gen).to(dtype)
-        w = torch.randn(7, 7, shape[-1], device=self.dev, generator=self.gen) * 0.15
-        g = torch.randn(*shape, device=self.dev, generator=self.gen).to(dtype)
+        gen = self.gen if gen is None else gen
+        x = torch.randn(*shape, device=self.dev, generator=gen).to(dtype)
+        w = torch.randn(7, 7, shape[-1], device=self.dev, generator=gen) * 0.15
+        g = torch.randn(*shape, device=self.dev, generator=gen).to(dtype)
         return x, w, g
 
     def dwconv_vs_plain(self) -> dict:
@@ -511,23 +562,68 @@ class Smoke:
                       f"dwconv7 dx is not the forward with the flipped filter {tag}")
                 check(torch.equal(got_dx, kd.fused_dwconv7_dx(g, w)),
                       f"dwconv7 dx not reproducible {tag}")
+                same = ""
+                if kd.kernel_variant(dtype, shape) == "tma_ring":
+                    self.dwconv_vs_staged(x, w, g, tag)
+                    same = "; equal to the staged kernel bit for bit in both roles"
                 torch.cuda.synchronize()
                 if dtype == torch.bfloat16 and shape[0] == BATCH:
                     err = {"fwd": max(err["fwd"], e_f), "dx": max(err["dx"], e_b)}
-                print(f"phase 3 dwconv7 vs plain {tag}: fwd max|err| {e_f:.3e}, dx max|err| "
-                      f"{e_b:.3e}; dx = forward with the flipped filter, bitwise; reproducible",
-                      flush=True)
+                print(f"phase 3 dwconv7 vs plain {tag} [{kd.kernel_variant(dtype, shape)}]: fwd "
+                      f"max|err| {e_f:.3e}, dx max|err| {e_b:.3e}; dx = forward with the "
+                      f"flipped filter, bitwise; reproducible{same}", flush=True)
         return err
 
-    def mlp_operands(self, shape):
+    def dwconv_vs_staged(self, x, w, g, tag: str) -> None:
+        """The bf16 kernel against the first design, which sums in the same
+        order: equal bit for bit in both roles."""
+        import torch
+
+        kd = self.kd
+        check(torch.equal(kd.fused_dwconv7_fwd(x, w), kd.staged_fwd(x, w)),
+              f"dwconv7 fwd {tag}: not the staged kernel's bits")
+        check(torch.equal(kd.fused_dwconv7_dx(g, w), kd.staged_dx(g, w)),
+              f"dwconv7 dx {tag}: not the staged kernel's bits")
+
+    def dwconv_edges(self) -> None:
+        """The bf16 kernel at the edges of its tiles, chunks and persistent
+        schedule (DW_EDGE_SHAPES, drawn from ``edge_gen`` after every other
+        check that draws from it): both roles against the plain version at
+        TOL and bit for bit against the staged kernel."""
+        import torch
+
+        kd = self.kd
+        (fa, fr), (ga, gr) = TOL["bfloat16"]
+        for shape in DW_EDGE_SHAPES:
+            x, w, g = self.dwconv_operands(shape, torch.bfloat16, self.edge_gen)
+            plan = kd.kernel_plan(shape, torch.cuda.get_device_properties(0).multi_processor_count)
+            tag = f"bfloat16 {shape} [{kd.kernel_variant(x.dtype, shape)}]"
+            e_f = close(kd.fused_dwconv7_fwd(x, w), kd.dwconv7_reference(x, w), fa, fr,
+                        f"dwconv7 fwd {tag}")
+            xr = x.clone().requires_grad_(True)
+            (want_dx,) = torch.autograd.grad(kd.dwconv7_reference(xr, w), xr, g)
+            got_dx = kd.fused_dwconv7_dx(g, w)
+            e_b = close(got_dx, want_dx, ga, gr, f"dwconv7 dx {tag}")
+            check(torch.equal(got_dx, kd.fused_dwconv7_fwd(g, w.flip(0, 1))),
+                  f"dwconv7 dx is not the forward with the flipped filter {tag}")
+            self.dwconv_vs_staged(x, w, g, tag)
+            torch.cuda.synchronize()
+            print(f"phase 3 dwconv7 vs plain {tag} (tile edge: tile {plan['tile']}, "
+                  f"{plan['items']} items on {plan['grid']} CTAs): fwd max|err| {e_f:.3e}, dx "
+                  f"max|err| {e_b:.3e}; dx = forward with the flipped filter, bitwise; equal to "
+                  f"the staged kernel bit for bit in both roles", flush=True)
+
+    def mlp_operands(self, shape, gen=None):
         """bf16 x and dy (T, D); LN scale/bias, b1, b2 at std MLP_PARAM_STD (the
-        scale around 1), w1 and w2 at std 1/sqrt(fan-in), all f32."""
+        scale around 1), w1 and w2 at std 1/sqrt(fan-in), all f32. Drawn from
+        ``gen``, by default ``self.gen``."""
         import torch
 
         t, d, m = shape
+        gen = self.gen if gen is None else gen
 
         def rand(*size):
-            return torch.randn(*size, device=self.dev, generator=self.gen)
+            return torch.randn(*size, device=self.dev, generator=gen)
 
         x = (rand(t, d) + 0.5 * rand(t, 1)).to(torch.bfloat16)
         dy = rand(t, d).to(torch.bfloat16)
@@ -591,6 +687,83 @@ class Smoke:
                   + ", ".join(f"{n} {a:.2f}/{b:.2f}" for n, (a, b) in moved.items())
                   + "; backward bitwise reproducible", flush=True)
         return err
+
+    def ln_mlp_seeds(self) -> None:
+        """The LN-fused MLP at (50176, 256, 1024) and the ConvNeXt-B stage-1
+        shape under LN_SEEDS input draws, each from a generator of its own:
+        forward and dx against the plain version at MLP_TOL (every row that
+        misses is named before the check fails); the kernels' LayerNorm
+        prologue against the plain version's: h within one bf16 rounding of
+        it, mean and rstd as close to f64 statistics of the same rows as the
+        plain version's are; and the kernels against the plain version fed
+        the kernels' own h, at MLP_TOL."""
+        import torch
+
+        km, eps, cd = self.km, 1e-6, torch.bfloat16
+        (fa, fr), (ga, gr) = MLP_TOL
+        for shape in LN_SEED_SHAPES:
+            t, d, m = shape
+            for seed in LN_SEEDS:
+                x, dy, p = self.mlp_operands(shape, torch.Generator(self.dev).manual_seed(seed))
+                sc, bi, w1, b1, w2, b2 = (p[k] for k in ("ln_scale", "ln_bias", "w1", "b1",
+                                                         "w2", "b2"))
+                tag = (f"bfloat16 {shape} seed {seed} [{km.kernel_variant(d, m, 'ln_mlp_fwd')} / "
+                       f"{km.kernel_variant(d, m, 'ln_mlp_bwd')}]")
+                got = {"fwd": km.fused_ln_mlp_fwd(x, sc, bi, w1, b1, w2, b2, eps),
+                       "dx": km.fused_ln_mlp_bwd(x, sc, bi, w1, b1, w2, dy, eps)}
+                want = {"fwd": km.ln_mlp_reference(x, sc, bi, w1, b1, w2, b2, eps),
+                        "dx": km.ln_mlp_bwd_reference(x, sc, bi, w1, b1, w2, dy, eps)}
+                # the prologue: kernel, plain (f32) and f64 statistics
+                h_k, mean_k, rstd_k = km.kernel_ln_rows(x, sc, bi, eps)
+                normed, rstd_p, h_p = km.ln_fwd_f32(x.float(), sc, bi, eps)
+                h_p, rstd_p, mean_p = h_p.to(cd), rstd_p[:, 0], x.float().mean(-1)
+                xd = x.double()
+                mean_d = xd.mean(-1)
+                rstd_d = torch.rsqrt(((xd - mean_d[:, None]) ** 2).mean(-1) + eps)
+                dev = {"mean": [float((mu - mean_d).abs().max()) for mu in (mean_k, mean_p)],
+                       "rstd": [float((r / rstd_d - 1).abs().max()) for r in (rstd_k, rstd_p)]}
+                flips = h_k != h_p
+                step = float(((h_k.float() - h_p.float()).abs()
+                              - 2 ** -7 * h_p.float().abs()).max())
+                # the plain version from the kernels' h on
+                pre = km._mm_f32(h_k, w1.to(cd)) + b1.float()
+                given = {"fwd": (km._mm_f32(km._gelu_f32(pre).to(cd), w2.to(cd))
+                                 + b2.float()).to(cd)}
+                dpre = (km._mm_f32(dy, w2.to(cd).t()) * km._gelu_grad_f32(pre)).to(cd)
+                given["dx"] = km.ln_bwd_f32(km._mm_f32(dpre, w1.to(cd).t()), sc, normed,
+                                            rstd_p[:, None]).to(cd)
+                line, missed = [f"phase 3 ln_mlp seeds {tag}:"], []
+                for what, a, r in (("fwd", fa, fr), ("dx", ga, gr)):
+                    err = (got[what].float() - want[what].float()).abs()
+                    lim = a + r * want[what].float().abs()
+                    rows = (err > lim).any(-1).nonzero().flatten().tolist()
+                    e_g = (got[what].float() - given[what].float()).abs()
+                    over_g = int((e_g > a + r * given[what].float().abs()).sum())
+                    line.append(f"{what} max|err| {float(err.max()):.3e} ({len(rows)} rows over "
+                                f"the limit), against the plain version fed the kernel's h "
+                                f"{float(e_g.max()):.3e} ({over_g} over);")
+                    for row in rows[:4]:
+                        j = int((err[row] - lim[row]).argmax())
+                        line.append(f"{what} row {row} misses: output {j} |err| "
+                                    f"{float(err[row, j]):.4e}, limit {float(lim[row, j]):.4e}, h "
+                                    f"differs from plain at {int(flips[row].sum())} columns;")
+                    if rows:
+                        missed.append(f"{what} rows {rows[:8]}")
+                    if over_g:
+                        missed.append(f"{what} against the plain version fed the kernel's h")
+                line.append(f"prologue: h differs from plain in {int(flips.sum())} of "
+                            f"{flips.numel()} values ({int(flips.any(-1).sum())} rows), by at most "
+                            f"one bf16 rounding ({step:.1e} past 2^-7 |h|); max |mean - f64| "
+                            f"kernel {dev['mean'][0]:.2e} plain {dev['mean'][1]:.2e}, max |rstd / "
+                            f"f64 - 1| kernel {dev['rstd'][0]:.2e} plain {dev['rstd'][1]:.2e}")
+                torch.cuda.synchronize()
+                print(" ".join(line), flush=True)
+                check(not missed, f"ln_mlp {tag}: over MLP_TOL: {'; '.join(missed)}")
+                check(step <= 1e-5, f"ln_mlp {tag}: the kernel's h is more than one bf16 "
+                      f"rounding from the plain version's")
+                check(all(k <= 2 * pl + 1e-7 for k, pl in dev.values()),
+                      f"ln_mlp {tag}: the kernel's LayerNorm statistics are further from f64 "
+                      f"than the plain version's ({dev})")
 
     def param_grads_vs_autograd(self, got, fn, leaves, dy, what: str) -> float:
         """A ``*_param_grads`` result against autograd through the plain version
@@ -1392,8 +1565,12 @@ class Smoke:
              "ms": wkb, "plain_ms": wpb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
     def time_dwconv(self, cnx_l) -> list[dict]:
-        """dwconv7 at the four ConvNeXt-B stage shapes: both roles, plain, bound,
-        and ``F.conv2d(groups=C)`` in bf16 in both memory formats."""
+        """dwconv7 at the four ConvNeXt-B stage shapes in both roles: the
+        kernel, the staged kernel it replaces and ``F.conv2d(groups=C)`` in
+        bf16 on the channels-last view (for dx the same conv with the flipped
+        filter), in turns, best of 3, device time by :func:`graph_ms` (at
+        stage 4 an eager call's host work takes longer than the kernel); the
+        plain version; the f32 FMA bound and the byte bound."""
         import torch
         import torch.nn.functional as F
 
@@ -1401,32 +1578,48 @@ class Smoke:
         for stage, shape in enumerate(DW_SHAPES[:4], 1):
             x, w, g = self.dwconv_operands(shape, torch.bfloat16)
             w = w.to(torch.bfloat16)  # as the attack path holds it; the library call gets the same
-            kf, pf = turns(lambda: kd.fused_dwconv7_fwd(x, w), lambda: kd.dwconv7_reference(x, w))
-            kb = cuda_ms(lambda: kd.fused_dwconv7_dx(g, w), 20)
             c = shape[-1]
             wf = w.permute(2, 0, 1).reshape(c, 1, 7, 7)
-            x_cl = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels-last NCHW view
-            x_nchw = x_cl.contiguous()
-            lib = {"channels_last": cuda_ms(lambda: F.conv2d(x_cl, wf, None, 1, 3, 1, c), 20),
-                   "contiguous": cuda_ms(lambda: F.conv2d(x_nchw, wf, None, 1, 3, 1, c), 20)}
-            fmt = min(lib, key=lib.get)
+            wflip = w.flip(0, 1).permute(2, 0, 1).reshape(c, 1, 7, 7)
+            x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last NCHW views
+            tf = rivals({"kernel": lambda: kd.fused_dwconv7_fwd(x, w),
+                         "staged": lambda: kd.staged_fwd(x, w),
+                         "library": lambda: F.conv2d(x_cl, wf, None, 1, 3, 1, c)},
+                        timer=graph_ms)
+            tb = rivals({"kernel": lambda: kd.fused_dwconv7_dx(g, w),
+                         "staged": lambda: kd.staged_dx(g, w),
+                         "library": lambda: F.conv2d(g_cl, wflip, None, 1, 3, 1, c)},
+                        timer=graph_ms)
+            eager = cuda_ms(lambda: kd.fused_dwconv7_fwd(x, w), 20)
+            pf = cuda_ms(lambda: kd.dwconv7_reference(x, w), 5)
             n_out = x.numel()
-            bound, by = bound_ms(2 * 49 * n_out, 2 * n_out * 2 + w.numel() * 4, PEAK_F32)
-            rows[stage] = (kf, kb, pf, lib[fmt], bound, by)
-            print(f"phase 6 dwconv7 stage {stage} {shape} bf16: kernel fwd {kf:.4f} ms dx "
-                  f"{kb:.4f} ms; plain (f32 F.conv2d) {pf:.4f} ms; library F.conv2d(groups=C) "
-                  f"bf16 channels_last {lib['channels_last']:.4f} ms, contiguous NCHW "
-                  f"{lib['contiguous']:.4f} ms (faster: {fmt}); bound {bound:.4f} ms ({by}) "
-                  f"{self.card}", flush=True)
-        kf, kb, pf, lf, bound, by = rows[3]
+            nbytes = 2 * n_out * x.element_size() + w.numel() * w.element_size()
+            bound, by = bound_ms(2 * 49 * n_out, nbytes, PEAK_F32)
+            t_ops, t_bytes = 2 * 49 * n_out / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            rows[stage] = (tf, tb, pf, bound, by)
+            variant = kd.kernel_variant(x.dtype, shape)
+            print(f"phase 6 dwconv7 stage {stage} {shape} bf16 [{variant}]: kernel fwd "
+                  f"{tf['kernel']:.4f} ms dx {tb['kernel']:.4f} ms; the staged "
+                  f"kernel it replaces fwd {tf['staged']:.4f} ms dx {tb['staged']:.4f} ms "
+                  f"({tf['staged'] / tf['kernel']:.2f}x / {tb['staged'] / tb['kernel']:.2f}x); "
+                  f"library F.conv2d(groups=C) bf16 channels_last fwd {tf['library']:.4f} ms dx "
+                  f"(flipped filter) {tb['library']:.4f} ms; in turns, best of 3, device time "
+                  f"(CUDA-graph replay; the kernel's fwd called eagerly, host included: "
+                  f"{eager:.4f} ms); plain (f32 "
+                  f"F.conv2d) {pf:.4f} ms; bound {bound:.4f} ms ({by}: f32 FMA {t_ops:.4f} ms, "
+                  f"bytes {t_bytes:.4f} ms); kernel at {bound / tf['kernel']:.1%} / "
+                  f"{bound / tb['kernel']:.1%} of the bound {self.card}", flush=True)
+        tf, tb, pf, bound, by = rows[3]
         src = f"{PKG}/csrc/dwconv7.cu"
         return [
             {"name": "dwconv7_fwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/dwconv.py:128", "launches": cnx_l["dw_fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bound, "bound_by": by, "library_ms": lf},
+             "ms": tf["kernel"], "plain_ms": pf, "bound_ms": bound, "bound_by": by,
+             "library_ms": tf["library"]},
             {"name": "dwconv7_dx", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/dwconv.py:155", "launches": cnx_l["dw_dx"],
-             "ms": kb, "plain_ms": pf, "bound_ms": bound, "bound_by": by, "library_ms": lf}]
+             "ms": tb["kernel"], "plain_ms": pf, "bound_ms": bound, "bound_by": by,
+             "library_ms": tb["library"]}]
 
     def time_mlp(self, cnx_l) -> list[dict]:
         """The LN-fused MLP at the four ConvNeXt-B stage shapes and the ViT-B
@@ -1751,7 +1944,7 @@ class Smoke:
                 return lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
             calls = {label: pgd_call(vcfg, model) for label, (vcfg, model) in runs.items()}
-        groups = (("dwconv7 (this repo)", r"dwconv7_kernel"),
+        groups = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
                   ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
                   ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
                   ("attn_block heads fwd: LN, q/k/v, attention (this repo)", r"heads_fwd"),
@@ -1834,6 +2027,8 @@ def main(argv=None) -> None:
     err_f = s.fused_mlp_vs_plain()
     err_a = s.attn_block_vs_plain()
     err_h = s.bhnd_vs_plain()
+    s.dwconv_edges()
+    s.ln_mlp_seeds()
 
     ka, kw, kd, km = s.ka, s.kw, s.kd, s.km
     vit_entry, vit_cfg, vit_model, vit_tree, vit_norm, vit_model_tree = s.model(

@@ -154,6 +154,16 @@ def test_kernel_wrapper_refuses_before_any_build(case):
     assert 1024 in tm.KERNEL_DIMS and 768 in tm.KERNEL_DIMS
 
 
+@pytest.mark.parametrize("case", ["dtype", "width", "device"])
+def test_layer_norm_prologue_entry_refuses_before_any_build(case):
+    """``kernel_ln_rows`` (the kernels' LayerNorm prologue, read by
+    ``chip_smoke.py``) checks its operands as the kernels' wrappers do."""
+    d = 100 if case == "width" else 128
+    x = torch.zeros(4, d, dtype=torch.float32 if case == "dtype" else torch.bfloat16)
+    with pytest.raises(TypeError if case == "dtype" else ValueError):
+        tm.kernel_ln_rows(x, torch.ones(d), torch.zeros(d), EPS)
+
+
 def test_diagnose_script_edits_find_their_places():
     """``tools/ln_mlp_diagnose`` times edited copies of ``csrc/ln_mlp.cu``; each
     edit must still find its place in the source (it raises otherwise)."""
@@ -170,6 +180,26 @@ def test_diagnose_script_edits_find_their_places():
     assert "mbar_wait_cluster(&bars->hfull" not in out["no chunk wait"]
     with pytest.raises(RuntimeError, match="found nothing"):
         ln_mlp_diagnose.variants(text.replace("erff(pre", "erf_(pre"))
+
+
+def test_prologue_diagnose_edits_find_their_places():
+    """``tools/ln_prologue_diagnose`` builds copies of ``csrc/ln_mlp.cu`` with
+    other rounding points in the LayerNorm prologue; each edit must find its
+    place, and its operands are ``chip_smoke.py``'s (same draws, same order)."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import ln_prologue_diagnose as lpd
+
+    text = _build.inlined("ln_mlp.cu")
+    out = lpd.variants(text)
+    assert list(out) == ["kernel", "contracted", "squares and var + eps rounded"]
+    assert out["kernel"] == text and len({*out.values()}) == 3
+    assert "return xc * rstd * scale + bias;" in out["contracted"]
+    assert "sq += v[p][e] * v[p][e];" not in out["squares and var + eps rounded"]
+    assert "rsqrtf(__fadd_rn(__fmul_rn(group_sum(sq)" in out["squares and var + eps rounded"]
+    with pytest.raises(RuntimeError, match="found nothing"):
+        lpd.variants(text.replace("__fmul_rn(xc, rstd)", "__fmul_rn(rstd, xc)"))
+    x, p = lpd.operands((6, 128, 256), 100, torch.device("cpu"))
+    assert x.dtype == torch.bfloat16 and tuple(p["w1"].shape) == (128, 256)
 
 
 # --- the wgmma kernels' tile edges (64 token rows a pass) and shape gates ------
