@@ -8,6 +8,7 @@ quantization stay exact in pixel space.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -47,6 +48,24 @@ def linf_project(x: torch.Tensor, origin: torch.Tensor, eps: float) -> torch.Ten
 def sum_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Summed CE: each example's input gradient keeps its full magnitude."""
     return F.cross_entropy(logits.float(), labels.long(), reduction="sum")
+
+
+@contextlib.contextmanager
+def frozen(params):
+    """Every parameter of a module ``params`` frozen inside the block, each
+    one's ``requires_grad`` restored on the way out (also when the block
+    raises). An attack takes the gradient of its input only: a kernel's
+    ``autograd.Function`` decides at forward time from ``requires_grad``
+    whether its backward recomputes the parameter gradients."""
+    saved = ([(p, p.requires_grad) for p in params.parameters()]
+             if isinstance(params, torch.nn.Module) else [])
+    for p, _ in saved:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in saved:
+            p.requires_grad_(flag)
 
 
 def uint8_quantize(images) -> np.ndarray:

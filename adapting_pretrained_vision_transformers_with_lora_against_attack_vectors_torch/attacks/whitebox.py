@@ -21,13 +21,12 @@ from a ``torch.Generator`` on the images' device.
 
 from __future__ import annotations
 
-import contextlib
 from functools import partial
 from typing import Callable, Optional
 
 import torch
 
-from .common import IMAGENET, Normalizer, linf_project, sum_cross_entropy, to_unit_floats
+from .common import IMAGENET, Normalizer, frozen, linf_project, sum_cross_entropy, to_unit_floats
 
 
 def _loss_grad(apply_fn: Callable, normalize: Normalizer):
@@ -39,21 +38,6 @@ def _loss_grad(apply_fn: Callable, normalize: Normalizer):
         return g
 
     return grad
-
-
-@contextlib.contextmanager
-def _frozen(params):
-    """Every parameter of a module ``params`` frozen inside the block, each
-    one's ``requires_grad`` restored on the way out."""
-    saved = ([(p, p.requires_grad) for p in params.parameters()]
-             if isinstance(params, torch.nn.Module) else [])
-    for p, _ in saved:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, flag in saved:
-            p.requires_grad_(flag)
 
 
 @torch.no_grad()
@@ -89,7 +73,7 @@ def make_fgsm(entry_apply: Callable, cfg, *, eps: float,
     apply_fn = partial(entry_apply, cfg)
 
     def run(params, images, labels):
-        with _frozen(params):
+        with frozen(params):
             return fgsm(apply_fn, params, to_unit_floats(images), labels, eps=eps,
                         normalize=normalize)
 
@@ -102,7 +86,7 @@ def make_pgd(entry_apply: Callable, cfg, *, eps: float, alpha: float, steps: int
     apply_fn = partial(entry_apply, cfg)
 
     def run(params, images, labels, generator=None):
-        with _frozen(params):
+        with frozen(params):
             return pgd(apply_fn, params, to_unit_floats(images), labels, eps=eps,
                        alpha=alpha, steps=steps, random_start=random_start,
                        generator=generator, normalize=normalize)

@@ -2,13 +2,16 @@
 
 Counterpart of the JAX package's ``cli/main.py`` for the five pipeline
 stages (``synth-data``, ``train``, ``attack``, ``train-lora``,
-``eval-compose``), with its flags, defaults and paths:
+``eval-compose``) and the other attack stages (``autoattack``,
+``patch-attack``, ``rp2-attack``), with its flags, defaults and paths:
 
 * base checkpoints: ``{out}/{model}/{source}/{model}_best_model_finetuned.safetensors``
   + ``class_mappings.txt`` (``train`` writes them, as the JAX stage does;
   either package reads the other's)
 * adversarial data: ``{adv_root}/{model}/{source}/{split}/{attack}/images``
-  + ``metadata.csv``
+  + ``metadata.csv`` (``attack`` = ``fgsm``, ``pgd``, ``autoattack``,
+  ``patch_circle``, ``patch_square``, ``rp2``); RP2's per-class patches:
+  ``{adv_root}/{model}/{source}/{split}/rp2/patches/rp2_patch_<class>.png``
 * adapters: ``{lora_root}/{model}/{source}/{attack}/rank{r}_best_adapter``
   (PEFT format); the composability matrix: ``{output_dir}/test_results.json``
 
@@ -187,19 +190,50 @@ def cmd_train(args):
                      default=str))
 
 
-def cmd_attack(args):
-    from ..attacks import generate, whitebox
+def _attack_model(args):
+    """(device, entry, cfg, model, vocab, normalize, source) of the attack
+    stages: "auto" = bf16 params on CUDA (the attack path's working dtype),
+    f32 on the CPU."""
     from ..attacks.common import Normalizer
-    from ..data.io import filter_metadata, read_metadata
     from ..models.registry import get_normalization
 
     device = _device(args)
-    # "auto": bf16 params on CUDA (the attack path's working dtype), f32 on CPU
     entry, cfg, tree, vocab = _load_checkpoint(
         args, device, auto_dtype="bf16" if device.type == "cuda" else "f32")
-    model = entry.from_tree(tree, cfg)
-    normalize = Normalizer(*get_normalization(args.model))
     source = "_".join(args.sources) if args.sources else "all"
+    return (device, entry, cfg, entry.from_tree(tree, cfg), vocab,
+            Normalizer(*get_normalization(args.model)), source)
+
+
+def _clean_metadata(args, split):
+    from ..data.io import filter_metadata, read_metadata
+
+    return filter_metadata(read_metadata(os.path.join(args.data_root, split, "metadata.csv")),
+                           args.sources)
+
+
+def _training_subset(loader, size: int):
+    """The first ``size`` real samples of a split as [0,1] floats and labels
+    on the host (the reference's ``patch_sample_size``), or (None, None)."""
+    import numpy as np
+
+    xs, ys, n = [], [], 0
+    for b in loader:
+        keep = b.valid > 0
+        xs.append(b.images[keep].astype(np.float32) / 255.0)
+        ys.append(b.labels[keep])
+        n += int(keep.sum())
+        if n >= size:
+            break
+    if not xs or n == 0:
+        return None, None
+    return np.concatenate(xs)[:size], np.concatenate(ys)[:size]
+
+
+def cmd_attack(args):
+    from ..attacks import generate, whitebox
+
+    device, entry, cfg, model, vocab, normalize, source = _attack_model(args)
 
     attacks = {}
     if "fgsm" in args.attacks:
@@ -218,9 +252,7 @@ def cmd_attack(args):
         if loader is None:
             print(f"skip {split}: no metadata")
             continue
-        clean_meta = filter_metadata(
-            read_metadata(os.path.join(args.data_root, split, "metadata.csv")),
-            args.sources)
+        clean_meta = _clean_metadata(args, split)
         for name, fn in attacks.items():
             out_dir = generate.attack_output_dir(
                 args.output_dir, args.model, source, split, name)
@@ -228,6 +260,168 @@ def cmd_attack(args):
                 fn, model, loader, out_dir=out_dir, clean_metadata=clean_meta,
                 seed=args.seed, device=device)
             print(f"{name} {split}: {len(meta)} adversarial images -> {out_dir}")
+
+
+def cmd_autoattack(args):
+    from ..attacks import autoattack as aa
+    from ..attacks import generate
+
+    device, entry, cfg, model, vocab, normalize, source = _attack_model(args)
+    suite = aa.make_autoattack(
+        entry.apply, cfg,
+        aa.AutoAttackConfig(eps=args.epsilon, n_iter=args.n_iter,
+                            square_queries=args.square_queries, attacks=tuple(args.suite)),
+        normalize=normalize)
+    loaders = _loaders_for(args, vocab, args.splits, batch_size=args.batch_size,
+                           image_size=cfg.image_size)
+    for split in args.splits:
+        loader = loaders[split]
+        if loader is None:
+            continue
+        out_dir = generate.attack_output_dir(args.output_dir, args.model, source, split,
+                                             "autoattack")
+        meta = generate.generate_adversarial_split(
+            suite, model, loader, out_dir=out_dir, clean_metadata=_clean_metadata(args, split),
+            seed=args.seed, device=device)
+        print(f"autoattack {split}: {len(meta)} images -> {out_dir}")
+    # wall-clock attribution per (stage, survivors): the first call and the
+    # mean of the others
+    rows = []
+    for (name, bucket), ts in sorted(suite.stats.items()):
+        warm = ts[1:]
+        warm_s = f"{sum(warm) / len(warm):8.2f}" if warm else "       —"
+        print(f"  {name:8s} bucket={bucket:<4d} calls={len(ts):<4d} "
+              f"first={ts[0]:8.2f}s warm_mean={warm_s}s")
+        rows.append({"stage": name, "bucket": bucket, "calls": len(ts),
+                     "first_s": round(ts[0], 3),
+                     "warm_mean_s": round(sum(warm) / len(warm), 3) if warm else None,
+                     "total_s": round(sum(ts), 3)})
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump({"model": args.model, "n_iter": args.n_iter,
+                       "square_queries": args.square_queries, "suite": list(args.suite),
+                       "total_attributed_s": round(sum(r["total_s"] for r in rows), 1),
+                       "stages": rows}, f, indent=2)
+        print(f"wrote {args.stats_json}")
+
+
+def cmd_patch_attack(args):
+    import torch
+
+    from ..attacks import generate
+    from ..attacks import patch as patch_mod
+
+    device, entry, cfg, model, vocab, normalize, source = _attack_model(args)
+
+    def make_pcfg(shape):
+        return patch_mod.PatchConfig(
+            patch_size=args.patch_size, shape=shape, rotation_max_deg=args.rotation_max,
+            scale_min=args.scale_min, scale_max=args.scale_max,
+            learning_rate=args.learning_rate, iters=args.max_iter,
+            batch_size=args.batch_size, targeted=args.targeted)
+
+    # one trainer and one applier for every patch type: the shape mask is a
+    # runtime argument
+    base_cfg = make_pcfg(args.patch_type[0])
+    train_fn = patch_mod.make_train_patch(entry.apply, cfg, base_cfg, normalize=normalize)
+    apply_fn = patch_mod.make_apply_patch(base_cfg)
+    loaders = _loaders_for(args, vocab, args.splits, batch_size=args.batch_size,
+                           image_size=cfg.image_size)
+    # split outer, patch type inner: the training subset depends on the split only
+    for split in args.splits:
+        loader = loaders[split]
+        if loader is None:
+            continue
+        images, labels = _training_subset(loader, args.patch_sample_size)
+        if images is None:
+            print(f"skip {split}: no samples after filtering")
+            continue
+        images = torch.from_numpy(images).to(device)
+        labels = torch.from_numpy(labels).to(device)
+        clean_meta = _clean_metadata(args, split)
+        for patch_type in args.patch_type:
+            mask = patch_mod.patch_mask(make_pcfg(patch_type))
+            # every patch type trains from the same seed
+            patch, losses = train_fn(model, images, labels,
+                                     torch.Generator(device).manual_seed(args.seed), mask)
+            print(f"{patch_type} {split}: patch trained (final loss {float(losses[-1]):.4f})")
+
+            def attack(p, im, lb, gen, _patch=patch, _mask=mask):
+                scale = torch.empty((), device=im.device).uniform_(
+                    args.scale_min_apply, args.scale_max_apply, generator=gen)
+                return apply_fn(im, _patch, gen, scale, _mask)
+
+            out_dir = generate.attack_output_dir(args.output_dir, args.model, source, split,
+                                                 f"patch_{patch_type}")
+            meta = generate.generate_adversarial_split(
+                attack, model, loader, out_dir=out_dir, clean_metadata=clean_meta,
+                seed=args.seed, device=device)
+            print(f"patch_{patch_type} {split}: {len(meta)} images")
+
+
+def cmd_rp2_attack(args):
+    import numpy as np
+    import torch
+
+    from ..attacks import generate, rp2
+
+    device, entry, cfg, model, vocab, normalize, source = _attack_model(args)
+    pcfg = rp2.rp2_config(patch_size=args.patch_size, image_size=cfg.image_size,
+                          iters=args.max_iter, learning_rate=args.learning_rate,
+                          batch_size=args.batch_size)
+    loaders = _loaders_for(args, vocab, args.splits, batch_size=args.batch_size,
+                           image_size=cfg.image_size)
+
+    def train_patches(split, loader):
+        """(classes, P, P, 3) patches trained on ``split`` (mid-gray for a
+        class without enough samples), or None."""
+        images, labels = _training_subset(loader, args.patch_sample_size)
+        if images is None:
+            print(f"rp2 {split}: no samples after filtering")
+            return None
+        patches = rp2.train_rp2_patches(entry.apply, cfg, model, images, labels, cfg=pcfg,
+                                        normalize=normalize, seed=args.seed, device=device)
+        rp2.save_class_patches(
+            patches, os.path.join(args.output_dir, args.model, source, split, "rp2", "patches"),
+            cfg=pcfg, class_names=dict(enumerate(vocab.classes)))
+        if not patches:
+            print(f"rp2 {split}: no class had enough samples")
+            return None
+        return torch.from_numpy(np.stack([
+            patches.get(c, np.full((pcfg.patch_size, pcfg.patch_size, 3), 0.5, np.float32))
+            for c in range(len(vocab))])).to(device)
+
+    # --patch_train_split: one sticker per class, trained on that split and
+    # applied to every split (the reference retrains per split)
+    shared = None
+    if args.patch_train_split:
+        tl = loaders.get(args.patch_train_split) or _loaders_for(
+            args, vocab, (args.patch_train_split,), batch_size=args.batch_size,
+            image_size=cfg.image_size)[args.patch_train_split]
+        if tl is None:
+            print(f"rp2 {args.patch_train_split}: no samples after filtering")
+            return
+        shared = train_patches(args.patch_train_split, tl)
+        if shared is None:
+            return
+    apply_fn = rp2.make_sign_constrained_apply(pcfg)
+    for split in args.splits:
+        loader = loaders[split]
+        if loader is None:
+            continue
+        patch_arr = shared if shared is not None else train_patches(split, loader)
+        if patch_arr is None:
+            continue
+
+        def attack(p, im, lb, gen, _pa=patch_arr):
+            # each example gets its own class's patch (a physical per-sign sticker)
+            return apply_fn(im, _pa[lb.long()], gen, pcfg.scale_max)
+
+        out_dir = generate.attack_output_dir(args.output_dir, args.model, source, split, "rp2")
+        meta = generate.generate_adversarial_split(
+            attack, model, loader, out_dir=out_dir, clean_metadata=_clean_metadata(args, split),
+            seed=args.seed, device=device)
+        print(f"rp2 {split}: {len(meta)} images -> {out_dir}")
 
 
 def cmd_train_lora(args):
@@ -411,6 +605,51 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--alpha", type=float, default=3 / 255)
     sp.add_argument("--steps", type=int, default=30)
     sp.set_defaults(fn=cmd_attack)
+
+    sp = sub.add_parser("autoattack", help="AutoAttack standard suite")
+    _model_args(sp, "auto = bf16 on CUDA, f32 on CPU")
+    sp.add_argument("--output_dir", default="./adv")
+    sp.add_argument("--splits", nargs="+", default=["test"])
+    sp.add_argument("--epsilon", type=float, default=0.031)
+    sp.add_argument("--n_iter", type=int, default=100)
+    sp.add_argument("--square_queries", type=int, default=5000)
+    sp.add_argument("--suite", nargs="+", default=["apgd-ce", "apgd-t", "fab-t", "square"])
+    sp.add_argument("--stats_json", default=None,
+                    help="write the per-(stage, bucket) wall attribution as JSON (bucket = "
+                         "the stage's survivor count)")
+    sp.set_defaults(fn=cmd_autoattack)
+
+    sp = sub.add_parser("patch-attack", help="EOT adversarial patch")
+    _model_args(sp, "auto = bf16 on CUDA, f32 on CPU")
+    sp.add_argument("--output_dir", default="./adv")
+    sp.add_argument("--splits", nargs="+", default=["train", "val", "test"])
+    sp.add_argument("--patch_type", nargs="+", default=["circle", "square"],
+                    choices=["circle", "square"])
+    sp.add_argument("--patch_size", type=int, default=24)
+    sp.add_argument("--patch_sample_size", type=int, default=500)
+    sp.add_argument("--scale_min", type=float, default=0.05)
+    sp.add_argument("--scale_max", type=float, default=1.0)
+    sp.add_argument("--rotation_max", type=float, default=22.5)
+    sp.add_argument("--learning_rate", type=float, default=5.0)
+    sp.add_argument("--max_iter", type=int, default=500)
+    sp.add_argument("--targeted", action="store_true")
+    sp.add_argument("--scale_min_apply", type=float, default=0.1)
+    sp.add_argument("--scale_max_apply", type=float, default=0.5)
+    sp.set_defaults(fn=cmd_patch_attack)
+
+    sp = sub.add_parser("rp2-attack", help="per-class physical perturbation")
+    _model_args(sp, "auto = bf16 on CUDA, f32 on CPU")
+    sp.add_argument("--output_dir", default="./adv")
+    sp.add_argument("--splits", nargs="+", default=["test"])
+    sp.add_argument("--patch_size", type=int, default=32)
+    sp.add_argument("--patch_sample_size", type=int, default=500)
+    sp.add_argument("--learning_rate", type=float, default=0.1)
+    sp.add_argument("--max_iter", type=int, default=500)
+    sp.add_argument("--patch_train_split", default="",
+                    help="train per-class patches ONCE on this split and apply them to every "
+                         "--splits entry (physical-sticker semantics); empty = per-split "
+                         "retraining like the reference")
+    sp.set_defaults(fn=cmd_rp2_attack)
 
     sp = sub.add_parser("train-lora", help="per-attack LoRA defense")
     _model_args(sp, "auto = f32 on every device (the compute dtype stays the "

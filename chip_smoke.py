@@ -17,6 +17,13 @@ the hand-written kernels:
   augmentation on, ``fuse_attn_block`` on: the kernels' parameter gradients)
   and the LoRA defense (rank 8 on q/k/v/o unmerged, dropout 0.1, head
   trainable, Adam, ``use_fused_mlp`` on: the base frozen);
+* the other attack families on the same ViT-B/16 and batch, labelled by
+  the model's own clean predictions: the EOT patch (``PatchConfig()``: P 24,
+  500 Adam iterations at B=16, circle and square) and its application, RP2
+  (100 iterations on each of 3 classes) applied by label, and the AutoAttack
+  standard suite at the CLI's defaults (ε 0.031, 100 iterations, 9
+  targets, 5000 Square queries): the packed-attention kernel in every
+  forward and backward;
 * the head-major attention kernel through its entry ``attention_auto`` (no
   model path of the package calls it);
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
@@ -107,11 +114,27 @@ Phases, one line each (or a few):
    base against the unmerged model. Then eval-compose for ``swin`` and
    ``convnext`` (launch counts read the same way): 4 variants x 3 datasets,
    base/clean accuracy equal to a direct argmax count, a merged variant's
-   weights equal to base + sum s*A*B;
+   weights equal to base + sum s*A*B. The attack families (each run with a
+   counting ``entry.apply``; the packed-attention counts must be 12 x its
+   forward calls and 12 x its gradient calls, every other count 0): the
+   patch and its output in [0, 1] and finite, every pixel outside the warped
+   footprint (computed here, in f64) the image's bit for bit, the mean of
+   the last 25 losses (-CE) below the first 25's, 500 + 500 model calls per
+   patch type and none for the application; RP2's pixels outside the sign
+   mask unchanged, 3 x 100 + 3 x 100 calls; AutoAttack's output in the
+   ε-ball and [0, 1], robust accuracy at most the clean accuracy of 1, a
+   ``stats`` entry for each stage that ran, with its survivors and seconds;
+   then APGD-T, FAB-T (10 iterations, 3 targets) and Square (100 queries)
+   each alone on the batch, with their exact model calls, since the suite
+   ends at the first stage that breaks every example;
 6. timing with CUDA events: PGD-10 images/s of each backbone (ConvNeXt-B
    with both kernel fields on, each alone, and both off, in turns; ViT-B with
    each of its three kernel fields and none, in turns), training images/s of
-   the full fine-tune and the LoRA defense with the fields off and on, kernel
+   the full fine-tune and the LoRA defense with the fields off and on, the
+   patch training iteration (B=16, host clock over phase 5's 500), an
+   APGD-CE iteration (B=64), Square queries/s (B=64, 200 queries), the
+   AutoAttack suite's wall and images/s (phase 5's run, the kernels already
+   built), kernel
    vs plain times, each kernel's bound (the larger of its FLOP over the
    card's published peak and its bytes over 3.35 TB/s) and the time of the
    one PyTorch call, or library composition, that computes the same
@@ -144,7 +167,9 @@ device time by kernel group, one group per device function of this repo
 (ViT-B: fields off, then ``fuse_attn_block``; ConvNeXt: kernel fields on,
 then off);
 ``--profile train|train_lora`` traces one warm ViT-B training step, fields
-off and then on. It prints no result lines.
+off and then on; ``--profile patch|square`` one warm call of 20 ViT-B
+patch-training iterations (B=16) or 50 Square queries (B=64), with the
+top kernels by name. It prints no result lines.
 """
 
 from __future__ import annotations
@@ -240,6 +265,10 @@ LOGIT_TOL = {"google_vit": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
              "swin": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
              "convnext": {"bfloat16": (5e-2, 5e-2)}}
 BATCH, PGD_STEPS, EPS, ALPHA, CLASSES = 64, 10, 8 / 255, 3 / 255, 21
+AA_N_ITER, AA_QUERIES = 100, 5000  # the CLI's autoattack defaults
+PROFILE_PATCH_ITERS, PROFILE_SQUARE_QUERIES = 20, 50
+# each later AutoAttack stage alone, at a cut budget (the suite may end before it)
+STAGE_N_ITER, STAGE_TARGETS, STAGE_QUERIES = 10, 3, 100
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -316,6 +345,22 @@ def rivals(fns: dict, iters: int = 20, rounds: int = 3, timer=None) -> dict:
     return best
 
 
+def footprint(eot, size: int, p: int):
+    """(B, S, S) bool: pixels whose inverse-mapped patch coordinate (computed
+    here in f64, apart from the package's composite) lies within a margin of
+    the patch's bilinear support; outside it every weight is 0."""
+    import torch
+
+    scale, theta, tx, ty, _ = (t.reshape(-1, 1, 1).double() for t in eot)
+    ar = torch.arange(size, dtype=torch.float64, device=scale.device)
+    dx = ar[None, None, :] - (size - 1) / 2.0 - tx
+    dy = ar[None, :, None] - (size - 1) / 2.0 - ty
+    k = scale * size / p
+    u = (torch.cos(-theta) * dx - torch.sin(-theta) * dy) / k + (p - 1) / 2.0
+    v = (torch.sin(-theta) * dx + torch.cos(-theta) * dy) / k + (p - 1) / 2.0
+    return (u > -1.01) & (u < p + 0.01) & (v > -1.01) & (v < p + 0.01)
+
+
 @contextlib.contextmanager
 def plain_path(module, name: str, plain):
     """Route a model module's attention through the plain version."""
@@ -344,7 +389,9 @@ class Smoke:
                            ("lora", "ops.lora"), ("peft_io", "ops.peft_io"),
                            ("trees", "utils.trees"), ("checkpoint", "utils.checkpoint"),
                            ("common", "attacks.common"), ("whitebox", "attacks.whitebox"),
-                           ("loader", "data.loader"), ("compose_mod", "eval.compose")):
+                           ("loader", "data.loader"), ("compose_mod", "eval.compose"),
+                           ("patch_mod", "attacks.patch"), ("rp2_mod", "attacks.rp2"),
+                           ("aa", "attacks.autoattack")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1464,6 +1511,235 @@ class Smoke:
               f"head-major kernel, launches {launches}", flush=True)
         return launches
 
+    # 5. the other attack families on ViT-B/16
+    def counting_apply(self, entry):
+        """``entry.apply`` that counts its calls: every call is one forward
+        pass, and a call whose input asks a gradient is one the attack
+        differentiates (one backward pass follows)."""
+        import torch
+
+        def apply(cfg, model, images):
+            apply.calls["fwd"] += 1
+            apply.calls["grad"] += int(torch.is_grad_enabled() and images.requires_grad)
+            return entry.apply(cfg, model, images)
+
+        apply.calls = {"fwd": 0, "grad": 0}
+        return apply
+
+    def family_run(self, entry, depth: int, fn):
+        """``fn(apply)`` with a counting apply and every ViT count set to 0
+        just before and read just after; checks that the packed-attention
+        kernel ran ``depth`` times per forward and per backward pass and no
+        other kernel or parameter gradient ran. Returns (output, calls,
+        seconds)."""
+        apply = self.counting_apply(entry)
+        t0 = time.perf_counter()
+        out, launches = self.counted(self.vit_counters(), lambda: fn(apply))
+        seconds = time.perf_counter() - t0
+        calls = apply.calls
+        want = {k: 0 for k in launches}
+        want.update(packed_fwd=depth * calls["fwd"], packed_bwd=depth * calls["grad"])
+        check(launches == want, f"kernel counts {launches} for {calls} model calls (want {want})")
+        return out, calls, seconds
+
+    def patch_family(self, entry, cfg, model, normalize, x_u8, labels) -> dict:
+        """EOT patch at ``PatchConfig()`` (P 24, 500 iterations, B 16, lr 5),
+        circle and square from one seed on a 64-image training subset, then
+        applied at scale U(0.1, 0.5) to the batch."""
+        import torch
+
+        pm = self.patch_mod
+        pcfg = pm.PatchConfig()
+        images = self.common.to_unit_floats(x_u8)
+        out = {}
+        for shape in ("circle", "square"):
+            mask = pm.patch_mask(dataclasses.replace(pcfg, shape=shape))
+            (patch, losses), calls, secs = self.family_run(
+                entry, cfg.depth, lambda a: pm.make_train_patch(a, cfg, pcfg, normalize=normalize)(
+                    model, images, labels, torch.Generator(self.dev).manual_seed(0), mask))
+            check(calls == {"fwd": pcfg.iters, "grad": pcfg.iters},
+                  f"patch {shape}: model calls {calls}")
+            check(patch.shape == (pcfg.patch_size, pcfg.patch_size, 3)
+                  and bool(torch.isfinite(patch).all())
+                  and float(patch.min()) >= 0 and float(patch.max()) <= 1,
+                  f"patch {shape}: shape, finiteness or range")
+            first, last = float(losses[:25].mean()), float(losses[-25:].mean())
+            check(bool(torch.isfinite(losses).all()) and last < first,
+                  f"patch {shape}: the loss (-CE) did not fall: {first} -> {last}")
+            gen = torch.Generator(self.dev).manual_seed(1)
+            scale = torch.empty((), device=self.dev).uniform_(0.1, 0.5, generator=gen)
+            state = gen.get_state()
+            adv, a_calls, _ = self.family_run(entry, cfg.depth, lambda a: pm.make_apply_patch(
+                pcfg)(x_u8, patch, gen, scale, mask))
+            check(a_calls == {"fwd": 0, "grad": 0}, "patch application called the model")
+            check(bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                  and float(adv.max()) <= 1, f"patch {shape} application: range")
+            gen.set_state(state)
+            eot = pm.apply_eot(gen, BATCH, pcfg, cfg.image_size, scale, self.dev)
+            foot = footprint(eot, cfg.image_size, pcfg.patch_size)
+            check(torch.equal(adv[~foot], images[~foot]),
+                  f"patch {shape}: a pixel outside the footprint changed")
+            changed = float((adv != images).any(-1).float().mean())
+            print(f"phase 5 patch: google_vit {shape} P=24, {pcfg.iters} iterations B=16 lr 5 on "
+                  f"{len(labels)} images: loss (-CE) first 25 {first:.4f} -> last 25 {last:.4f}, "
+                  f"{secs:.2f} s ({secs * 1000 / pcfg.iters:.2f} ms/iteration); applied at scale "
+                  f"{float(scale):.3f} to B={BATCH}: {changed:.4f} of pixels changed, none outside "
+                  f"the footprint; packed-attention launches {cfg.depth * calls['fwd']} + "
+                  f"{cfg.depth * calls['grad']}, 0 for the application, 0 parameter gradients",
+                  flush=True)
+            out[shape] = secs * 1000 / pcfg.iters
+        return out
+
+    def rp2_family(self, entry, cfg, model, normalize, x_u8, logits) -> None:
+        """RP2 with ``rp2_config(iters=100)`` on 3 classes (the batch's 3 most
+        likely on average, each image labelled with one in turn), applied by
+        label."""
+        import numpy as np
+        import torch
+
+        rp2 = self.rp2_mod
+        pcfg = rp2.rp2_config(iters=100)
+        classes = [int(c) for c in logits.float().mean(0).argsort(descending=True)[:3]]
+        labels = np.array([classes[i % 3] for i in range(BATCH)], np.int64)
+        images = self.common.to_unit_floats(x_u8)
+        lines = []
+        patches, calls, secs = self.family_run(entry, cfg.depth, lambda a: rp2.train_rp2_patches(
+            a, cfg, model, images.cpu().numpy(), labels, device=self.dev, cfg=pcfg,
+            normalize=normalize, log=lines.append))
+        iters = 3 * pcfg.iters
+        check(sorted(patches) == sorted(classes) and calls == {"fwd": iters, "grad": iters},
+              f"rp2: classes {sorted(patches)}, model calls {calls}")
+        p = pcfg.patch_size
+        stack = torch.zeros(logits.shape[-1], p, p, 3, device=self.dev)
+        for c, patch in patches.items():
+            stack[c] = torch.from_numpy(patch).to(self.dev)
+        lab = torch.from_numpy(labels).to(self.dev)
+        adv, a_calls, _ = self.family_run(
+            entry, cfg.depth, lambda a: rp2.make_sign_constrained_apply(pcfg)(
+                x_u8, stack[lab], torch.Generator(self.dev).manual_seed(2), pcfg.scale_max))
+        outside = (rp2.sign_mask(cfg.image_size)[..., 0] == 0).to(self.dev)
+        check(a_calls == {"fwd": 0, "grad": 0} and bool(torch.isfinite(adv).all())
+              and float(adv.min()) >= 0 and float(adv.max()) <= 1,
+              "rp2 application: model calls, finiteness or range")
+        check(torch.equal(adv[:, outside], images[:, outside]),
+              "rp2: a pixel outside the sign mask changed")
+        counts = [int((labels == c).sum()) for c in classes]
+        print(f"phase 5 rp2: google_vit classes {classes}, {pcfg.iters} iterations each (B=16, "
+              f"lr 0.1, P={p}, {counts} images padded to {max(counts)}): {'; '.join(lines)}; "
+              f"{secs:.2f} s; applied by label to B={BATCH}: no pixel outside the sign mask "
+              f"changed; packed-attention launches {cfg.depth * calls['fwd']} + "
+              f"{cfg.depth * calls['grad']}", flush=True)
+
+    def autoattack_family(self, entry, cfg, model, normalize, x_u8, labels):
+        """The standard suite at the CLI's defaults on the batch, labelled by
+        the model's own clean predictions. Returns (stats, seconds)."""
+        import torch
+
+        aa = self.aa
+        acfg = aa.AutoAttackConfig(n_iter=AA_N_ITER, square_queries=AA_QUERIES)
+        images = self.common.to_unit_floats(x_u8)
+        clean = aa.robust_accuracy(entry.apply, cfg, model, images, labels, normalize=normalize)
+        check(clean == 1.0, f"autoattack: clean accuracy on the model's own labels {clean}")
+        suite = {}
+
+        def run(apply):
+            suite["run"] = aa.make_autoattack(apply, cfg, acfg, normalize=normalize)
+            return suite["run"](model, x_u8, labels, torch.Generator(self.dev).manual_seed(3))
+
+        adv, calls, secs = self.family_run(entry, cfg.depth, run)
+        stats = suite["run"].stats
+        check(bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+              and float(adv.max()) <= 1, "autoattack: finiteness or range")
+        check(float((adv - images).abs().max()) <= acfg.eps + 1e-6,
+              "autoattack: outside the eps-ball")
+        robust = aa.robust_accuracy(entry.apply, cfg, model, adv, labels, normalize=normalize)
+        check(robust <= clean, f"autoattack: robust accuracy {robust} > clean {clean}")
+        ran = [name for name, _ in stats]
+        check(ran == list(acfg.attacks[:len(ran)]) and len(ran) >= 1
+              and all(len(ts) == 1 for ts in stats.values()),
+              f"autoattack: stats {stats} for the stages that ran")
+        per_stage = ", ".join(f"{name} on {bucket} survivors {ts[0]:.2f} s"
+                              for (name, bucket), ts in stats.items())
+        print(f"phase 5 autoattack: google_vit standard suite eps {acfg.eps} n_iter {acfg.n_iter} "
+              f"{acfg.n_target_classes} targets {acfg.square_queries} Square queries, B={BATCH} "
+              f"on the model's own labels: clean accuracy {clean:.4f} -> robust {robust:.4f}; "
+              f"{per_stage}; {secs:.2f} s; model calls {calls}, packed-attention launches "
+              f"{cfg.depth * calls['fwd']} + {cfg.depth * calls['grad']}, 0 parameter gradients",
+              flush=True)
+        return stats, secs
+
+    def autoattack_stages(self, entry, cfg, model, normalize, x_u8, labels) -> None:
+        """APGD-T, FAB-T and Square each alone on the batch at a cut budget
+        (``STAGE_N_ITER`` iterations, ``STAGE_TARGETS`` targets,
+        ``STAGE_QUERIES`` queries): the suite stops at the first stage that
+        breaks every example, so these run here whatever APGD-CE did."""
+        import torch
+
+        aa = self.aa
+        images = self.common.to_unit_floats(x_u8)
+        eps = aa.AutoAttackConfig().eps
+        stages = {
+            "apgd-t": (lambda a: aa.make_apgd_targeted(a, cfg, aa.APGDConfig(
+                eps=eps, n_iter=STAGE_N_ITER, n_target_classes=STAGE_TARGETS),
+                normalize=normalize)(model, x_u8, labels, torch.Generator(self.dev).manual_seed(6)),
+                {"fwd": 1 + STAGE_TARGETS * (STAGE_N_ITER + 3),
+                 "grad": STAGE_TARGETS * (STAGE_N_ITER + 2)}),
+            "fab-t": (lambda a: aa.make_fab_targeted(a, cfg, aa.FABConfig(
+                eps=eps, n_iter=STAGE_N_ITER, n_target_classes=STAGE_TARGETS),
+                normalize=normalize)(model, x_u8, labels),
+                {"fwd": 1 + 2 * STAGE_TARGETS * STAGE_N_ITER,
+                 "grad": STAGE_TARGETS * STAGE_N_ITER}),
+            "square": (lambda a: aa.make_square(a, cfg, aa.SquareConfig(
+                eps=eps, n_queries=STAGE_QUERIES), normalize=normalize)(
+                model, x_u8, labels, torch.Generator(self.dev).manual_seed(7)), None),
+        }
+        for name, (fn, want_calls) in stages.items():
+            adv, calls, secs = self.family_run(entry, cfg.depth, fn)
+            if want_calls is not None:
+                check(calls == want_calls, f"{name}: model calls {calls} (want {want_calls})")
+            check(calls["fwd"] >= 2 and (name != "square" or calls["grad"] == 0),
+                  f"{name}: model calls {calls}")
+            check(bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                  and float(adv.max()) <= 1 and float((adv - images).abs().max()) <= eps + 1e-6,
+                  f"{name}: finiteness, range or eps-ball")
+            robust = aa.robust_accuracy(entry.apply, cfg, model, adv, labels, normalize=normalize)
+            print(f"phase 5 autoattack stage: google_vit {name} alone, B={BATCH}, eps {eps}: "
+                  f"robust accuracy {robust:.4f}, {secs:.2f} s, model calls {calls}, "
+                  f"packed-attention launches {cfg.depth * calls['fwd']} + "
+                  f"{cfg.depth * calls['grad']}", flush=True)
+
+    def time_families(self, entry, cfg, model, normalize, x_u8, labels, patch_ms, aa_out) -> None:
+        """Phase 6 for the attack families: the patch iteration (from phase
+        5), an APGD-CE iteration and Square queries at B=64 by CUDA events,
+        the suite's wall (from phase 5)."""
+        import torch
+
+        aa = self.aa
+        images = self.common.to_unit_floats(x_u8)
+        n_iter = 20
+        apgd = aa.make_apgd(entry.apply, cfg, aa.APGDConfig(eps=0.031, n_iter=n_iter),
+                            normalize=normalize)
+        apgd_ms = cuda_ms(lambda: apgd(model, images, labels,
+                                       torch.Generator(self.dev).manual_seed(4)), 2)
+        queries = 200
+        square = aa.make_square(entry.apply, cfg,
+                                aa.SquareConfig(eps=0.031, n_queries=queries,
+                                                exit_check_every=queries), normalize=normalize)
+        sq_ms = cuda_ms(lambda: square(model, images, labels,
+                                       torch.Generator(self.dev).manual_seed(5)), 2)
+        stats, secs = aa_out
+        print(f"phase 6 patch training google_vit+LoRA bf16 B=16 P=24: "
+              + ", ".join(f"{k} {v:.2f} ms/iteration" for k, v in patch_ms.items())
+              + f" (host clock over 500 iterations) {self.card}", flush=True)
+        print(f"phase 6 APGD-CE google_vit+LoRA bf16 B={BATCH}: {apgd_ms / (n_iter + 2):.2f} ms "
+              f"per iteration (one call of {n_iter} iterations + 2 start steps: {apgd_ms:.2f} ms) "
+              f"{self.card}", flush=True)
+        print(f"phase 6 Square google_vit+LoRA bf16 B={BATCH}: {queries * 1000 / sq_ms:.2f} "
+              f"queries/s ({queries} queries in {sq_ms:.2f} ms) {self.card}", flush=True)
+        print(f"phase 6 AutoAttack standard suite google_vit+LoRA bf16 B={BATCH}: wall {secs:.2f} "
+              f"s, {BATCH / secs:.2f} images/s; kernels built in phase 2, so each stage's first "
+              f"call is warm {self.card}", flush=True)
+
     # 6. timing
     def time_attention(self, vit_l) -> list[dict]:
         """Packed attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
@@ -1919,6 +2195,24 @@ class Smoke:
                 "google_vit", self.vit, "attention_packed", self.ka.attention_packed_reference)
             calls = self.train_callables(entry, tree, normalize, name)
             what = f"one training step B={BATCH} f32 params bf16 compute"
+        elif name in ("patch", "square"):
+            entry, cfg, model, _, normalize, _ = self.model(
+                "google_vit", self.vit, "attention_packed", self.ka.attention_packed_reference)
+            x = torch.from_numpy(np.random.default_rng(1).integers(
+                0, 256, (BATCH, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)).to(self.dev)
+            with torch.no_grad():
+                y = entry.apply(cfg, model, normalize(self.common.to_unit_floats(x))).argmax(-1)
+            if name == "patch":
+                pcfg = self.patch_mod.PatchConfig(iters=PROFILE_PATCH_ITERS)
+                run = self.patch_mod.make_train_patch(entry.apply, cfg, pcfg, normalize=normalize)
+                what = f"{pcfg.iters} patch-training iterations B={pcfg.batch_size} P=24"
+            else:
+                run = self.aa.make_square(entry.apply, cfg, self.aa.SquareConfig(
+                    eps=0.031, n_queries=PROFILE_SQUARE_QUERIES,
+                    exit_check_every=PROFILE_SQUARE_QUERIES), normalize=normalize)
+                what = f"{PROFILE_SQUARE_QUERIES} Square queries B={BATCH}"
+            calls = {"google_vit": lambda: run(model, x, y,
+                                               torch.Generator(self.dev).manual_seed(0))}
         elif name == "convnext":
             entry, cfg, _, _, normalize, model_tree = self.model(name, kernel_fields=CONVNEXT_KERNELS)
             runs = {label: v for label, v in self.convnext_variants(entry, cfg, model_tree).items()
@@ -1932,7 +2226,7 @@ class Smoke:
             if name == "google_vit":
                 bcfg = dataclasses.replace(cfg, fuse_attn_block=True)
                 runs["fuse_attn_block"] = (bcfg, entry.from_tree(model_tree, bcfg))
-        if name not in ("train", "train_lora"):
+        if name not in ("train", "train_lora", "patch", "square"):
             rng = np.random.default_rng(1)
             x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
                                               dtype=np.uint8)).to(self.dev)
@@ -1971,6 +2265,7 @@ class Smoke:
                 call()
                 torch.cuda.synchronize()
             totals = {g: [0.0, 0] for g, _ in groups}
+            by_name: dict = {}
             spans = []
             for ev in prof.events():
                 if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1979,6 +2274,7 @@ class Smoke:
                 group = next(g for g, pat in groups if re.search(pat, ev.name))
                 totals[group][0] += dur / 1e3
                 totals[group][1] += 1
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + dur / 1e3
                 spans.append((ev.time_range.start, ev.time_range.end))
             check(spans, "the profiler recorded no device activity")
             spans.sort()
@@ -1999,6 +2295,10 @@ class Smoke:
                 if calls:
                     print(f"profile {name} ({label}):   {group:40s} {ms:9.2f} ms "
                           f"{ms / total:6.1%}  {calls} calls", flush=True)
+            if name in ("patch", "square"):  # no kernel of this repo besides attention
+                for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+                    print(f"profile {name} ({label}):     top kernel {ms:9.2f} ms  {kernel[:120]}",
+                          flush=True)
 
 
 def main(argv=None) -> None:
@@ -2007,10 +2307,12 @@ def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "train", "train_lora"),
+    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "train", "train_lora",
+                                          "patch", "square"),
                     default=None,
                     help="trace one warm PGD-10 call of this backbone (or one warm ViT-B training "
-                         "step, fields off and on) instead of the smoke run")
+                         "step, fields off and on; or ViT-B patch training or Square queries) "
+                         "instead of the smoke run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2041,6 +2343,15 @@ def main(argv=None) -> None:
     full_l = s.train_full(vit_entry, vit_tree, vit_norm)
     lora_l = s.train_lora(vit_entry, vit_tree, vit_norm)
     bhnd_l = s.attention_auto_entry()
+    # the other attack families on the same model and batch, labelled by its
+    # own clean predictions so that every example starts correctly classified
+    with torch.no_grad():
+        vit_logits = vit_entry.apply(vit_cfg, vit_model, vit_norm(s.common.to_unit_floats(vit_x)))
+    own = vit_logits.argmax(-1)
+    patch_ms = s.patch_family(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own)
+    s.rp2_family(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, vit_logits)
+    aa_out = s.autoattack_family(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own)
+    s.autoattack_stages(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own)
 
     swin_entry, swin_cfg, swin_model, swin_tree, swin_norm, swin_model_tree = s.model(
         "swin", s.swin, "window_attention", kw.window_attention_reference)
@@ -2085,6 +2396,7 @@ def main(argv=None) -> None:
           f"ms/batch, {BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
     del swin_model, swin_pgd, swin_fused, f_pgd, f_model
     s.time_vit_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_x, vit_y)
+    s.time_families(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own, patch_ms, aa_out)
     s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
     s.time_training(vit_entry, vit_tree, vit_norm)
     # launches: the full fine-tune's for attn_block (its parameter gradients
