@@ -7,7 +7,10 @@ stages (``synth-data``, ``train``, ``attack``, ``train-lora``,
 
 * base checkpoints: ``{out}/{model}/{source}/{model}_best_model_finetuned.safetensors``
   + ``class_mappings.txt`` (``train`` writes them, as the JAX stage does;
-  either package reads the other's)
+  either package reads the other's); ``--model_path`` and ``train
+  --checkpoint`` also take a local pretrained checkpoint (an HF model
+  directory, ``pytorch_model.bin``, the reference's ``.pth``) through
+  ``models.pretrained.load_pretrained``
 * adversarial data: ``{adv_root}/{model}/{source}/{split}/{attack}/images``
   + ``metadata.csv`` (``attack`` = ``fgsm``, ``pgd``, ``autoattack``,
   ``patch_circle``, ``patch_square``, ``rp2``); RP2's per-class patches:
@@ -94,28 +97,53 @@ def _apply_kernel_flags(args, cfg):
 
 
 def _load_checkpoint(args, device, *, auto_dtype: str):
-    """Checkpoint (written by either package) -> (entry, cfg, tree, vocab);
-    float leaves in ``--param_dtype`` (``auto_dtype`` for "auto"), on ``device``."""
+    """``--model_path`` -> (entry, cfg, tree, vocab); float leaves in
+    ``--param_dtype`` (``auto_dtype`` for "auto"), on ``device``.
+
+    A path ending in ``.safetensors`` is a param tree written by either
+    package; any other local checkpoint (an HF model directory,
+    ``pytorch_model.bin``, the reference's ``.pth``) goes through
+    ``models.pretrained.load_pretrained``, as in the JAX CLI."""
     import torch
 
+    from ..models.pretrained import load_pretrained
     from ..models.registry import get_model
     from ..utils import checkpoint as ckpt
     from ..utils import trees
     from ..utils.vocab import LabelVocabulary
 
-    if not args.model_path.endswith(".safetensors"):
-        raise SystemExit("--model_path takes a .safetensors checkpoint")
     mapping = os.path.join(os.path.dirname(args.model_path), "class_mappings.txt")
     vocab = (LabelVocabulary.load(mapping) if os.path.exists(mapping)
              else _build_vocab(args))
-    entry = get_model(args.model)
-    cfg = _apply_kernel_flags(args, entry.config(len(vocab)))
-    tree, _ = ckpt.load_pytree(args.model_path)
+    if args.model_path.endswith(".safetensors"):
+        entry = get_model(args.model)
+        cfg = entry.config(len(vocab))
+        tree, _ = ckpt.load_pytree(args.model_path)
+    else:
+        entry, cfg, tree = load_pretrained(args.model, len(vocab), args.model_path)
+    cfg = _apply_kernel_flags(args, cfg)
     pdt = auto_dtype if args.param_dtype == "auto" else args.param_dtype
     target = torch.bfloat16 if pdt == "bf16" else torch.float32
     tree = trees.map_leaves(
         lambda t: t.to(device, target) if t.is_floating_point() else t.to(device), tree)
     return entry, cfg, tree, vocab
+
+
+def _rehead(tree, num_classes: int):
+    """The importers' convention for a checkpoint whose class count is not
+    ``num_classes``: a new, zero-initialized classifier. That is ``head`` for
+    a flat head and ``head/linear`` for a nested one (YOLO11, whose
+    ``head/conv`` is kept)."""
+    import torch
+
+    from ..utils import trees
+
+    path = "head" if "w" in tree["head"] else "head/linear"
+    w = trees.get_path(tree, path)["w"]
+    if w.shape[-1] == num_classes:
+        return tree
+    return trees.set_path(tree, path, {"w": torch.zeros(w.shape[0], num_classes, dtype=w.dtype),
+                                       "b": torch.zeros(num_classes, dtype=w.dtype)})
 
 
 def _eval_loader(meta, vocab, *, root_dir, sources=None, batch_size, image_size, resize=None,
@@ -154,28 +182,24 @@ def cmd_synth_data(args):
 def cmd_train(args):
     import torch
 
+    from ..models.pretrained import load_pretrained
     from ..models.registry import get_model
-    from ..ops.nn import dense_init
     from ..train import loop
     from ..utils import checkpoint as ckpt
     from ..utils import trees
 
     device = _device(args)
     vocab = _build_vocab(args)
-    entry = get_model(args.model)
-    cfg = entry.config(len(vocab))
     gen = torch.Generator().manual_seed(args.seed)
-    if args.checkpoint is None:
-        params = entry.init(cfg, gen)
-    else:
-        if not args.checkpoint.endswith(".safetensors"):
-            raise SystemExit("--checkpoint takes a .safetensors written by this package or the "
-                             "JAX package")
+    if args.checkpoint is not None and args.checkpoint.endswith(".safetensors"):
+        entry = get_model(args.model)
+        cfg = entry.config(len(vocab))
         params, _ = ckpt.load_pytree(args.checkpoint)
-        params = trees.map_leaves(lambda t: t.float() if t.is_floating_point() else t, params)
-        last = params["head"]["w"].shape[0]
-        if params["head"]["w"].shape[1] != len(vocab):  # a new classifier for these classes
-            params = {**params, "head": dense_init(gen, last, len(vocab))}
+        params = _rehead(trees.map_leaves(
+            lambda t: t.float() if t.is_floating_point() else t, params), len(vocab))
+    else:  # an HF directory, .bin or .pth through the importers; None: random init
+        entry, cfg, params = load_pretrained(args.model, len(vocab), args.checkpoint,
+                                             generator=gen)
     loaders = _loaders_for(args, vocab, ("train", "val", "test"), batch_size=args.batch_size,
                            image_size=cfg.image_size, resize=args.resize, shuffle_train=True)
     source = "_".join(args.sources) if args.sources else "all"
@@ -539,7 +563,11 @@ def _model_args(sp, auto_help: str) -> None:
     """Data, checkpoint and batch flags shared by the stages that load a model."""
     _common_data_args(sp)
     sp.add_argument("--model", default="google_vit")
-    sp.add_argument("--model_path", required=True, help="base checkpoint (.safetensors)")
+    sp.add_argument("--model_path", required=True,
+                    help="base checkpoint: a .safetensors param tree written by either package, "
+                         "or a local pretrained checkpoint (an HF model directory, "
+                         "pytorch_model.bin, the reference's .pth; HF, timm or ultralytics "
+                         "naming)")
     sp.add_argument("--batch_size", type=int, default=32)
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--param_dtype", default="auto", choices=("auto", "f32", "bf16"),
@@ -580,8 +608,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch_size", type=int, default=32)
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--checkpoint", default=None,
-                    help="weights to start from: a .safetensors written by this package or "
-                         "the JAX package (default: random init from --seed)")
+                    help="weights to start from: a .safetensors param tree written by either "
+                         "package, or a local pretrained checkpoint (an HF model directory, "
+                         "pytorch_model.bin, the reference's .pth; HF, timm or ultralytics "
+                         "naming). A .safetensors tree's classifier of another class count is "
+                         "replaced by a zero-initialized one (default: random init from --seed)")
     sp.add_argument("--output_dir", default="./train_out")
     sp.add_argument("--epochs", type=int, default=1)
     sp.add_argument("--learning_rate", type=float, default=1e-4)

@@ -1,4 +1,4 @@
-"""Model registry (the ViT, Swin and ConvNeXt families; the other backbones register later).
+"""Model registry: the five backbone families (ViT and DINOv1, Swin, ConvNeXt, YOLO11-cls).
 
 Counterpart of the JAX package's ``models/registry.py``. Each entry gives:
 
@@ -19,6 +19,7 @@ from typing import Callable
 from . import convnext as _convnext
 from . import swin as _swin
 from . import vit as _vit
+from . import yolo11 as _yolo11
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -48,6 +49,10 @@ def get_model(name: str) -> ModelEntry:
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)
 
 
 def create_model(name: str, num_classes: int, generator=None, *, device=None):
@@ -100,3 +105,5 @@ register(_entry("swin", "swin", _swin, _swin.SWIN_B))
 register(_entry("swin_test", "swin", _swin, _swin.SWIN_TEST))
 register(_entry("convnext", "convnext", _convnext, _convnext.CONVNEXT_B))
 register(_entry("convnext_test", "convnext", _convnext, _convnext.CONVNEXT_TEST))
+register(_entry("yolo11-cls", "yolo11", _yolo11, _yolo11.YOLO11N_CLS))
+register(_entry("yolo11_test", "yolo11", _yolo11, _yolo11.YOLO11_TEST))

@@ -293,6 +293,11 @@ def params_to_jax(model: ViT) -> dict[str, torch.Tensor]:
     return {p: v.detach().cpu() for p, v in out.items()}
 
 
+def features(cfg: ViTConfig, model: ViT, images: torch.Tensor) -> torch.Tensor:
+    """Final-LN token features (B, N+1, D) (the JAX ``vit.features`` signature)."""
+    return model.features(images)
+
+
 def apply(cfg: ViTConfig, model: ViT, images: torch.Tensor) -> torch.Tensor:
     """Forward pass to float32 logits (the JAX ``vit.apply`` signature)."""
     return model(images)

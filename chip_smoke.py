@@ -37,10 +37,26 @@ the hand-written kernels:
   its TMA-ring device code, forward and input-gradient roles) and the
   LayerNorm-fused MLP kernels
   (``csrc/ln_mlp.cu``, forward and backward);
-* the eval-compose stage for ``swin`` and ``convnext`` from memory: two
-  adapters with heads through the port's PEFT writer and reader, then the
+* the eval-compose stage for ``swin``, ``convnext`` and ``yolo11-cls`` from
+  memory: two adapters with heads (YOLO11's nested conv + linear head under
+  ``framework_head.*``) through the port's PEFT writer and reader, then the
   accuracy matrix over the clean batch and the FGSM/PGD batches, f32 params
-  and bf16 compute.
+  and bf16 compute;
+* ``yolo11-cls`` YOLO11n (no kernel of this repo: every launch count 0) with
+  a rank-8 LoRA merged into the C2PSA attention convs, in bf16, through
+  FGSM and PGD-10 at batch 64;
+* the pretrained-weight import through ``models.pretrained.load_pretrained``:
+  ViT-B/16 written by ``hf_from_vit_params`` as a torch ``.pth`` and as an
+  HF directory, a head-less DINO state dict, YOLO11-cls as an ultralytics
+  ``.pth`` (also into a 1000-class config), YOLO11-s weights into the
+  YOLO11-n config (which must raise);
+* training of the other families at batch 64, f32 parameters and bf16
+  compute, 5 steps each through ``train.loop.fit`` (TRAIN_RUNS): Swin-B
+  full fine-tune (fields off) and LoRA (rank 8 on qkv/proj, dropout 0.1,
+  ``use_fused_mlp``), ConvNeXt-B full fine-tune and LoRA (rank 8 on
+  pwconv1/pwconv2) with both kernel fields, YOLO11-cls full fine-tune and
+  LoRA on the C2PSA convs: the window kernel's bias-gradient recompute and
+  dwconv7's filter gradient run in training here.
 
 Phases, one line each (or a few):
 
@@ -97,7 +113,11 @@ Phases, one line each (or a few):
    writer/reader (byte-equal), then logits of the kernel path against the
    plain path (ViT, Swin: bf16 and f32, Swin's bias tables drawn at std 1.5)
    or against the flags-off library path (ConvNeXt: bf16, layer scale drawn
-   in 0.1-0.5 so that every block matters, biases at std 0.1);
+   in 0.1-0.5 so that every block matters, biases at std 0.1) or against the
+   f32 model (YOLO11-cls, BN statistics and affine redrawn); the merged
+   weights equal to base + s*A*B; then the weight import (trees bit for bit
+   the source's, bf16 logits equal, the head re-initialized for another class
+   count, a wrong scale refused);
 5. attack, per backbone: FGSM + PGD-10 from a uint8 batch; output range,
    eps-ball, loss increase, and the launch counts (reset just before the
    run, read just after) that prove the path ran the kernels: for Swin no
@@ -111,8 +131,15 @@ Phases, one line each (or a few):
    frozen leaf bitwise unchanged, the cross-entropy on the fixed batch
    falling, one step's loss and gradient norms against the fields-off model,
    the trained adapter through the PEFT writer/reader and merged into the
-   base against the unmerged model. Then eval-compose for ``swin`` and
-   ``convnext`` (launch counts read the same way): 4 variants x 3 datasets,
+   base against the unmerged model; the same for each of TRAIN_RUNS (exact
+   launches per step: Swin-B 24 + 24 window launches, and in the full
+   fine-tune 24 bias-gradient recomputes; with ``use_fused_mlp`` 24 + 24
+   fused MLP launches; ConvNeXt-B full fine-tune 36 of each dwconv7 role,
+   36 filter gradients and 36 + 36 + 36 LN-fused MLP launches and
+   parameter-gradient calls; ConvNeXt-B LoRA 36 + 35 dwconv7 launches, the
+   first block's input asking no gradient; YOLO11 none). Then eval-compose
+   for ``swin``, ``convnext`` and ``yolo11-cls`` (launch counts read the
+   same way): 4 variants x 3 datasets,
    base/clean accuracy equal to a direct argmax count, a merged variant's
    weights equal to base + sum s*A*B. The attack families (each run with a
    counting ``entry.apply``; the packed-attention counts must be 12 x its
@@ -148,8 +175,9 @@ Phases, one line each (or a few):
    entry points that only this script calls; so is dwconv7 (four stages,
    both roles) with the staged kernel it replaced and ``F.conv2d(groups=C)``,
    by CUDA-graph replay (device time: at stage 4 an eager call's host work
-   outlasts the kernel). ViT-B and Swin-B PGD are timed over 3
-   calls, ConvNeXt-B over 2 calls per variant and turn.
+   outlasts the kernel). ViT-B, Swin-B and YOLO11-cls PGD are timed over 3
+   calls, ConvNeXt-B over 2 calls per variant and turn; each of TRAIN_RUNS
+   over 3 steps after a warm-up.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -166,8 +194,10 @@ backbone, traces one warm PGD-10 call with ``torch.profiler`` and prints the
 device time by kernel group, one group per device function of this repo
 (ViT-B: fields off, then ``fuse_attn_block``; ConvNeXt: kernel fields on,
 then off);
+``--profile yolo11-cls`` one warm YOLO11-cls PGD-10 call;
 ``--profile train|train_lora`` traces one warm ViT-B training step, fields
-off and then on; ``--profile patch|square`` one warm call of 20 ViT-B
+off and then on; ``--profile train_swin|train_convnext`` one warm step of
+each of that backbone's TRAIN_RUNS; ``--profile patch|square`` one warm call of 20 ViT-B
 patch-training iterations (B=16) or 50 Square queries (B=64), with the
 top kernels by name. It prints no result lines.
 """
@@ -263,7 +293,14 @@ CONVNEXT_VARIANTS = (("both kernels", CONVNEXT_KERNELS), ("dwconv7 only", {"use_
 # in f32 its kernel fields do nothing)
 LOGIT_TOL = {"google_vit": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
              "swin": {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)},
-             "convnext": {"bfloat16": (5e-2, 5e-2)}}
+             "convnext": {"bfloat16": (5e-2, 5e-2)},
+             # YOLO11-cls has no kernel: bf16 compute against the f32 model (a CPU
+             # run of this phase's model at B=8 is 5.7e-3 apart, max |logit| 0.45)
+             "yolo11-cls": {"bfloat16": (2e-2, 2e-2)}}
+# phase 5 training of the other backbones: (model, "full" or "lora", kernel fields)
+TRAIN_RUNS = (("swin", "full", {}), ("swin", "lora", {"use_fused_mlp": True}),
+              ("convnext", "full", CONVNEXT_KERNELS), ("convnext", "lora", CONVNEXT_KERNELS),
+              ("yolo11-cls", "full", {}), ("yolo11-cls", "lora", {}))
 BATCH, PGD_STEPS, EPS, ALPHA, CLASSES = 64, 10, 8 / 255, 3 / 255, 21
 AA_N_ITER, AA_QUERIES = 100, 5000  # the CLI's autoattack defaults
 PROFILE_PATCH_ITERS, PROFILE_SQUARE_QUERIES = 20, 50
@@ -391,7 +428,8 @@ class Smoke:
                            ("common", "attacks.common"), ("whitebox", "attacks.whitebox"),
                            ("loader", "data.loader"), ("compose_mod", "eval.compose"),
                            ("patch_mod", "attacks.patch"), ("rp2_mod", "attacks.rp2"),
-                           ("aa", "attacks.autoattack")):
+                           ("aa", "attacks.autoattack"), ("hf_import", "models.hf_import"),
+                           ("pretrained", "models.pretrained"), ("yolo", "models.yolo11")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1051,6 +1089,11 @@ class Smoke:
                 tree[p] = 0.1 + 0.4 * torch.rand(tree[p].shape, generator=g_cpu)
             elif name == "convnext" and p.rsplit("/", 1)[-1] in ("b", "bias"):
                 tree[p] = torch.randn(tree[p].shape, generator=g_cpu) * 0.1
+            elif "/bn/" in p:
+                # YOLO11's BN statistics and affine: at the init every BN is the identity
+                tree[p] = (torch.randn(tree[p].shape, generator=g_cpu) * 0.1
+                           if p.endswith(("mean", "bias"))
+                           else 0.5 + torch.rand(tree[p].shape, generator=g_cpu))
         tree = trees.unflatten_from_paths(tree)
         lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg))
         adapter = lora.init(g_cpu, tree, lcfg)
@@ -1061,6 +1104,9 @@ class Smoke:
         check(not torch.equal(trees.get_path(merged, target)["w"],
                               trees.get_path(tree, target)["w"]),
               f"{name}: the LoRA merge left the weights unchanged")
+        check(all(torch.equal(trees.get_path(merged, p)["w"], trees.get_path(tree, p)["w"]
+                              + lcfg.scale * torch.matmul(adapter[p]["a"], adapter[p]["b"]))
+                  for p in lcfg.targets), f"{name}: merged weights are not base + s*A*B")
         bf16_tree = trees.map_leaves(lambda t: t.to(torch.bfloat16), merged)
         path = os.path.join(self.build_mod.build_dir(), f"chip_smoke_{name}_bf16.safetensors")
         ckpt.save_pytree(bf16_tree, path, meta={"model": name, "lora_rank": 8})
@@ -1090,6 +1136,10 @@ class Smoke:
                 if kernel_fields:
                     pcfg = dataclasses.replace(mcfg, **{f: False for f in kernel_fields})
                     want = entry.apply(pcfg, entry.from_tree(dev_tree, pcfg), normalize(x8))
+                elif module is None:  # no kernel: against the f32 model
+                    fcfg = dataclasses.replace(cfg, compute_dtype="float32")
+                    want = entry.apply(fcfg, entry.from_tree(trees.map_leaves(
+                        lambda t: t.to(self.dev), merged), fcfg), normalize(x8))
                 else:
                     with plain_path(module, attn_name, plain):
                         want = entry.apply(mcfg, m, normalize(x8))
@@ -1097,10 +1147,13 @@ class Smoke:
             logit_err[dtype_name] = close(got, want, la, lr, f"{name} logits {dtype_name}")
             del m
         blocks = sum(getattr(cfg, "depths", ())) or getattr(cfg, "depth", 0)
-        print(f"phase 4 model: {name} {blocks} blocks, rank-8 LoRA merged, bf16 checkpoint "
-              f"round trip byte-equal ({len(flat_a)} tensors), logits kernel vs "
-              f"{'library' if kernel_fields else 'plain'} max|err| "
-              + " ".join(f"{d} {e:.3e}" for d, e in logit_err.items()), flush=True)
+        size = (f"{blocks} blocks" if blocks else
+                f"{sum(t.numel() for t in flat_a.values())} parameters")
+        vs = ("kernel vs library" if kernel_fields else "kernel vs plain" if module is not None
+              else "vs the f32 model")
+        print(f"phase 4 model: {name} {size}, rank-8 LoRA merged (weights = base + s*A*B), "
+              f"bf16 checkpoint round trip byte-equal ({len(flat_a)} tensors), logits {vs} "
+              f"max|err| " + " ".join(f"{d} {e:.3e}" for d, e in logit_err.items()), flush=True)
         return entry, cfg, model, tree, normalize, model_tree
 
     # 5. attack
@@ -1164,7 +1217,9 @@ class Smoke:
         lora, trees, peft_io = self.lora, self.trees, self.peft_io
         g_cpu = torch.Generator().manual_seed(3)
         lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg))
-        last = base_tree["head"]["w"].shape[0]
+        # the classifier: the head itself, or YOLO11's head/linear beside its head/conv
+        lin = "head" if "w" in base_tree["head"] else "head/linear"
+        last = trees.get_path(base_tree, lin)["w"].shape[0]
         adapters = {}
         for attack in ("fgsm", "pgd"):
             ad = lora.init(g_cpu, base_tree, lcfg)
@@ -1172,14 +1227,17 @@ class Smoke:
                 fac["b"] = torch.randn(fac["b"].shape, generator=g_cpu) * 0.02
             head = {"w": torch.randn(last, CLASSES, generator=g_cpu) * last ** -0.5,
                     "b": torch.randn(CLASSES, generator=g_cpu) * 0.1}
+            if lin != "head":
+                head = {**base_tree["head"], "linear": head}
             out_dir = os.path.join(self.build_mod.build_dir(),
                                    f"chip_smoke_{name}_{attack}_adapter")
             peft_io.save_peft_adapter(ad, lcfg, out_dir, head=head)
             got, got_cfg, got_head = peft_io.load_peft_adapter(out_dir)
             check(set(got) == set(ad) and got_cfg.rank == 8 and got_cfg.alpha == 16.0,
                   f"{attack} adapter paths or config changed")
+            fh, fg = trees.flatten_with_paths(head), trees.flatten_with_paths(got_head)
             check(all(torch.equal(got[p][k], ad[p][k]) for p in ad for k in ("a", "b"))
-                  and all(torch.equal(got_head[k], head[k]) for k in head),
+                  and set(fg) == set(fh) and all(torch.equal(fg[k], fh[k]) for k in fh),
                   f"{attack} adapter round trip is not byte-equal")
             adapters[attack] = (got, got_cfg, got_head)
         Batch = self.loader.Batch
@@ -1217,7 +1275,7 @@ class Smoke:
         check(results["base"]["clean"]["accuracy"] == direct,
               f"base/clean accuracy {results['base']['clean']['accuracy']} != {direct}")
         ads_d = {k: ({p: {f: t.to(self.dev) for f, t in fac.items()} for p, fac in a.items()},
-                     c, {f: t.to(self.dev) for f, t in h.items()})
+                     c, trees.map_leaves(lambda t: t.to(self.dev), h))
                  for k, (a, c, h) in adapters.items()}
         merged = self.compose_mod.build_variant_params(base_d, ("fgsm", "pgd"), ads_d)
         for path in lcfg.targets:
@@ -1229,7 +1287,8 @@ class Smoke:
         for line in self.compose_mod.format_summary_table(results).splitlines():
             print(f"phase 5 compose: {line}")
         print(f"phase 5 compose: {name} 4 variants x 3 datasets (B={BATCH} each), f32 params "
-              f"bf16 compute, base/clean accuracy {direct:.4f} = direct argmax count, merged "
+              f"bf16 compute, heads {'nested (framework_head.*)' if lin != 'head' else 'flat'}, "
+              f"base/clean accuracy {direct:.4f} = direct argmax count, merged "
               f"fgsm+pgd weights = base + sum s*A*B on {len(lcfg.targets)} targets, "
               f"kernel launches {launches}, wall {wall:.3f} s", flush=True)
         return wall
@@ -1363,32 +1422,18 @@ class Smoke:
     def train_full(self, entry, tree, normalize) -> dict:
         """(a) full fine-tune, ``fuse_attn_block`` on, AdamW + StepLR, augmentation on."""
         import torch
-        import torch.nn.functional as F
 
         off = entry.config(CLASSES)
         cfg = dataclasses.replace(off, fuse_attn_block=True)
         dev_tree = self.trees.map_leaves(lambda t: t.to(self.dev), tree)
         batch = self.train_batch(cfg.image_size)
-        images, labels, _ = self.on_device(batch)
 
-        def loss_and_norms(c):
+        def make(c):
             model = entry.from_tree(dev_tree, c)
-            model.train()
-            logits = entry.apply(c, model, normalize(self.common.to_unit_floats(images)))
-            loss = F.cross_entropy(logits.float(), labels.long())
-            names, ps = zip(*model.named_parameters())
-            grads = torch.autograd.grad(loss, ps)
-            return float(loss.detach()), {n: float(g.float().norm()) for n, g in zip(names, grads)}
+            return model, [n for n, _ in model.named_parameters()]
 
-        loss_on, norms_on = loss_and_norms(cfg)
-        loss_off, norms_off = loss_and_norms(off)
-        check(abs(loss_on - loss_off) <= 5e-2 * abs(loss_off),
-              f"one step's loss with the fields on {loss_on} vs off {loss_off}")
-        top = max(norms_off.values())
-        # 5e-2 relative, plus 1e-3 of the largest norm: the key biases' gradient
-        # is zero in exact arithmetic and pure rounding noise in both models
-        worst = max(abs(norms_on[n] - b) / (b + 0.02 * top) for n, b in norms_off.items())
-        check(worst <= 5e-2, f"per-leaf gradient norms, fields on vs off: worst ratio {worst:.3e}")
+        vs_off = self.one_step_vs_off(entry, cfg, off, make, normalize, batch,
+                                      "google_vit full fine-tune")
 
         model, state = self.full_trainer(entry, cfg, dev_tree, TRAIN_STEPS)
         before = {n: p.detach().clone() for n, p in state.trainable.items()}
@@ -1412,9 +1457,7 @@ class Smoke:
         print(f"phase 5 train: google_vit full fine-tune, fuse_attn_block, AdamW + StepLR, "
               f"augmentation on, f32 params bf16 compute, B={BATCH}, {TRAIN_STEPS} steps through "
               f"fit: CE on the fixed batch {ce0:.4f} -> {ce1:.4f}; {len(before)} leaves all "
-              f"changed, gradients finite; one step fields on vs off: loss {loss_on:.4f} vs "
-              f"{loss_off:.4f}, gradient norms within {worst:.2e}; kernel launches {launches}",
-              flush=True)
+              f"changed, gradients finite; {vs_off}kernel launches {launches}", flush=True)
         return launches
 
     def train_lora(self, entry, tree, normalize) -> dict:
@@ -1423,7 +1466,7 @@ class Smoke:
         ``fuse_attn_block`` instead."""
         import torch
 
-        lora, trees, peft_io = self.lora, self.trees, self.peft_io
+        lora, trees = self.lora, self.trees
         off = entry.config(CLASSES)
         cfg = dataclasses.replace(off, use_fused_mlp=True)
         lcfg = lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg), dropout=0.1,
@@ -1453,26 +1496,9 @@ class Smoke:
         ce1 = self.fixed_ce(entry, cfg, model, normalize, batch)
         check(ce1 < ce0, f"LoRA training: CE on the fixed batch {ce0} -> {ce1}")
 
-        trained = snapshot()
-        out_dir = os.path.join(self.build_mod.build_dir(), "chip_smoke_vit_trained_adapter")
-        peft_io.save_peft_adapter(trained["adapter"], lcfg, out_dir, head=trained["head"])
-        got, got_cfg, got_head = peft_io.load_peft_adapter(out_dir)
-        check(set(got) == set(lcfg.targets) and got_cfg.rank == 8 and got_cfg.dropout == 0.1,
-              "trained adapter: paths or config changed")
-        check(all(torch.equal(got[p][k], trained["adapter"][p][k]) for p in got for k in "ab")
-              and all(torch.equal(got_head[k], trained["head"][k]) for k in ("w", "b")),
-              "trained adapter round trip is not byte-equal")
-        put = lambda t: t.to(self.dev)
-        merged = dict(lora.merge(dev_tree, {p: {k: put(v) for k, v in f.items()}
-                                            for p, f in got.items()}, got_cfg))
-        merged["head"] = {k: put(v) for k, v in got_head.items()}
-        merged_model = entry.from_tree(merged, off)
-        x8 = normalize(self.common.to_unit_floats(self.on_device(batch)[0][:8]))
-        with torch.no_grad():
-            la, lr = LOGIT_TOL["google_vit"]["bfloat16"]
-            e_m = close(entry.apply(off, merged_model, x8), entry.apply(cfg, model, x8), la, lr,
-                        "merged trained adapter vs the unmerged model")
-        del merged, merged_model, model, state, frozen
+        e_m = self.adapter_round_trip("google_vit", entry, cfg, off, model, dev_tree, snapshot(),
+                                      lcfg, batch, normalize)
+        del model, state, frozen
 
         cfg2 = dataclasses.replace(off, fuse_attn_block=True)
         model2, state2, snap2 = self.loop.lora_trainer(
@@ -1490,6 +1516,278 @@ class Smoke:
               f"max|err| {e_m:.3e}; kernel launches {launches}; one step with fuse_attn_block "
               f"instead: {l2}", flush=True)
         return launches
+
+    # 4/5. the zoo's other families: weight import, YOLO11-cls, training
+    def all_counters(self) -> dict:
+        """Every kernel counter of the package."""
+        ka, kw, kd = self.ka, self.kw, self.kd
+        return {**self.vit_counters(), "bhnd_fwd": (ka, "BHND_FWD_LAUNCHES"),
+                "bhnd_bwd": (ka, "BHND_BWD_LAUNCHES"), "win_fwd": (kw, "FWD_LAUNCHES"),
+                "win_bwd": (kw, "BWD_LAUNCHES"), "win_dbias": (kw, "DBIAS_CALLS"),
+                "dw_fwd": (kd, "FWD_LAUNCHES"), "dw_dx": (kd, "DX_LAUNCHES"),
+                "dw_dw": (kd, "DW_CALLS")}
+
+    def imports(self, vit_tree, yolo_tree) -> None:
+        """Pretrained-weight import through ``models.pretrained.load_pretrained``:
+        ViT-B/16 as an HF state dict in a torch ``.pth`` and in an HF directory
+        (``model.safetensors`` by the port's writer), a head-less DINO state
+        dict, YOLO11-cls as an ultralytics ``.pth`` (also into 1000 classes),
+        and YOLO11-s weights into the YOLO11-n config, which must raise."""
+        import shutil
+
+        import numpy as np
+        import torch
+
+        hf, pre, trees = self.hf_import, self.pretrained, self.trees
+        out = os.path.join(self.build_mod.build_dir(), "chip_smoke_import")
+        os.makedirs(out, exist_ok=True)
+        t0 = time.perf_counter()
+
+        def logits(name, tree):
+            """bf16 logits of the model built from ``tree`` on 8 seeded images."""
+            entry = self.registry.get_model(name)
+            cfg = entry.config(CLASSES)
+            model = entry.from_tree(trees.map_leaves(lambda t: t.to(self.dev), tree), cfg)
+            normalize = self.common.Normalizer(*self.registry.get_normalization(name))
+            x8 = torch.from_numpy(np.random.default_rng(0).random(
+                (8, cfg.image_size, cfg.image_size, 3), dtype=np.float32)).to(self.dev)
+            with torch.no_grad():
+                return entry.apply(cfg, model, normalize(x8))
+
+        def same(got, want, what):
+            g, w = trees.flatten_with_paths(got), trees.flatten_with_paths(want)
+            check(set(g) == set(w), f"{what}: paths {sorted(set(g) ^ set(w))[:4]}")
+            check(all(g[p].dtype == torch.float32 and torch.equal(g[p].cpu(), w[p].cpu())
+                      for p in w), f"{what}: the imported tree is not the source's bit for bit")
+            return len(w)
+
+        def drop(tree, prefix):
+            """The tree's leaves but those under ``prefix``, flat."""
+            return {p: v for p, v in trees.flatten_with_paths(tree).items()
+                    if not p.startswith(prefix + "/")}
+
+        vit_cfg = self.registry.get_model("google_vit").config(CLASSES)
+        sd = hf.hf_from_vit_params(vit_tree, vit_cfg)
+        pth = os.path.join(out, "google_vit_best_model_finetuned.pth")
+        torch.save(sd, pth)
+        hf_dir = os.path.join(out, "vit-base-patch16-224")
+        self.checkpoint.save_tensors(sd, os.path.join(hf_dir, "model.safetensors"))
+        want = logits("google_vit", vit_tree)
+        for form, path in ((".pth", pth), ("HF directory", hf_dir)):
+            _, _, tree = pre.load_pretrained("google_vit", CLASSES, path, device=self.dev)
+            n_vit = same(tree, vit_tree, f"google_vit {form}")
+            check(torch.equal(logits("google_vit", tree), want),
+                  f"google_vit {form}: bf16 logits differ from the source's")
+        mb = os.path.getsize(pth) / 2 ** 20
+
+        dino = os.path.join(out, "dino_vitb16.pth")
+        torch.save({k[len("vit."):]: v for k, v in sd.items() if k.startswith("vit.")}, dino)
+        _, _, dtree = pre.load_pretrained("dinov1", CLASSES, dino)
+        same(drop(dtree, "head"), drop(vit_tree, "head"), "dinov1")
+        check(not dtree["head"]["w"].any() and not dtree["head"]["b"].any(), "dinov1: head not zero")
+        check(not logits("dinov1", dtree).any(), "dinov1: logits of the zero head are not zero")
+
+        ycfg = self.registry.get_model("yolo11-cls").config(CLASSES)
+        ypth = os.path.join(out, "yolo11n-cls.pth")
+        torch.save(hf.ultralytics_from_yolo11_params(yolo_tree, ycfg), ypth)
+        _, _, ytree = pre.load_pretrained("yolo11-cls", CLASSES, ypth)
+        n_yolo = same(ytree, yolo_tree, "yolo11-cls .pth")
+        check(torch.equal(logits("yolo11-cls", ytree), logits("yolo11-cls", yolo_tree)),
+              "yolo11-cls: bf16 logits differ from the source's")
+        _, _, y1k = pre.load_pretrained("yolo11-cls", 1000, ypth)
+        lin = y1k["head"]["linear"]
+        check(tuple(lin["w"].shape) == (ycfg.head_width, 1000) and not lin["w"].any()
+              and not lin["b"].any(), "yolo11-cls into 1000 classes: head/linear not zeroed")
+        same(drop(y1k, "head/linear"), drop(yolo_tree, "head/linear"), "yolo11-cls into 1000 classes")
+        s_cfg = self.yolo.YOLO11S_CLS.with_classes(CLASSES)
+        spth = os.path.join(out, "yolo11s-cls.pth")
+        torch.save(hf.ultralytics_from_yolo11_params(
+            self.yolo.init(s_cfg, torch.Generator().manual_seed(5)), s_cfg), spth)
+        try:
+            pre.load_pretrained("yolo11-cls", CLASSES, spth)
+        except ValueError as e:
+            scale_err = str(e)
+        else:
+            raise RuntimeError("check failed: YOLO11-s weights loaded into the YOLO11-n config")
+        shutil.rmtree(out)
+        print(f"phase 4 import: google_vit as an HF state dict in a torch .pth ({mb:.1f} MiB) and "
+              f"in an HF directory (model.safetensors) through load_pretrained: {n_vit} tensors "
+              f"bit for bit the source's, bf16 logits equal; dinov1 head-less state dict: backbone "
+              f"bit for bit, zero head, zero logits; yolo11-cls ultralytics .pth: {n_yolo} tensors "
+              f"bit for bit, bf16 logits equal; into 1000 classes: head/linear zeroed, every other "
+              f"leaf equal; YOLO11-s weights into YOLO11-n: ValueError ({scale_err[:80]}); "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def one_step_vs_off(self, entry, cfg, off, make, normalize, batch, what: str) -> str:
+        """One step's loss and the trainable leaves' gradient norms with the
+        kernel fields of ``cfg`` on against ``off`` (eval mode: no dropout), at
+        the ViT-B full fine-tune's limits. ``make(cfg) -> (model, names)``."""
+        import torch
+        import torch.nn.functional as F
+
+        images, labels, _ = self.on_device(batch)
+
+        def loss_and_norms(c):
+            model, names = make(c)
+            model.eval()
+            loss = F.cross_entropy(entry.apply(c, model, normalize(
+                self.common.to_unit_floats(images))).float(), labels.long())
+            named = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, [named[n] for n in names])
+            return float(loss.detach()), {n: float(g.float().norm()) for n, g in zip(names, grads)}
+
+        (loss_on, norms_on), l_on = self.counted(self.all_counters(), lambda: loss_and_norms(cfg))
+        (loss_off, norms_off), l_off = self.counted(self.all_counters(), lambda: loss_and_norms(off))
+        check(l_on != l_off, f"{what}: the fields launched no other kernel ({l_on})")
+        check(abs(loss_on - loss_off) <= 5e-2 * abs(loss_off),
+              f"{what}: one step's loss with the fields on {loss_on} vs off {loss_off}")
+        top = max(norms_off.values())
+        # 5e-2 relative, plus 1e-3 of the largest norm: a key bias's gradient is
+        # zero in exact arithmetic and pure rounding noise in both models
+        worst = max(abs(norms_on[n] - b) / (b + 0.02 * top) for n, b in norms_off.items())
+        check(worst <= 5e-2, f"{what}: gradient norms, fields on vs off: worst ratio {worst:.3e}")
+        moved = {k: (l_on[k], l_off[k]) for k in l_on if l_on[k] != l_off[k]}
+        return (f"one step fields on vs off: launches (on, off) {moved}, loss {loss_on:.4f} vs "
+                f"{loss_off:.4f}, gradient norms within {worst:.2e}; ")
+
+    def backbone_trainer(self, entry, cfg, dev_tree, kind: str):
+        """(model, state, snapshot) as ``train_base_model`` (kind "full": AdamW +
+        StepLR) or ``train_lora_adapter`` (kind "lora": rank 8 on the entry's
+        targets, dropout 0.1, head trainable, Adam) build them."""
+        if kind == "full":
+            model, state = self.full_trainer(entry, cfg, dev_tree, TRAIN_STEPS)
+            return model, state, lambda: None
+        return self.loop.lora_trainer(entry, cfg, dev_tree, self.backbone_lora(entry, cfg),
+                                      lr=1e-4, train_head=True, seed=0, device=self.dev)
+
+    def backbone_lora(self, entry, cfg):
+        """The LoRA of a phase 5 run: rank 8, alpha 16, dropout 0.1 on the entry's targets."""
+        return self.lora.LoRAConfig(rank=8, alpha=16.0, targets=entry.lora_targets(cfg),
+                                    dropout=0.1)
+
+    def train_backbone(self, name: str, kind: str, fields: dict, tree, normalize,
+                       per_step: dict) -> dict:
+        """Phase 5 training of ``name`` (Swin-B, ConvNeXt-B, YOLO11-cls): a
+        full fine-tune (augmentation on) or a LoRA run, with ``fields`` on,
+        TRAIN_STEPS steps through ``fit``; ``per_step``: the launch count of
+        every counter per step."""
+        import torch
+
+        trees = self.trees
+        entry = self.registry.get_model(name)
+        off = entry.config(CLASSES)
+        cfg = dataclasses.replace(off, **fields)
+        dev_tree = trees.map_leaves(lambda t: t.to(self.dev), tree)
+        batch = self.train_batch(cfg.image_size)
+        what = f"{name} {kind}" + (f" {'+'.join(fields)}" if fields else "")
+        vs_off = ""
+        if fields:
+            def make(c):
+                model, state, _ = self.backbone_trainer(entry, c, dev_tree, kind)
+                return model, list(state.trainable)
+
+            vs_off = self.one_step_vs_off(entry, cfg, off, make, normalize, batch, what)
+            torch.cuda.empty_cache()
+        model, state, snapshot = self.backbone_trainer(entry, cfg, dev_tree, kind)
+        before = {n: p.detach().clone() for n, p in state.trainable.items()}
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if n not in state.trainable}
+        check(not any(p.requires_grad for n, p in model.named_parameters() if n in frozen),
+              f"{what}: a frozen parameter asks a gradient")
+        ce0 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        _, launches = self.counted(self.all_counters(), lambda: self.fit_steps(
+            entry, cfg, model, state, normalize, batch, TRAIN_STEPS, augment=kind == "full",
+            snapshot=snapshot))
+        want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+        check(launches == want, f"{what}: kernel counts {launches} (want {want})")
+        check(state.step == TRAIN_STEPS, f"{what}: update count {state.step}")
+        for n, p_ in state.trainable.items():
+            check(p_.dtype == torch.float32 and p_.grad is not None
+                  and bool(torch.isfinite(p_.grad).all()), f"{what}: gradient of {n}")
+            check(not torch.equal(before[n], p_), f"{what}: trainable leaf {n} did not change")
+        named = dict(model.named_parameters())
+        check(all(torch.equal(t, named[n]) for n, t in frozen.items()),
+              f"{what}: training changed a frozen leaf")
+        ce1 = self.fixed_ce(entry, cfg, model, normalize, batch)
+        check(ce1 < ce0, f"{what}: CE on the fixed batch {ce0} -> {ce1}")
+        adapter = ""
+        if kind == "lora":
+            trained = snapshot()
+            e_m = self.adapter_round_trip(name, entry, cfg, off, model, dev_tree, trained,
+                                          self.backbone_lora(entry, cfg), batch, normalize)
+            nested = "w" not in trained["head"]
+            adapter = (f"adapter + {'nested head (framework_head.*)' if nested else 'head'} "
+                       f"through the PEFT writer/reader byte-equal, merged into the base vs the "
+                       f"unmerged model max|err| {e_m:.3e}; ")
+        print(f"phase 5 train: {what}, f32 params bf16 compute, B={BATCH}, {TRAIN_STEPS} steps "
+              f"through fit ({'AdamW + StepLR, augmentation on' if kind == 'full' else 'rank 8, '
+              'dropout 0.1, head trainable, Adam'}): CE on the fixed batch {ce0:.4f} -> "
+              f"{ce1:.4f}; {len(before)} trainable leaves all changed, gradients finite, "
+              f"{len(frozen)} frozen leaves bitwise unchanged; {vs_off}{adapter}kernel launches "
+              f"{ {k: v for k, v in launches.items() if v} or 'none'}", flush=True)
+        del model, state, frozen, before
+        torch.cuda.empty_cache()
+        return launches
+
+    def train_step_call(self, name: str, kind: str, fields: dict, tree, normalize):
+        """One training step of a phase 5 run on a model and state of its own."""
+        import torch
+
+        entry = self.registry.get_model(name)
+        cfg = dataclasses.replace(entry.config(CLASSES), **fields)
+        dev_tree = self.trees.map_leaves(lambda t: t.to(self.dev), tree)
+        images, labels, valid = self.on_device(self.train_batch(cfg.image_size))
+        model, state, _ = self.backbone_trainer(entry, cfg, dev_tree, kind)
+        gen = torch.Generator(self.dev).manual_seed(17)
+        step = self.steps.make_train_step(
+            lambda m, x: entry.apply(cfg, m, x), model, normalize=normalize,
+            generator=gen if kind == "full" else None,
+            augment=self.augment.train_augment if kind == "full" else None)
+        model.train()
+        return lambda: step(state, images, labels, valid)
+
+    def time_backbone_training(self, trees_by_name: dict, norms: dict) -> None:
+        """ms per step of each phase 5 run: 3 steps after a warm-up, CUDA events."""
+        import torch
+
+        for name, kind, fields in TRAIN_RUNS:
+            call = self.train_step_call(name, kind, fields, trees_by_name[name], norms[name])
+            ms = cuda_ms(call, 3)
+            print(f"phase 6 training {name} {kind}"
+                  + (f" {'+'.join(fields)}" if fields else " fields off")
+                  + f", f32 params bf16 compute B={BATCH}: {ms:.2f} ms/step, "
+                  f"{BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
+            del call
+            torch.cuda.empty_cache()
+
+    def adapter_round_trip(self, name, entry, cfg, off, model, dev_tree, trained, lcfg, batch,
+                           normalize) -> float:
+        """The trained adapter and head (``trained``, a LoRA trainer's snapshot)
+        through the PEFT writer and reader, byte-equal; merged into the base and
+        built with the fields off (``off``) against the unmerged ``model``, at
+        the backbone's bf16 logit limit. Returns that max |err|."""
+        import torch
+
+        trees = self.trees
+        out_dir = os.path.join(self.build_mod.build_dir(), f"chip_smoke_{name}_trained_adapter")
+        self.peft_io.save_peft_adapter(trained["adapter"], lcfg, out_dir, head=trained["head"])
+        got, got_cfg, got_head = self.peft_io.load_peft_adapter(out_dir)
+        check(set(got) == set(lcfg.targets) and got_cfg.rank == 8 and got_cfg.dropout == 0.1,
+              f"{name} trained adapter: paths or config changed")
+        fh, fg = trees.flatten_with_paths(trained["head"]), trees.flatten_with_paths(got_head)
+        check(all(torch.equal(got[p][k], trained["adapter"][p][k]) for p in got for k in "ab")
+              and set(fg) == set(fh) and all(torch.equal(fg[k], fh[k]) for k in fh),
+              f"{name} trained adapter round trip is not byte-equal")
+        put = lambda t: t.to(self.dev)  # noqa: E731
+        merged = dict(self.lora.merge(dev_tree, {p: {k: put(v) for k, v in f.items()}
+                                                 for p, f in got.items()}, got_cfg))
+        merged["head"] = trees.map_leaves(put, got_head)
+        x8 = normalize(self.common.to_unit_floats(self.on_device(batch)[0][:8]))
+        with torch.no_grad():
+            la, lr = LOGIT_TOL[name]["bfloat16"]
+            return close(entry.apply(off, entry.from_tree(merged, off), x8),
+                         entry.apply(cfg, model, x8), la, lr,
+                         f"{name}: merged trained adapter vs the unmerged model")
 
     def attention_auto_entry(self) -> dict:
         """The head-major kernel through its entry point, forward and backward."""
@@ -2213,6 +2511,19 @@ class Smoke:
                 what = f"{PROFILE_SQUARE_QUERIES} Square queries B={BATCH}"
             calls = {"google_vit": lambda: run(model, x, y,
                                                torch.Generator(self.dev).manual_seed(0))}
+        elif name in ("train_swin", "train_convnext"):
+            family = name[len("train_"):]
+            entry, cfg, _, tree, normalize, _ = (
+                self.model(family, self.swin, "window_attention",
+                           self.kw.window_attention_reference) if family == "swin"
+                else self.model(family, kernel_fields=CONVNEXT_KERNELS))
+            calls = {f"{kind}" + (f" {'+'.join(fields)}" if fields else " fields off"):
+                     self.train_step_call(family, kind, fields, tree, normalize)
+                     for fam, kind, fields in TRAIN_RUNS if fam == family}
+            what = f"one training step B={BATCH} f32 params bf16 compute"
+        elif name == "yolo11-cls":
+            entry, cfg, model, _, normalize, _ = self.model(name)
+            runs = {"no kernel of this repo": (cfg, model)}
         elif name == "convnext":
             entry, cfg, _, _, normalize, model_tree = self.model(name, kernel_fields=CONVNEXT_KERNELS)
             runs = {label: v for label, v in self.convnext_variants(entry, cfg, model_tree).items()
@@ -2226,7 +2537,7 @@ class Smoke:
             if name == "google_vit":
                 bcfg = dataclasses.replace(cfg, fuse_attn_block=True)
                 runs["fuse_attn_block"] = (bcfg, entry.from_tree(model_tree, bcfg))
-        if name not in ("train", "train_lora", "patch", "square"):
+        if name not in ("train", "train_lora", "train_swin", "train_convnext", "patch", "square"):
             rng = np.random.default_rng(1)
             x = torch.from_numpy(rng.integers(0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
                                               dtype=np.uint8)).to(self.dev)
@@ -2295,7 +2606,7 @@ class Smoke:
                 if calls:
                     print(f"profile {name} ({label}):   {group:40s} {ms:9.2f} ms "
                           f"{ms / total:6.1%}  {calls} calls", flush=True)
-            if name in ("patch", "square"):  # no kernel of this repo besides attention
+            if name in ("patch", "square", "yolo11-cls"):  # few or no kernels of this repo
                 for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
                     print(f"profile {name} ({label}):     top kernel {ms:9.2f} ms  {kernel[:120]}",
                           flush=True)
@@ -2307,12 +2618,14 @@ def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "train", "train_lora",
-                                          "patch", "square"),
+    ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "yolo11-cls", "train",
+                                          "train_lora", "train_swin", "train_convnext", "patch",
+                                          "square"),
                     default=None,
                     help="trace one warm PGD-10 call of this backbone (or one warm ViT-B training "
-                         "step, fields off and on; or ViT-B patch training or Square queries) "
-                         "instead of the smoke run")
+                         "step, fields off and on; or one warm step of each Swin-B or ConvNeXt-B "
+                         "training run; or ViT-B patch training or Square queries) instead of the "
+                         "smoke run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2365,7 +2678,7 @@ def main(argv=None) -> None:
                                adv_p, win_counters, {"fwd": blocks, "bwd": 0, "dbias": 0})
     swin_fused = s.swin_fused_mlp(swin_entry, swin_cfg, swin_model_tree, swin_norm, swin_model,
                                   win_counters)
-    del swin_tree, swin_model_tree, adv_f, adv_p
+    del swin_model_tree, adv_f, adv_p
 
     cnx_entry, cnx_cfg, cnx_model, cnx_tree, cnx_norm, cnx_model_tree = s.model(
         "convnext", kernel_fields=CONVNEXT_KERNELS)
@@ -2382,7 +2695,36 @@ def main(argv=None) -> None:
         "convnext", cnx_entry, cnx_cfg, cnx_tree, cnx_x, cnx_y, adv_f, adv_p, cnx_counters,
         {"dw_fwd": blocks, "dw_dx": 0, "dw_dw": 0, "mlp_fwd": blocks, "mlp_bwd": 0,
          "mlp_param_grads": 0})
-    del cnx_tree, cnx_model, adv_f, adv_p
+    del cnx_model, adv_f, adv_p
+
+    # the fifth family, YOLO11-cls (no kernel of this repo: every count 0), the
+    # pretrained-weight import, and training of Swin-B, ConvNeXt-B and YOLO11-cls
+    zero = {k: 0 for k in s.all_counters()}
+    (yolo_entry, yolo_cfg, yolo_model, yolo_tree, yolo_norm, _), yolo_l = s.counted(
+        s.all_counters(), lambda: s.model("yolo11-cls"))
+    check(yolo_l == zero, f"yolo11-cls model phase kernel counts {yolo_l}")
+    s.imports(vit_tree, yolo_tree)
+    _, yolo_pgd, yolo_x, yolo_y, adv_f, adv_p = s.attack(
+        "yolo11-cls", yolo_entry, yolo_cfg, yolo_model, yolo_norm, s.all_counters(), zero)
+    yolo_compose_s = s.compose("yolo11-cls", yolo_entry, yolo_cfg, yolo_tree, yolo_x, yolo_y,
+                               adv_f, adv_p, s.all_counters(), zero)
+    del adv_f, adv_p
+    train_trees = {"swin": swin_tree, "convnext": cnx_tree, "yolo11-cls": yolo_tree}
+    train_norms = {"swin": swin_norm, "convnext": cnx_norm, "yolo11-cls": yolo_norm}
+    sw, cx = sum(swin_cfg.depths), sum(cnx_cfg.depths)
+    # launches per step: the relative-position bias is trained in a full fine-tune
+    # (its gradient recomputed) and frozen in LoRA; with factors on pwconv1/2 the
+    # LN-fused MLP does not apply, and the first ConvNeXt block's input (the
+    # frozen stem's output) asks no gradient; YOLO11 runs no kernel
+    per_step = {("swin", "full"): {"win_fwd": sw, "win_bwd": sw, "win_dbias": sw},
+                ("swin", "lora"): {"win_fwd": sw, "win_bwd": sw, "mlp_fwd": sw, "mlp_bwd": sw},
+                ("convnext", "full"): {"dw_fwd": cx, "dw_dx": cx, "dw_dw": cx, "ln_mlp_fwd": cx,
+                                       "ln_mlp_bwd": cx, "ln_mlp_param_grads": cx},
+                ("convnext", "lora"): {"dw_fwd": cx, "dw_dx": cx - 1},
+                ("yolo11-cls", "full"): {}, ("yolo11-cls", "lora"): {}}
+    for name, kind, fields in TRAIN_RUNS:
+        s.train_backbone(name, kind, fields, train_trees[name], train_norms[name],
+                         per_step[(name, kind)])
 
     # 6. timing on the card
     for name, pgd, model, x, y in (("google_vit", vit_pgd, vit_model, vit_x, vit_y),
@@ -2399,13 +2741,20 @@ def main(argv=None) -> None:
     s.time_families(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own, patch_ms, aa_out)
     s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
     s.time_training(vit_entry, vit_tree, vit_norm)
+    pgd_ms = cuda_ms(lambda: yolo_pgd(yolo_model, yolo_x, yolo_y,
+                                      torch.Generator(s.dev).manual_seed(2)), 3)
+    print(f"phase 6 PGD-{PGD_STEPS} yolo11-cls+LoRA bf16 B={BATCH}: {pgd_ms:.2f} ms/batch, "
+          f"{BATCH * 1000 / pgd_ms:.2f} images/s {s.card} (host-bound: see --profile yolo11-cls)",
+          flush=True)
+    s.time_backbone_training(train_trees, train_norms)
     # launches: the full fine-tune's for attn_block (its parameter gradients
     # too), the LoRA run's for the fused MLP, the entry point's for the
     # head-major kernel; the attack paths' counts are in the phase 5 lines
     kernels = (s.time_attention(vit_l) + s.time_window(swin_l) + s.time_dwconv(cnx_l)
                + s.time_mlp(cnx_l) + s.time_fused_mlp(lora_l) + s.time_attn_block(full_l)
                + s.time_bhnd(bhnd_l))
-    for name, wall in (("swin", swin_compose_s), ("convnext", cnx_compose_s)):
+    for name, wall in (("swin", swin_compose_s), ("convnext", cnx_compose_s),
+                       ("yolo11-cls", yolo_compose_s)):
         print(f"phase 6 eval-compose {name} 4x3 matrix (B={BATCH} per dataset): wall "
               f"{wall:.3f} s {s.card}", flush=True)
 

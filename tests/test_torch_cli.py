@@ -32,6 +32,7 @@ from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tp
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import lora as jlora
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import peft_io as jpeft
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import checkpoint as jck
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import native as jnative
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import trees as jtrees
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils.vocab import LabelVocabulary
 
@@ -58,16 +59,9 @@ def runs(tmp_path_factory):
     port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
     assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
                   "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
-    saved = os.environ.get("APVT_NATIVE")
-    os.environ["APVT_NATIVE"] = "0"
-    try:
+    with _jax_pil_decode():
         assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
                       "--attacks", "fgsm"]) == 0
-    finally:
-        if saved is None:
-            del os.environ["APVT_NATIVE"]
-        else:
-            os.environ["APVT_NATIVE"] = saved
     return {"data": data, "port": port_out, "jax": jax_out, "ck": ck, "params": params}
 
 
@@ -158,24 +152,26 @@ def test_create_adv_metadata_matches_jax():
         tio.create_adv_metadata(clean, written, "/adv", originals=origs[:2])
 
 
-def test_attack_refuses_non_safetensors(tmp_path):
-    with pytest.raises(SystemExit, match="safetensors"):
-        tmain(["--device", "cpu", "attack", "--data_root", str(tmp_path), "--model",
+def test_attack_refuses_non_safetensors(runs, tmp_path):
+    """A checkpoint other than a .safetensors tree goes through the importers
+    (an HF directory, .bin, the reference's .pth): a missing one is named."""
+    with pytest.raises(FileNotFoundError, match="m.pth"):
+        tmain(["--device", "cpu", "attack", "--data_root", runs["data"], "--model",
                "vit_test", "--model_path", str(tmp_path / "m.pth")])
 
 
 @contextlib.contextmanager
 def _jax_pil_decode():
-    """Pin the JAX loader to its PIL decode backend, as the port decodes."""
-    saved = os.environ.get("APVT_NATIVE")
-    os.environ["APVT_NATIVE"] = "0"
+    """Pin the JAX loader to its PIL decode backend, as the port decodes (a
+    native library an earlier test of this worker loaded stays cached, so
+    the switch alone is not enough)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("APVT_NATIVE", "0")
+    mp.setattr(jnative, "_LIB", None)
     try:
         yield
     finally:
-        if saved is None:
-            del os.environ["APVT_NATIVE"]
-        else:
-            os.environ["APVT_NATIVE"] = saved
+        mp.undo()
 
 
 def _jax_checkpoint(root, data, model, init):
@@ -381,7 +377,8 @@ def test_pipeline_runs_in_the_port_alone(pipeline, runs):
     start, _ = jck.load_pytree(runs["ck"])
     trained, _ = jck.load_pytree(pipeline["ck"])
     assert not np.array_equal(np.asarray(start["head"]["w"]), np.asarray(trained["head"]["w"]))
-    with pytest.raises(SystemExit, match="safetensors"):
+    # any other checkpoint goes through the importers: a missing one is named
+    with pytest.raises(FileNotFoundError, match="weights.pth"):
         tmain(["--device", "cpu", "train", "--data_root", runs["data"], "--model", "vit_test",
                "--checkpoint", "weights.pth"])
 

@@ -12,7 +12,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
 JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
-# the Swin / eval-compose, ConvNeXt, training and attack slices; the walk
+# the Swin / eval-compose, ConvNeXt, training, attack and model-zoo slices; the walk
 # below must import each of them
 NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.metrics",
                "train.steps", "train.loop", "eval.compose",
@@ -21,7 +21,9 @@ NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.
                "kernels.attn_block", "data.augment", "train.optim", "utils.observability",
                # the attack families
                "attacks.corruptions", "attacks.patch", "attacks.rp2", "attacks.autoattack",
-               "attacks.autoattack.apgd", "attacks.autoattack.fab", "attacks.autoattack.square")
+               "attacks.autoattack.apgd", "attacks.autoattack.fab", "attacks.autoattack.square",
+               # the five-backbone zoo and the weight import
+               "models.yolo11", "models.hf_import", "models.pretrained")
 
 
 def _sources():
