@@ -5,6 +5,8 @@ directory contract: for each model x source x split, each attack writes
 ``{adv_root}/{model}/{source}/{split}/{attack}/images/*.png`` and
 ``metadata.csv``, rows paired through the loader's own sample index.
 Batches go to the device as uint8; the attack converts them to [0,1] there.
+The PNGs go through ``data.io.save_images`` (the native encoder), the
+metadata through ``data.io.Table``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
-import pandas as pd
 import torch
 
 from ..data import io as data_io
@@ -29,10 +30,10 @@ def generate_adversarial_split(
     loader: Loader,
     *,
     out_dir: str,
-    clean_metadata: pd.DataFrame,
+    clean_metadata: data_io.Table,
     device: torch.device | str,
     seed: int = 0,
-) -> pd.DataFrame:
+) -> data_io.Table:
     """Run ``attack_fn(params, images, labels, generator) -> adv`` over a split
     on ``device`` (where ``params`` live; the caller must name it).
 
@@ -87,8 +88,8 @@ def generate_adversarial_split(
     frame = getattr(getattr(loader, "index", None), "frame", None)
     if frame is not None and len(all_ids) == len(all_names):
         order = np.argsort(np.asarray(all_ids), kind="stable")
-        adv_meta = frame.iloc[[all_ids[i] for i in order]].copy()
-        adv_meta["image_path"] = [os.path.join(img_dir, all_names[i]) for i in order]
+        adv_meta = frame.take(all_ids[i] for i in order).with_column(
+            "image_path", [os.path.join(img_dir, all_names[i]) for i in order])
     else:  # a loader without an index frame: basename matching
         adv_meta = data_io.create_adv_metadata(
             clean_metadata, all_names, img_dir, originals=all_origs)

@@ -120,9 +120,9 @@ def train_rp2_patches(
 def save_class_patches(patches: Mapping[int, np.ndarray], out_dir: str,
                        *, cfg: Optional[PatchConfig] = None,
                        class_names: Optional[Mapping[int, str]] = None) -> None:
-    """Per-class patch PNGs ``rp2_patch_<class>.png``, with the circular mask
-    applied so the file is the physical sticker."""
-    from PIL import Image
+    """Per-class patch PNGs ``rp2_patch_<class>.png`` (the native encoder),
+    with the circular mask applied so the file is the physical sticker."""
+    from ..utils import native
 
     os.makedirs(out_dir, exist_ok=True)
     for c, patch in patches.items():
@@ -131,4 +131,5 @@ def save_class_patches(patches: Mapping[int, np.ndarray], out_dir: str,
             img = patch * patch_mask(cfg).numpy()[..., None]
         name = (class_names or {}).get(c, f"class_{c}")
         arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-        Image.fromarray(arr).save(os.path.join(out_dir, f"rp2_patch_{name}.png"))
+        with open(os.path.join(out_dir, f"rp2_patch_{name}.png"), "wb") as f:
+            f.write(native.encode_png_rgb(arr))

@@ -1,1 +1,2 @@
-"""Host-side data pipeline (numpy, pandas and PIL; no device code)."""
+"""Host-side data pipeline (numpy, the standard library and the native image
+library; no device code)."""

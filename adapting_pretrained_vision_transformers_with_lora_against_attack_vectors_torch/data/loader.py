@@ -1,7 +1,7 @@
 """Metadata-driven dataset index + prefetching batch loader.
 
-Counterpart of the JAX package's ``data/loader.py`` with its PIL decode
-backend (bit-exact with the torchvision eval pipeline):
+Counterpart of the JAX package's ``data/loader.py`` with its default decode
+backend, the native C++ library:
 
 * :class:`MetadataIndex` resolves image paths (absolute, metadata-relative,
   root-relative) and encodes labels through the immutable
@@ -14,26 +14,28 @@ backend (bit-exact with the torchvision eval pipeline):
 * :class:`CachedLoader` decodes an unshuffled loader once and replays its
   batches from host memory, for consumers that sweep a split many times.
 
-pandas and PIL are imported where an index is built or an image decoded,
-so code that only consumes batches (the eval stage fed from memory) runs
-without them.
+A PNG is decoded, resized and center-cropped in one call of
+``utils.native`` (the pixels of the JAX loader's default path). A file the
+native decoder refuses (not a PNG; a 16-bit, interlaced or sub-byte palette
+PNG) is decoded by PIL, where PIL is installed, and resized natively, as the
+JAX loader does; without PIL it raises, naming the file.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..utils import native
 from ..utils.vocab import LabelVocabulary
-
-if TYPE_CHECKING:
-    import pandas as pd
+from .io import Table, filter_metadata, pil_image, read_metadata, resolve_image_path
 
 
 @dataclass
@@ -50,10 +52,8 @@ class Batch:
 class MetadataIndex:
     """Sample index over one ``metadata.csv`` (optionally source-filtered)."""
 
-    def __init__(self, metadata: str | pd.DataFrame, vocab: LabelVocabulary, *,
+    def __init__(self, metadata: str | Table, vocab: LabelVocabulary, *,
                  root_dir: str = ".", sources: Optional[Sequence[str]] = None):
-        from .io import filter_metadata, read_metadata, resolve_image_path
-
         df = read_metadata(metadata) if isinstance(metadata, str) else metadata
         meta_dir = os.path.dirname(os.path.abspath(metadata)) if isinstance(metadata, str) else root_dir
         df = filter_metadata(df, sources)
@@ -61,13 +61,14 @@ class MetadataIndex:
         self.vocab = vocab
         self.root_dir = root_dir
         paths, labels, filenames, kept, missing = [], [], [], [], 0
-        for pos, row in enumerate(df.itertuples()):
-            resolved = resolve_image_path(str(row.image_path), meta_dir, root_dir)
+        for pos, (image_path, unified_class) in enumerate(zip(df["image_path"],
+                                                               df["unified_class"])):
+            resolved = resolve_image_path(image_path, meta_dir, root_dir)
             if resolved is None:
                 missing += 1
                 continue
             paths.append(resolved)
-            labels.append(vocab.index_of(str(row.unified_class)))
+            labels.append(vocab.index_of(unified_class))
             filenames.append(os.path.basename(resolved))
             kept.append(pos)
         if missing:
@@ -75,15 +76,15 @@ class MetadataIndex:
         self.paths = paths
         self.labels = np.asarray(labels, np.int32)
         self.filenames = filenames
-        # metadata rows of the retained samples: sample i <-> frame.iloc[i]
-        self.frame = df.iloc[kept].reset_index(drop=True)
+        # metadata rows of the retained samples: sample i <-> frame.rows[i]
+        self.frame = df.take(kept)
 
     def __len__(self) -> int:
         return len(self.paths)
 
 
 class Loader:
-    """Batched iterator with threaded PIL decode + background prefetch."""
+    """Batched iterator with threaded native decode + background prefetch."""
 
     NUM_WORKERS = 8  # decode threads
     PREFETCH = 2  # batches decoded ahead of the consumer
@@ -108,12 +109,17 @@ class Loader:
         return (len(self.index) + self.batch_size - 1) // self.batch_size
 
     def _decode(self, i: int) -> np.ndarray:
-        from PIL import Image
-
-        from .transforms import eval_transform_pil
-
-        with Image.open(self.index.paths[i]) as img:
-            return eval_transform_pil(img, resize=self.resize, crop=self.image_size)
+        path = self.index.paths[i]
+        with open(path, "rb") as f:
+            data = f.read()
+        if path.endswith(".png"):
+            out = native.decode_png_resize_center_crop(data, self.resize, self.image_size)
+            if out is not None:
+                return out
+        # a file the native decoder refuses: PIL decodes, the native code resizes
+        with pil_image(path).open(io.BytesIO(data)) as img:
+            arr = np.asarray(img.convert("RGB"), np.uint8)
+        return native.resize_center_crop(arr, self.resize, self.image_size)
 
     def __iter__(self) -> Iterator[Batch]:
         order = np.arange(len(self.index))

@@ -7,7 +7,9 @@ Process.py:715-721) from nothing — shape/color-coded classes rendered with
 numpy. Used by tests, the CPU-runnable integration config (BASELINE.json
 config 1), and CLI demos; plays the role the reference's committed
 ``fashion_data/`` fixture plays (SURVEY.md §2.1 item 15) without binary
-blobs in the repo.
+blobs in the repo. PNGs go through the native encoder (``utils.native``) and
+``metadata.csv`` through :mod:`.io`: the pixels and the metadata equal the
+JAX package's for the same seed and style (the PNG bytes may differ).
 """
 
 from __future__ import annotations
@@ -15,10 +17,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
-from PIL import Image
 
-from .io import save_metadata
+from ..utils import native
+from .io import METADATA_COLUMNS, Table, save_metadata
 
 DEFAULT_CLASSES = ("no_entry", "speed_limit", "stop", "warning", "yield")
 
@@ -118,7 +119,7 @@ def _render(cls_idx: int, rng: np.random.Generator, size: int) -> np.ndarray:
 def make_synthetic_dataset(root: str, *, classes=None,
                            n_per_class: dict | int = 8, image_size: int = 32,
                            splits=("train", "val", "test"), source: str = "synthetic",
-                           seed: int = 0, style: str = "default") -> dict[str, pd.DataFrame]:
+                           seed: int = 0, style: str = "default") -> dict[str, Table]:
     """Write the dataset under ``root``; returns per-split metadata frames.
 
     ``style='default'`` renders 5 color+shape-separable classes (easy,
@@ -138,12 +139,10 @@ def make_synthetic_dataset(root: str, *, classes=None,
         for ci, cls in enumerate(classes):
             for j in range(n_per_class[split]):
                 name = f"{cls}_{split}_{j:04d}.png"
-                Image.fromarray(render(ci, rng, image_size)).save(
-                    os.path.join(img_dir, name))
-                rows.append({"image_path": os.path.join("images", name),
-                             "source": source, "original_class": cls,
-                             "unified_class": cls})
-        df = pd.DataFrame(rows)
+                with open(os.path.join(img_dir, name), "wb") as f:
+                    f.write(native.encode_png_rgb(render(ci, rng, image_size)))
+                rows.append((os.path.join("images", name), source, cls, cls))
+        df = Table(METADATA_COLUMNS, rows)
         save_metadata(df, os.path.join(root, split, "metadata.csv"))
         out[split] = df
     return out

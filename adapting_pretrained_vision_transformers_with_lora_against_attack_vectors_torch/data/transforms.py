@@ -9,13 +9,19 @@ fuse normalization into the first matmul.
 
 ``eval_transform_pil`` matches the reference's torchvision eval pipeline
 ``Resize(256) -> CenterCrop(224)`` (train.py:137-142, bilinear on PIL
-images) so accuracy parity holds.
+images) so accuracy parity holds. The loader does not use it (it resizes
+with ``utils.native``, as the JAX loader's default path does); PIL is
+imported only when it is called.
 """
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-from PIL import Image
+
+if TYPE_CHECKING:
+    from PIL import Image
 
 
 def resize_shorter(img: Image.Image, size: int) -> Image.Image:
@@ -30,6 +36,8 @@ def resize_shorter(img: Image.Image, size: int) -> Image.Image:
         new_w, new_h = size, max(1, int(h * size / w))
     else:
         new_w, new_h = max(1, int(w * size / h)), size
+    from PIL import Image
+
     return img.resize((new_w, new_h), Image.BILINEAR)
 
 

@@ -6,8 +6,9 @@
 carries a hash of the source and of the ``csrc`` headers it includes, so an
 edited kernel is never served from a stale build. ptxas' per-kernel report (registers, spills) is kept in
 ``BUILD_LOG``. :func:`load_all` builds several sources in parallel;
-:func:`load_text` builds an edited copy of a source for a measurement.
-Nothing here runs at import time.
+:func:`load_text` builds an edited copy of a source for a measurement;
+:func:`load_host` builds host C++ sources with ``g++`` into the same
+directory, named by the same kind of hash. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -46,8 +48,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _compile(name: str, src: str, digest: str) -> ctypes.CDLL:
-    """nvcc ``src`` into ``<build dir>/<stem>_<digest>.so`` unless it is there; load it."""
+def _nvcc_command(src: str):
+    return lambda out: [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", out, src]
+
+
+def _compile(name: str, digest: str, command) -> ctypes.CDLL:
+    """Run the compiler, ``command(out_path)``, into
+    ``<build dir>/<stem>_<digest>.so`` unless it is there; load it. The
+    library is written under a temporary name and renamed, so processes that
+    build it at the same time never load a partial file."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"{os.path.splitext(name)[0]}_{digest}.so")
@@ -56,10 +65,11 @@ def _compile(name: str, src: str, digest: str) -> ctypes.CDLL:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
-                                  capture_output=True, text=True)
+            argv = command(tmp)
+            proc = subprocess.run(argv, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+                raise RuntimeError(f"{os.path.basename(argv[0])} failed on {name}:\n"
+                                   f"{proc.stderr}")
             BUILD_LOG[name] = proc.stderr
             os.replace(tmp, lib)
         finally:
@@ -98,7 +108,7 @@ def load(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` once per process (and per source hash)."""
     if source not in _LOADED:
         digest = _digest(inlined(source).encode())
-        _LOADED[source] = _compile(source, os.path.join(CSRC, source), digest)
+        _LOADED[source] = _compile(source, digest, _nvcc_command(os.path.join(CSRC, source)))
     return _LOADED[source]
 
 
@@ -111,7 +121,7 @@ def load_text(name: str, text: str) -> ctypes.CDLL:
         src = os.path.join(build_dir(), f"{os.path.splitext(name)[0]}_{key.split(':')[1]}.cu")
         with open(src, "w") as f:
             f.write(text)
-        _LOADED[key] = _compile(name, src, key.split(":")[1])
+        _LOADED[key] = _compile(name, key.split(":")[1], _nvcc_command(src))
     return _LOADED[key]
 
 
@@ -126,3 +136,47 @@ def load_all(sources) -> list[ctypes.CDLL]:
 
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         return list(pool.map(load, sources))
+
+
+# host C++ (native/Makefile's flags without -march=native, so that a build
+# dir another host loads holds no instruction it may lack)
+CXX_FLAGS = ["-O3", "-fno-math-errno", "-std=c++17", "-fPIC", "-Wall", "-shared"]
+CXX_LIBS = ["-lpthread", "-lz", "-ldl"]
+
+
+def host_cxx_flags() -> list[str]:
+    """:data:`CXX_FLAGS`, and ``-mfma`` on an x86-64 CPU that has FMA.
+
+    The JAX package builds the same sources with ``-march=native``; on such a
+    CPU g++ then contracts the resampler's ``acc += w * p`` into FMAs, which
+    rounds about one output byte in 10^5 differently. ``-mfma`` gives the same
+    contraction, hence the same bytes, and nothing else of the host's ISA. The
+    flags are part of the library's hash."""
+    flags = list(CXX_FLAGS)
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = f.read()
+    except OSError:
+        cpu = ""
+    if platform.machine() in ("x86_64", "AMD64") and re.search(r"^flags\s*:.*\bfma\b", cpu, re.M):
+        flags.append("-mfma")
+    return flags
+
+
+def load_host(name: str, sources) -> ctypes.CDLL:
+    """``g++`` the C++ ``sources`` (paths) into one shared library
+    ``<build dir>/<name>_<hash>.so`` once per process, and per hash of the
+    sources' text, the flags and the compiler's version; a failed build raises
+    with the compiler's stderr."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {name} is built from C++ sources")
+    flags = host_cxx_flags()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    text = b"".join(open(src, "rb").read() for src in sources)
+    digest = hashlib.sha256(text + " ".join([*flags, *CXX_LIBS, version]).encode()).hexdigest()[:16]
+    key = f"{name}:{digest}"
+    if key not in _LOADED:
+        _LOADED[key] = _compile(name, digest,
+                                lambda out: [cxx, *flags, "-o", out, *sources, *CXX_LIBS])
+    return _LOADED[key]

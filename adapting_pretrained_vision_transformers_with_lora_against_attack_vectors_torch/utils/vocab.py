@@ -36,11 +36,13 @@ class LabelVocabulary:
 
     @classmethod
     def from_metadata_frames(cls, frames: Sequence) -> "LabelVocabulary":
-        """Union of ``unified_class`` columns over any number of DataFrames."""
+        """Union of ``unified_class`` columns over any number of metadata
+        tables (``data.io.Table``; anything whose ``["unified_class"]`` is
+        iterable), each value through ``str`` as in the JAX package."""
         names: set[str] = set()
         for df in frames:
             if df is not None and len(df):
-                names.update(map(str, df["unified_class"].unique()))
+                names.update(map(str, df["unified_class"]))
         return cls.from_classes(names)
 
     # -- mapping -----------------------------------------------------------

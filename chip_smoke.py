@@ -56,7 +56,15 @@ the hand-written kernels:
   ``use_fused_mlp``), ConvNeXt-B full fine-tune and LoRA (rank 8 on
   pwconv1/pwconv2) with both kernel fields, YOLO11-cls full fine-tune and
   LoRA on the C2PSA convs: the window kernel's bias-gradient recompute and
-  dwconv7's filter gradient run in training here.
+  dwconv7's filter gradient run in training here;
+* the robustness study through the port's runner
+  (``tools/run_robustness.py``) on the card: ``google_vit`` (ViT-B/16, 224
+  px, 12 blocks) on the hard 12-class synthetic corpus, the eight CLI stages
+  (synth-data, train, attack, patch-attack, autoattack, rp2-attack,
+  train-lora over the five families, eval-compose) each in a fresh process
+  over the filesystem contract (PNGs through the native codec, metadata.csv
+  through the ``csv`` module; no PIL or pandas), at cut counts
+  (``RUNNER_ARGS``), then the ``attack`` stage once in this process.
 
 Phases, one line each (or a few):
 
@@ -178,6 +186,21 @@ Phases, one line each (or a few):
    outlasts the kernel). ViT-B, Swin-B and YOLO11-cls PGD are timed over 3
    calls, ConvNeXt-B over 2 calls per variant and turn; each of TRAIN_RUNS
    over 3 steps after a warm-up.
+
+7. the native PNG codec (``utils/native.py``, built with g++ from
+   ``native/src``): encode -> decode bit exact on random images of
+   CODEC_SIZES, a PNG from a plain filter-0 writer (``plain_png``: the
+   standard library's zlib) decoded bit exact, resize + center crop within 2
+   LSB (mean < 0.5) of ``F.interpolate(antialias=True)`` on the card, and the
+   host's one-thread encode and decode + resize rates; then the runner: the
+   fresh-process start-up cost, all eight stages rc 0 (each stage's wall),
+   the 27 x 6 matrix with every accuracy in [0, 1], the corpus' test PNGs
+   equal to their render from the same seed, a ``--resume`` run that skips
+   the seven stages before eval-compose with the same accuracies, a run with
+   ``--lora_epochs`` changed that reruns train-lora and eval-compose only,
+   and the ``attack`` stage through ``cli.main.main`` in this process with
+   every count read around it: 12 packed-attention launches of each
+   direction per FGSM or PGD step and batch, every other count 0.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -306,6 +329,14 @@ AA_N_ITER, AA_QUERIES = 100, 5000  # the CLI's autoattack defaults
 PROFILE_PATCH_ITERS, PROFILE_SQUARE_QUERIES = 20, 50
 # each later AutoAttack stage alone, at a cut budget (the suite may end before it)
 STAGE_N_ITER, STAGE_TARGETS, STAGE_QUERIES = 10, 3, 100
+# phase 7: the robustness study through the port's runner at ViT-B/16's full width
+# (224 px, 12 blocks, the hard 12-class corpus), counts cut to keep the phase short
+RUNNER_ARGS = ("--model", "google_vit", "--n_per_class", "4", "--epochs", "1",
+               "--lora_epochs", "1", "--pgd_steps", "10", "--patch_iters", "20",
+               "--rp2_iters", "20", "--aa_iters", "10", "--aa_queries", "100")
+RUNNER_STAGE_TIMEOUT_S = 300
+CODEC_SIZES = ((224, 224), (97, 113), (1, 1), (300, 400), (480, 640))
+CODEC_RATE_N = 64
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -398,6 +429,42 @@ def footprint(eot, size: int, p: int):
     return (u > -1.01) & (u < p + 0.01) & (v > -1.01) & (v < p + 0.01)
 
 
+def plain_png(img) -> bytes:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG with filter 0 on every row, through
+    the standard library's zlib: a writer apart from the native encoder."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def plain_resize_center_crop(img, resize: int, crop: int, dev):
+    """The loader's geometry (shorter side to ``resize``, the long side
+    truncated, a center crop at rounded offsets) through
+    ``F.interpolate(mode="bilinear", antialias=True)`` on ``dev``."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = img.shape[:2]
+    nw, nh = (resize, max(1, int(h * resize / w))) if w <= h else (max(1, int(w * resize / h)),
+                                                                    resize)
+    x = torch.from_numpy(img).to(dev).permute(2, 0, 1)[None].float()
+    y = F.interpolate(x, size=(nh, nw), mode="bilinear", antialias=True, align_corners=False)
+    y = y.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0)
+    top, left = round((nh - crop) / 2), round((nw - crop) / 2)
+    return y[top:top + crop, left:left + crop].cpu().numpy()
+
+
 @contextlib.contextmanager
 def plain_path(module, name: str, plain):
     """Route a model module's attention through the plain version."""
@@ -429,7 +496,10 @@ class Smoke:
                            ("loader", "data.loader"), ("compose_mod", "eval.compose"),
                            ("patch_mod", "attacks.patch"), ("rp2_mod", "attacks.rp2"),
                            ("aa", "attacks.autoattack"), ("hf_import", "models.hf_import"),
-                           ("pretrained", "models.pretrained"), ("yolo", "models.yolo11")):
+                           ("pretrained", "models.pretrained"), ("yolo", "models.yolo11"),
+                           ("native", "utils.native"), ("synthetic", "data.synthetic"),
+                           ("cli", "cli.main"), ("rr", "tools.run_robustness"),
+                           ("data_io", "data.io")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2481,6 +2551,158 @@ class Smoke:
                   f"ms/batch, {BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
 
     # --profile
+    # 7. the codec and the robustness study through the port's runner
+    def codec(self) -> None:
+        """The native PNG codec on this host: encode -> decode bit exact on
+        random images, a PNG from a plain filter-0 writer decoded bit exact,
+        resize + center crop within 2 LSB (mean < 0.5) of a plain version on
+        the card; then the single-thread encode and fused decode rates."""
+        import numpy as np
+
+        nat = self.native
+        rng = np.random.default_rng(7)
+        for h, w in CODEC_SIZES:
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            check(np.array_equal(nat.decode_png_rgb(nat.encode_png_rgb(img)), img),
+                  f"codec: encode -> decode at {h}x{w}")
+            check(np.array_equal(nat.decode_png_rgb(plain_png(img)), img),
+                  f"codec: plain filter-0 PNG at {h}x{w}")
+        worst = 0
+        for h, w in CODEC_SIZES[:2] + CODEC_SIZES[3:]:
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for resize, crop in ((256, 224), (36, 32)):
+                d = np.abs(nat.resize_center_crop(img, resize, crop).astype(int)
+                           - plain_resize_center_crop(img, resize, crop, self.dev).astype(int))
+                check(d.max() <= 2 and d.mean() < 0.5,
+                      f"codec: resize {h}x{w} -> {resize} -> {crop}: max {d.max()}, mean {d.mean()}")
+                worst = max(worst, int(d.max()))
+        imgs = [self.synthetic._render_hard(i % 12, rng, 224) for i in range(CODEC_RATE_N)]
+        t0 = time.perf_counter()
+        pngs = [nat.encode_png_rgb(im) for im in imgs]
+        enc = CODEC_RATE_N / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for data in pngs:
+            nat.decode_png_resize_center_crop(data, 256, 224)
+        dec = CODEC_RATE_N / (time.perf_counter() - t0)
+        print(f"phase 7 codec: round trips bit exact at {len(CODEC_SIZES)} sizes, plain filter-0 "
+              f"PNGs bit exact, resize vs F.interpolate(antialias) max {worst} LSB; host rates "
+              f"(one thread, 224 px synthetic signs): encode {enc:.1f} images/s, decode + "
+              f"resize 256 + crop 224 {dec:.1f} images/s ({np.mean([len(p) for p in pngs]):.0f} "
+              f"bytes a PNG)", flush=True)
+
+    def corpus_codec(self, data_dir: str, style: str) -> None:
+        """The runner's synth-data PNGs hold the pixels rendered here again from
+        the same seed (test split), and re-encode -> decode bit exact."""
+        import numpy as np
+
+        nat, synth = self.native, self.synthetic
+        meta = self.data_io.read_metadata(os.path.join(data_dir, "test", "metadata.csv"))
+        classes = synth.HARD_CLASSES if style == "hard" else synth.DEFAULT_CLASSES
+        rng = np.random.default_rng((0, 2))  # make_synthetic_dataset's test-split stream
+        size = None
+        for i, path in enumerate(meta["image_path"]):
+            with open(os.path.join(data_dir, "test", path), "rb") as f:
+                got = nat.decode_png_rgb(f.read())
+            size = got.shape[0]
+            want = synth._render_hard(classes.index(meta["original_class"][i]), rng, size)
+            check(np.array_equal(got, want), f"corpus PNG {path}: pixels differ from the render")
+            check(np.array_equal(nat.decode_png_rgb(nat.encode_png_rgb(got)), got),
+                  f"corpus PNG {path}: re-encode")
+        print(f"phase 7 codec corpus: {len(meta)} test PNGs ({size} px) equal their render, "
+              f"re-encoded bit exact", flush=True)
+
+    def startup_seconds(self) -> float:
+        """Wall of a fresh process that imports torch and the CLI and reaches
+        the card: what each runner stage pays before its work."""
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device="
+                        f"'{self.dev}'); import {PKG}.cli.main"], cwd=HERE, check=True,
+                       timeout=RUNNER_STAGE_TIMEOUT_S)
+        return time.perf_counter() - t0
+
+    def runner(self, args=RUNNER_ARGS) -> None:
+        """The study through ``tools/run_robustness.py`` (a fresh process per
+        stage): all eight stages rc 0, the 27 x 6 matrix; a ``--resume`` run
+        skips the seven stages before eval-compose with the same accuracies; a
+        run with ``--lora_epochs`` changed reruns train-lora and eval-compose
+        only. Then the ``attack`` stage in this process through
+        ``cli.main.main`` with the packed-attention counts read around it:
+        depth launches of each direction per FGSM or PGD step and batch."""
+        import tempfile
+
+        import torch
+
+        rr = self.rr
+        rr.STAGE_TIMEOUT_S = RUNNER_STAGE_TIMEOUT_S
+        device = "cpu" if self.dev.type == "cpu" else "cuda"
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        startup = self.startup_seconds()
+        print(f"phase 7 runner: fresh-process start-up (torch, the CLI, the card) {startup:.2f} s "
+              f"{self.card}", flush=True)
+
+        def accuracies(art):
+            return {v: {d: m["accuracy"] for d, m in per.items()} for v, per in art["matrix"].items()}
+
+        with tempfile.TemporaryDirectory(prefix="apvt_runner_") as work:
+            base = ["--workdir", work, "--device", device, *args]
+            first = rr.main([*base, "--out", os.path.join(work, "first.json")])
+            stages = first["stages"]
+            check(len(stages) == 8 and all(st["rc"] == 0 and not st.get("resumed")
+                                           for st in stages), f"runner stages {stages}")
+            matrix = first["matrix"]
+            # base, 5 single adapters, 10 pairs, 10 triples, all five
+            check(len(matrix) == 27 and all(
+                list(per) == ["clean", "autoattack", "fgsm", "patch_circle", "pgd", "rp2"]
+                for per in matrix.values()), f"runner matrix {len(matrix)} variants")
+            check(all(0.0 <= m["accuracy"] <= 1.0 for per in matrix.values()
+                      for m in per.values()), "runner matrix: an accuracy outside [0, 1]")
+            cfg = first["config"]
+            for st in stages:
+                print(f"phase 7 runner stage {st['stage']}: rc 0, wall {st['seconds']:.1f} s "
+                      f"({cfg['model']} {cfg['image_size']} px, {cfg['n_per_class']} per class) "
+                      f"{self.card}", flush=True)
+            print(f"phase 7 runner: {len(matrix)} x 6 matrix, base clean accuracy "
+                  f"{matrix['base']['clean']['accuracy']:.4f}, total {first['total_seconds']:.1f} s",
+                  flush=True)
+            self.corpus_codec(os.path.join(work, "data"), cfg["style"])
+
+            second = rr.main([*base, "--resume", "--out", os.path.join(work, "second.json")])
+            check([st.get("resumed", False) for st in second["stages"]] == [True] * 7 + [False],
+                  f"resume run stages {second['stages']}")
+            check(accuracies(second) == accuracies(first), "resume run: accuracies moved")
+            third = rr.main([*base, "--resume", "--lora_epochs", "2",
+                             "--out", os.path.join(work, "third.json")])
+            ran = [st["stage"] for st in third["stages"] if not st.get("resumed")]
+            check(ran == ["train-lora", "eval-compose"] and len(third["stages"]) == 8
+                  and "families" not in third["stages"][6], f"changed-argument run {third['stages']}")
+            print(f"phase 7 runner resume: 7 stages skipped, accuracies identical, eval-compose "
+                  f"{second['stages'][-1]['seconds']:.1f} s; --lora_epochs 2 reran {ran} "
+                  f"({third['stages'][6]['seconds']:.1f} + {third['stages'][7]['seconds']:.1f} s)",
+                  flush=True)
+
+            data = os.path.join(work, "data")
+            model = args[args.index("--model") + 1]
+            ck = os.path.join(work, "train", model, "all", f"{model}_best_model_finetuned.safetensors")
+            steps = int(args[args.index("--pgd_steps") + 1])
+            batches = -(-len(self.data_io.read_metadata(os.path.join(data, "test", "metadata.csv")))
+                        // BATCH)
+            argv = ["--device", device, "attack", "--data_root", data, "--model", model,
+                    "--model_path", ck, "--output_dir", os.path.join(work, "adv_in_process"),
+                    "--splits", "test", "--steps", str(steps), "--batch_size", str(BATCH)]
+            t0 = time.perf_counter()
+            rc, counts = self.counted(self.all_counters(), lambda: self.cli.main(argv))
+            wall = time.perf_counter() - t0
+            depth = self.registry.get_model(model).config(12).depth
+            want = {k: 0 for k in counts}
+            want["packed_fwd"] = want["packed_bwd"] = depth * (1 + steps) * batches
+            check(rc == 0 and counts == want, f"in-process attack stage: rc {rc}, counts {counts}, "
+                  f"want {want}")
+            print(f"phase 7 runner attack in process: FGSM + PGD-{steps}, {batches} batch(es) of "
+                  f"{BATCH}: packed attention {counts['packed_fwd']} + {counts['packed_bwd']} "
+                  f"launches (= {depth} x {1 + steps} x {batches}), every other count 0; wall "
+                  f"{wall:.1f} s {self.card}", flush=True)
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -2757,6 +2979,11 @@ def main(argv=None) -> None:
                        ("yolo11-cls", yolo_compose_s)):
         print(f"phase 6 eval-compose {name} 4x3 matrix (B={BATCH} per dataset): wall "
               f"{wall:.3f} s {s.card}", flush=True)
+
+    # 7. the native codec, and the robustness study through the runner (a
+    # fresh process per stage) with the attack stage once in this process
+    s.codec()
+    s.runner()
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],

@@ -26,7 +26,6 @@ from PIL import Image
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import rp2 as trp2
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.models import vit as jvit
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import checkpoint as jck
-from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import native as jnative
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils.vocab import LabelVocabulary
 
 # the CLI modules (each package's ``cli`` exports the function ``main`` under the same name)
@@ -71,11 +70,6 @@ def runs(tmp_path_factory):
         "autoattack": ["--n_iter", "2", "--square_queries", "4", "--splits", "train", "test"],
     }
     out = {"data": data, "ck": ck, "common": common, "root": root}
-    # the JAX loader on its PIL decode backend, so both sides see the same pixels
-    # (a native library an earlier test of this worker loaded stays cached)
-    mp = pytest.MonkeyPatch()
-    mp.setenv("APVT_NATIVE", "0")
-    mp.setattr(jnative, "_LIB", None)
     for side, main, dev in (("port", tcli.main, ["--device", "cpu"]),
                             ("jax", jcli.main, ["--platform", "cpu"])):
         adv = str(root / f"adv_{side}")
@@ -86,7 +80,6 @@ def runs(tmp_path_factory):
         assert main([*dev, "rp2-attack", *common, "--output_dir", str(root / f"rp2_{side}"),
                      "--max_iter", "2", "--patch_size", "8", "--splits", "val", "test"]) == 0
         out[side] = adv
-    mp.undo()
     return out
 
 

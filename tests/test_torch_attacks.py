@@ -290,8 +290,6 @@ def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, 
     """Batch k's attack is launched before batch k-1's encodes are awaited; at
     most one batch is pending; every file is written before the metadata;
     names and metadata order are those of the serial writer."""
-    import pandas as pd
-
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import generate as tgen
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.data import io as tio
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.data.loader import Batch
@@ -316,9 +314,9 @@ def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, 
         log.append(("attack", None))
         return images.float() / 255.0
 
-    clean = pd.DataFrame({"image_path": [f"/clean/{n}" for n in ("a.png", "b.png", "a.png",
-                                                                  "c.png", "d.png")],
-                          "source": "s", "original_class": "x", "unified_class": "x"})
+    clean = tio.Table(tio.METADATA_COLUMNS, ((f"/clean/{n}", "s", "x", "x")
+                                             for n in ("a.png", "b.png", "a.png", "c.png",
+                                                       "d.png")))
     meta = tgen.generate_adversarial_split(attack, None, batches, out_dir=str(tmp_path),
                                            clean_metadata=clean, device="cpu")
     kinds = [k for k, _ in log]

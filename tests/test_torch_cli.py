@@ -2,15 +2,14 @@
 ``eval-compose``) against the JAX CLI.
 
 Both CLIs attack the same checkpoint, written by the JAX package, on the
-CPU (``vit_test``, ``swin_test`` and ``convnext_test``). The JAX loader is pinned to its PIL
-decode backend (``APVT_NATIVE=0``) so both sides see the same pixels; FGSM
-PNGs must then agree on >= 99% of pixels within 1 LSB (a near-zero gradient
-may take the other sign). ``eval-compose`` runs in both CLIs over the same
-checkpoint, adversarial PNGs and JAX-written adapters: accuracies equal,
+CPU (``vit_test``, ``swin_test`` and ``convnext_test``). Both loaders decode
+through the native library (the JAX loader's default, the port's only
+path), so both sides see the same pixels; FGSM PNGs must then agree on >=
+99% of pixels within 1 LSB (a near-zero gradient may take the other sign).
+``eval-compose`` runs in both CLIs over the same checkpoint, adversarial PNGs and JAX-written adapters: accuracies equal,
 F1 and loss within rtol 1e-4.
 """
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -32,7 +31,6 @@ from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tp
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import lora as jlora
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import peft_io as jpeft
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import checkpoint as jck
-from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import native as jnative
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import trees as jtrees
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils.vocab import LabelVocabulary
 
@@ -59,9 +57,8 @@ def runs(tmp_path_factory):
     port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
     assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
                   "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
-    with _jax_pil_decode():
-        assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
-                      "--attacks", "fgsm"]) == 0
+    assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
+                  "--attacks", "fgsm"]) == 0
     return {"data": data, "port": port_out, "jax": jax_out, "ck": ck, "params": params}
 
 
@@ -139,14 +136,16 @@ def test_create_adv_metadata_matches_jax():
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.data import io as tio
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.data import io as jio
 
-    clean = pd.DataFrame({"image_path": ["a/x.png", "b/x.png", "a/y.png", "c/z.png"],
-                          "source": ["s1", "s2", "s1", "s2"],
-                          "original_class": ["0", "1", "0", "2"],
-                          "unified_class": ["p", "q", "p", "r"]})
+    columns = {"image_path": ["a/x.png", "b/x.png", "a/y.png", "c/z.png"],
+               "source": ["s1", "s2", "s1", "s2"],
+               "original_class": ["0", "1", "0", "2"],
+               "unified_class": ["p", "q", "p", "r"]}
+    clean = tio.Table(list(columns), zip(*columns.values()))
     written, origs = ["x.png", "x__1.png", "z.png"], ["x.png", "x.png", "z.png"]
     got = tio.create_adv_metadata(clean, written, "/adv", originals=origs)
-    pd.testing.assert_frame_equal(got, jio.create_adv_metadata(clean, written, "/adv",
-                                                               originals=origs))
+    want = jio.create_adv_metadata(pd.DataFrame(columns), written, "/adv", originals=origs)
+    assert got.columns == tuple(want.columns)
+    assert got.rows == [tuple(r) for r in want.itertuples(index=False)]
     assert list(got["image_path"]) == ["/adv/x.png", "/adv/x__1.png", "/adv/z.png"]
     with pytest.raises(ValueError, match="parallel"):
         tio.create_adv_metadata(clean, written, "/adv", originals=origs[:2])
@@ -158,20 +157,6 @@ def test_attack_refuses_non_safetensors(runs, tmp_path):
     with pytest.raises(FileNotFoundError, match="m.pth"):
         tmain(["--device", "cpu", "attack", "--data_root", runs["data"], "--model",
                "vit_test", "--model_path", str(tmp_path / "m.pth")])
-
-
-@contextlib.contextmanager
-def _jax_pil_decode():
-    """Pin the JAX loader to its PIL decode backend, as the port decodes (a
-    native library an earlier test of this worker loaded stays cached, so
-    the switch alone is not enough)."""
-    mp = pytest.MonkeyPatch()
-    mp.setenv("APVT_NATIVE", "0")
-    mp.setattr(jnative, "_LIB", None)
-    try:
-        yield
-    finally:
-        mp.undo()
 
 
 def _jax_checkpoint(root, data, model, init):
@@ -196,9 +181,8 @@ def swin_runs(runs, tmp_path_factory):
     port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
     assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
                   "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
-    with _jax_pil_decode():
-        assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
-                      "--attacks", "fgsm"]) == 0
+    assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
+                  "--attacks", "fgsm"]) == 0
     return {"root": root, "ck": ck, "params": params, "port": port_out, "jax": jax_out}
 
 
@@ -241,9 +225,8 @@ def convnext_runs(runs, tmp_path_factory):
     port_out, jax_out = str(root / "adv_port"), str(root / "adv_jax")
     assert tmain(["--device", "cpu", *common, "--output_dir", port_out,
                   "--attacks", "fgsm", "pgd", "--steps", "2"]) == 0
-    with _jax_pil_decode():
-        assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
-                      "--attacks", "fgsm"]) == 0
+    assert jmain(["--platform", "cpu", *common, "--output_dir", jax_out,
+                  "--attacks", "fgsm"]) == 0
     return {"root": root, "ck": ck, "params": params, "port": port_out, "jax": jax_out}
 
 
@@ -411,9 +394,8 @@ def test_jax_cli_accepts_the_ports_checkpoint_and_adapters(pipeline, tmp_path):
     port's adversarial PNGs and the adapter directories the port's
     ``train-lora`` wrote: the same matrix as the port's own ``eval-compose``
     (accuracy and support equal, F1 and loss within rtol 1e-4)."""
-    with _jax_pil_decode():
-        assert jmain(["--platform", "cpu", *pipeline["compose_args"],
-                      "--output_dir", str(tmp_path / "jax")]) == 0
+    assert jmain(["--platform", "cpu", *pipeline["compose_args"],
+                  "--output_dir", str(tmp_path / "jax")]) == 0
     got = json.load(open(os.path.join(pipeline["eval"], "test_results.json")))
     want = json.load(open(tmp_path / "jax" / "test_results.json"))
     assert list(got) == list(want)
@@ -462,8 +444,7 @@ def test_eval_compose_matches_jax_cli(model, runs, swin_runs, convnext_runs, tmp
     common = ["eval-compose", "--data_root", runs["data"], "--model", model, "--model_path", ck,
               "--adv_root", adv, "--lora_root", loras, "--rank", "4", "--batch_size", "8"]
     assert tmain(["--device", "cpu", *common, "--output_dir", str(tmp_path / "port")]) == 0
-    with _jax_pil_decode():
-        assert jmain(["--platform", "cpu", *common, "--output_dir", str(tmp_path / "jax")]) == 0
+    assert jmain(["--platform", "cpu", *common, "--output_dir", str(tmp_path / "jax")]) == 0
     got = json.load(open(tmp_path / "port" / "test_results.json"))
     want = json.load(open(tmp_path / "jax" / "test_results.json"))
     assert list(got) == list(want) == ["base", "lora_fgsm", "lora_pgd", "fgsm+pgd"]

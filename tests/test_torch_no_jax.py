@@ -12,7 +12,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
 JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
-# the Swin / eval-compose, ConvNeXt, training, attack and model-zoo slices; the walk
+# the Swin / eval-compose, ConvNeXt, training, attack, model-zoo and file-stage slices; the walk
 # below must import each of them
 NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.metrics",
                "train.steps", "train.loop", "eval.compose",
@@ -23,7 +23,9 @@ NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.
                "attacks.corruptions", "attacks.patch", "attacks.rp2", "attacks.autoattack",
                "attacks.autoattack.apgd", "attacks.autoattack.fab", "attacks.autoattack.square",
                # the five-backbone zoo and the weight import
-               "models.yolo11", "models.hf_import", "models.pretrained")
+               "models.yolo11", "models.hf_import", "models.pretrained",
+               # the native codec, the runner and the parity side
+               "utils.native", "tools.run_robustness", "tools.parity_e2e")
 
 
 def _sources():

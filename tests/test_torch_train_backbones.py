@@ -46,7 +46,6 @@ from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tp
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.ops import peft_io as jpeft
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.train import steps as jsteps
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import checkpoint as jck
-from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import native as jnative
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu.utils import trees as jtrees
 
 # the CLI modules (each package's ``cli`` exports the function ``main`` under the same name)
@@ -269,15 +268,11 @@ def test_five_stages_run_in_the_port_alone(name, pipelines):
     assert all(m["support"] == 15 for per in got.values() for m in per.values())
 
 
-def test_yolo11_eval_compose_matches_jax_cli(pipelines, tmp_path, monkeypatch):
+def test_yolo11_eval_compose_matches_jax_cli(pipelines, tmp_path):
     """The JAX CLI's ``eval-compose`` over the YOLO11 run's checkpoint,
     adversarial PNGs and adapters (nested heads): the port's matrix
     (accuracy and support equal, F1 and loss within rtol 1e-4)."""
     run = pipelines["yolo11_test"]
-    # the JAX loader's PIL decode, as the port decodes (a native library an
-    # earlier test of this worker loaded stays cached: drop it too)
-    monkeypatch.setenv("APVT_NATIVE", "0")
-    monkeypatch.setattr(jnative, "_LIB", None)
     assert jcli.main(["--platform", "cpu", *run["compose"],
                       "--output_dir", str(tmp_path / "jax")]) == 0
     got = json.load(open(os.path.join(run["eval"], "test_results.json")))
