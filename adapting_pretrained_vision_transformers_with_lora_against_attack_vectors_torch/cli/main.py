@@ -1,9 +1,13 @@
 """CLI: argparse subcommands over the library modules.
 
-Counterpart of the JAX package's ``cli/main.py`` for the five pipeline
-stages (``synth-data``, ``train``, ``attack``, ``train-lora``,
-``eval-compose``) and the other attack stages (``autoattack``,
-``patch-attack``, ``rp2-attack``), with its flags, defaults and paths:
+Counterpart of the JAX package's ``cli/main.py`` for the raw-corpus ETL
+(``process``), the five pipeline stages (``synth-data``, ``train``,
+``attack``, ``train-lora``, ``eval-compose``) and the other attack stages
+(``autoattack``, ``patch-attack``, ``rp2-attack``), with its flags, defaults
+and paths:
+
+* processed corpus: ``{output_dir}/{split}/images/*.png`` + ``metadata.csv``
+  (``process``, from the raw corpora under ``--base_dir``)
 
 * base checkpoints: ``{out}/{model}/{source}/{model}_best_model_finetuned.safetensors``
   + ``class_mappings.txt`` (``train`` writes them, as the JAX stage does;
@@ -19,7 +23,8 @@ stages (``synth-data``, ``train``, ``attack``, ``train-lora``,
   (PEFT format); the composability matrix: ``{output_dir}/test_results.json``
 
 The stages run on the card: without CUDA the CLI stops with an error unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``process`` and ``synth-data`` do no device work,
+but the rule is the same for every stage.
 
 The packed and window attention kernels have no switch: a ViT or Swin on a
 CUDA device always runs its CUDA attention kernel, on the CPU the plain
@@ -38,6 +43,11 @@ import argparse
 import json
 import os
 import sys
+
+# the keys of data.process.PROCESSORS, copied so that building the parser
+# never imports the ETL (a test holds the two equal)
+DATASET_NAMES = ("gtsrb-german-traffic-sign", "lisa-road-sign", "Mapillary",
+                 "CURE-TSD", "roboflow-traffic-signs-dataset")
 
 
 def _common_data_args(p):
@@ -169,6 +179,13 @@ def _loaders_for(args, vocab, splits, *, batch_size, image_size, resize=None,
 
 
 # --- subcommands -------------------------------------------------------------
+
+def cmd_process(args):
+    from ..data import process
+
+    process.process_all(args.base_dir, args.output_dir,
+                        datasets=tuple(args.datasets), splits=tuple(args.splits))
+
 
 def cmd_synth_data(args):
     from ..data import synthetic
@@ -592,6 +609,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (the default; an error without a CUDA device), 'cuda:N' or "
                         "'cpu'. Must precede the subcommand.")
     sub = p.add_subparsers(dest="command", required=True)
+
+    sp = sub.add_parser("process", help="unify raw traffic-sign datasets")
+    sp.add_argument("--base_dir", default="./Datasets")
+    sp.add_argument("--output_dir", default="./processed")
+    sp.add_argument("--datasets", nargs="+", default=list(DATASET_NAMES),
+                    choices=list(DATASET_NAMES))
+    sp.add_argument("--splits", nargs="+", default=["train", "val", "test"],
+                    choices=["train", "val", "test"])
+    sp.set_defaults(fn=cmd_process)
 
     sp = sub.add_parser("synth-data", help="generate a synthetic dataset")
     sp.add_argument("--output_dir", required=True)

@@ -30,6 +30,10 @@ its last output file exists:
 
 Usage: python -m <port>.tools.run_robustness [--out FILE] [--workdir DIR]
          [--device cuda] [--quick] [--resume] [counts ...]
+
+A relative ``--workdir`` or ``--out`` is taken from the caller's working
+directory (the stage processes run from the repository's root); the artifact
+defaults to ``ROBUSTNESS_torch.json`` there.
 """
 
 from __future__ import annotations
@@ -176,7 +180,7 @@ class Runner:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default="ROBUSTNESS_r04.json")
+    ap.add_argument("--out", default="ROBUSTNESS_torch.json")
     ap.add_argument("--workdir", default=os.path.join(tempfile.gettempdir(), "apvt_robustness"))
     ap.add_argument("--model", default="google_vit")
     ap.add_argument("--style", default="hard", choices=["default", "hard"],
@@ -207,6 +211,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, *, launch: Callable[[list[str]], tuple[int, str]] = run_subprocess) -> dict:
     """Run the study; returns the artifact (also written to ``--out``)."""
     args = build_parser().parse_args(argv)
+    # the stages run with the repo as their cwd: every path handed to them, and
+    # every path read or written here, is absolute
+    args.workdir, args.out = os.path.abspath(args.workdir), os.path.abspath(args.out)
     d = args.workdir
     os.makedirs(d, exist_ok=True)
     if args.quick:

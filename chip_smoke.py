@@ -64,7 +64,11 @@ the hand-written kernels:
   train-lora over the five families, eval-compose) each in a fresh process
   over the filesystem contract (PNGs through the native codec, metadata.csv
   through the ``csv`` module; no PIL or pandas), at cut counts
-  (``RUNNER_ARGS``), then the ``attack`` stage once in this process.
+  (``RUNNER_ARGS``), then the ``attack`` stage once in this process;
+* the raw-corpus ETL, the ``process`` stage (``data/process.py``: host code,
+  no kernel), on the card's host: over an empty corpus root, then over a
+  LISA-layout fixture of 64 frames of 640 x 480 written by the native
+  encoder; it decodes through OpenCV or PIL, whichever imports.
 
 Phases, one line each (or a few):
 
@@ -200,7 +204,19 @@ Phases, one line each (or a few):
    ``--lora_epochs`` changed that reruns train-lora and eval-compose only,
    and the ``attack`` stage through ``cli.main.main`` in this process with
    every count read around it: 12 packed-attention launches of each
-   direction per FGSM or PGD step and batch, every other count 0.
+   direction per FGSM or PGD step and batch, every other count 0;
+8. the ``process`` stage, which needs OpenCV or PIL on this host: whether
+   ``cv2`` and PIL import; the stage in a fresh process (``python -m
+   <package>.cli --device cuda process``) over an empty ``--base_dir`` with
+   the four image corpora (rc 0, a header-only ``metadata.csv`` for each
+   split, each read by the loader as empty) and its wall; then a LISA-layout
+   fixture at LISA's size (6,610 JPEG frames of 640 x 480; ETL_BOXES: three
+   kept sign boxes a frame, each filled with a flat colour, one too small,
+   one of an unknown class) through ``cli.main.main`` in this process with
+   every kernel count read around it (all 0): its records (names, source,
+   classes), every crop 224 x 224 of one colour within ETL_JPEG_TOL of its
+   box's (decoded by the native decoder), crops/s and frames/s. The line
+   says which decoder ran.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -335,6 +351,20 @@ RUNNER_ARGS = ("--model", "google_vit", "--n_per_class", "4", "--epochs", "1",
                "--lora_epochs", "1", "--pgd_steps", "10", "--patch_iters", "20",
                "--rp2_iters", "20", "--aa_iters", "10", "--aa_queries", "100")
 RUNNER_STAGE_TIMEOUT_S = 300
+# phase 8: the raw-corpus ETL (the ``process`` stage) on the card's host: the four image corpora
+# (CURE-TSD decodes video and needs OpenCV even where its corpus is absent), then a LISA-layout
+# fixture at the LISA Traffic Sign Dataset's size (Mogelmose et al., IEEE T-ITS 13(4), 2012:
+# 6,610 frames, 640 x 480 the smallest), written as JPEG, with ETL_BOXES lines a frame: (LISA
+# class, YOLO x-center, y-center, width, height); the last two are dropped (too small, unknown
+# class). A crop may be ETL_JPEG_TOL LSB from its box's colour: JPEG's colour conversion rounds
+ETL_DATASETS = ("gtsrb-german-traffic-sign", "lisa-road-sign", "Mapillary",
+                "roboflow-traffic-signs-dataset")
+ETL_IMAGES, ETL_FRAME = 6610, (480, 640)
+ETL_JPEG_QUALITY, ETL_JPEG_TOL = 95, 2
+ETL_BOXES = ((35, 0.25, 0.3, 0.1, 0.15), (43, 0.6, 0.55, 0.2, 0.25), (13, 0.8, 0.2, 0.08, 0.1),
+             (35, 0.1, 0.9, 0.02, 0.03), (99, 0.5, 0.5, 0.3, 0.3))
+ETL_KEPT = {35: "stop", 43: "yield", 13: "speed_limit"}  # LISA's table for the classes used
+ETL_HEADER = b"image_path,source,original_class,unified_class\r\n"
 CODEC_SIZES = ((224, 224), (97, 113), (1, 1), (300, 400), (480, 640))
 CODEC_RATE_N = 64
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
@@ -499,7 +529,8 @@ class Smoke:
                            ("pretrained", "models.pretrained"), ("yolo", "models.yolo11"),
                            ("native", "utils.native"), ("synthetic", "data.synthetic"),
                            ("cli", "cli.main"), ("rr", "tools.run_robustness"),
-                           ("data_io", "data.io")):
+                           ("data_io", "data.io"), ("process", "data.process"),
+                           ("vocab", "utils.vocab")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2703,6 +2734,148 @@ class Smoke:
                   f"launches (= {depth} x {1 + steps} x {batches}), every other count 0; wall "
                   f"{wall:.1f} s {self.card}", flush=True)
 
+    # 8. the raw-corpus ETL on the card's host
+    def etl_fixture(self, raw: str, cv2) -> dict:
+        """A LISA-layout corpus (``lisa-road-sign/train/{images,labels}``) of
+        ETL_IMAGES JPEG frames, written by OpenCV where it imports, else by
+        PIL, on 8 threads: smooth noise, each kept sign box filled with a flat
+        colour of its own out to the 16-pixel grid plus one 16-pixel block, so
+        that every JPEG block a crop reads, and every block beside it (4:2:0
+        chroma upsampling reads those), is flat. Returns the expected crops:
+        file name -> (unified class, RGB colour)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        h, w = ETL_FRAME
+        images = os.path.join(raw, "lisa-road-sign", "train", "images")
+        labels = os.path.join(raw, "lisa-road-sign", "train", "labels")
+        os.makedirs(images)
+        os.makedirs(labels)
+
+        def frame(i: int) -> dict:
+            rng = np.random.default_rng((8, i))
+            low = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+            img = np.repeat(np.repeat(low, 16, 0), 16, 1).astype(np.int16)
+            img = np.clip(img + rng.integers(-6, 7, img.shape), 0, 255).astype(np.uint8)
+            lines, want = [], {}
+            for idx, (cls, xc, yc, bw, bh) in enumerate(ETL_BOXES):
+                lines.append(f"{cls} {xc} {yc} {bw} {bh}\n")
+                # the YOLO box in pixels, as the raw layout defines it
+                x1, x2 = max(0, int(xc * w - bw * w / 2)), min(w, int(xc * w + bw * w / 2))
+                y1, y2 = max(0, int(yc * h - bh * h / 2)), min(h, int(yc * h + bh * h / 2))
+                if cls in ETL_KEPT and min(x2 - x1, y2 - y1) >= 24:
+                    colour = rng.integers(0, 256, 3, dtype=np.uint8)
+                    img[max(0, (y1 - 16) // 16 * 16):-(-(y2 + 16) // 16) * 16,
+                        max(0, (x1 - 16) // 16 * 16):-(-(x2 + 16) // 16) * 16] = colour
+                    want[f"f{i:04d}_{idx}.png"] = (ETL_KEPT[cls], colour)
+            path = os.path.join(images, f"f{i:04d}.jpg")
+            if cv2 is not None:
+                check(cv2.imwrite(path, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY,
+                                                         ETL_JPEG_QUALITY]), f"write {path}")
+            else:
+                from PIL import Image
+                Image.fromarray(img).save(path, quality=ETL_JPEG_QUALITY)
+            with open(os.path.join(labels, f"f{i:04d}.txt"), "w") as f:
+                f.writelines(lines)
+            return want
+
+        want = {}
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            for got in pool.map(frame, range(ETL_IMAGES)):
+                want.update(got)
+        return want
+
+    def etl(self) -> None:
+        """The ``process`` stage on this host, which must have OpenCV or PIL:
+        which of them import; the stage in a fresh process over an empty
+        corpus root (rc 0, a header-only ``metadata.csv`` a split, each read by
+        the loader as empty); then over a LISA-layout JPEG fixture at LISA's
+        size through ``cli.main.main`` in this process with every kernel count
+        read around it (all 0): its records, every crop 224 x 224 of one colour
+        within ETL_JPEG_TOL of its box's, and crops/s."""
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        cv2 = self.process._cv2()
+        try:
+            import PIL
+            import PIL.Image  # noqa: F401
+            pil = PIL.__version__
+        except ImportError:
+            pil = None
+        print(f"phase 8 process decoders on this host: cv2 "
+              f"{f'{cv2.__version__} imports' if cv2 is not None else 'absent'}, PIL "
+              f"{f'{pil} imports' if pil is not None else 'absent'}", flush=True)
+        check(cv2 is not None or pil is not None, "phase 8 needs OpenCV or PIL on this host")
+        device = "cpu" if self.dev.type == "cpu" else "cuda"
+        stage = [sys.executable, "-m", f"{PKG}.cli", "--device", device, "process"]
+        with tempfile.TemporaryDirectory(prefix="apvt_etl_") as work:
+            empty, out = os.path.join(work, "empty"), os.path.join(work, "out_empty")
+            os.makedirs(empty)
+            t0 = time.perf_counter()
+            proc = subprocess.run([*stage, "--base_dir", empty, "--output_dir", out,
+                                   "--datasets", *ETL_DATASETS], cwd=HERE, capture_output=True,
+                                  text=True, timeout=RUNNER_STAGE_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"process over an empty root: rc {proc.returncode}\n"
+                  f"{proc.stdout}{proc.stderr}")
+            vocab = self.vocab.LabelVocabulary.from_classes(sorted(set(ETL_KEPT.values())))
+            for split in ("train", "val", "test"):
+                meta = os.path.join(out, split, "metadata.csv")
+                with open(meta, "rb") as f:
+                    check(f.read() == ETL_HEADER, f"process over an empty root: {split} metadata")
+                check(os.listdir(os.path.join(out, split, "images")) == [],
+                      f"process over an empty root: {split} images")
+                idx = self.loader.MetadataIndex(meta, vocab)
+                check(len(idx) == 0 and list(self.loader.Loader(idx, batch_size=BATCH)) == [],
+                      f"process over an empty root: the loader reads {split} as not empty")
+            print(f"phase 8 process over an empty corpus root ({len(ETL_DATASETS)} image corpora, "
+                  f"3 splits) in a fresh process: rc 0, header-only metadata.csv a split, each "
+                  f"read by the loader as empty; wall {wall:.2f} s (start-up included) {self.card}",
+                  flush=True)
+
+            raw, out = os.path.join(work, "raw"), os.path.join(work, "out")
+            t0 = time.perf_counter()
+            want = self.etl_fixture(raw, cv2)
+            setup = time.perf_counter() - t0
+            jpeg_mb = sum(e.stat().st_size for e in os.scandir(
+                os.path.join(raw, "lisa-road-sign", "train", "images"))) / 2 ** 20
+            args = ["--base_dir", raw, "--output_dir", out, "--datasets", "lisa-road-sign"]
+            branch = "cv2" if cv2 is not None else "PIL"
+            t0 = time.perf_counter()
+            rc, counts = self.counted(self.all_counters(),
+                                      lambda: self.cli.main(["--device", device, "process", *args]))
+            wall = time.perf_counter() - t0
+            check(rc == 0 and not any(counts.values()), f"process: rc {rc}, kernel counts {counts}")
+            meta = self.data_io.read_metadata(os.path.join(out, "train", "metadata.csv"))
+            names = [os.path.basename(p) for p in meta["image_path"]]
+            check(names == sorted(want) and set(meta["source"]) == {"lisa"}
+                  and list(meta["unified_class"]) == [want[n][0] for n in names],
+                  f"process records: {len(names)} of {len(want)}")
+
+            def crop_err(item) -> int:
+                path, name = item
+                with open(path, "rb") as f:
+                    crop = self.native.decode_png_rgb(f.read())
+                check(crop is not None and crop.shape == (224, 224, 3)
+                      and (crop == crop[0, 0]).all(), f"process crop {name}: not one colour")
+                return int(np.abs(crop[0, 0].astype(np.int16) - want[name][1]).max())
+
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                err = max(pool.map(crop_err, zip(meta["image_path"], names)))
+            check(err <= ETL_JPEG_TOL, f"process crops: {err} LSB from their boxes' colours, "
+                  f"limit {ETL_JPEG_TOL}")
+            print(f"phase 8 process branch: {branch}; LISA-layout fixture of {ETL_IMAGES} JPEG "
+                  f"frames of {ETL_FRAME[1]} x {ETL_FRAME[0]} (quality {ETL_JPEG_QUALITY}, "
+                  f"{jpeg_mb:.1f} MiB, written in {setup:.2f} s): {len(names)} crops, every crop "
+                  f"224 x 224 of one colour, at most {err} LSB from its box's (limit "
+                  f"{ETL_JPEG_TOL}), every kernel count 0; wall {wall:.2f} s, "
+                  f"{len(names) / wall:.1f} crops/s, {ETL_IMAGES / wall:.1f} frames/s {self.card}",
+                  flush=True)
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -2984,6 +3157,8 @@ def main(argv=None) -> None:
     # fresh process per stage) with the attack stage once in this process
     s.codec()
     s.runner()
+    # 8. the raw-corpus ETL on the card's host (no kernel)
+    s.etl()
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],

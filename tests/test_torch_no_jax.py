@@ -12,8 +12,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
 JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
-# the Swin / eval-compose, ConvNeXt, training, attack, model-zoo and file-stage slices; the walk
-# below must import each of them
+# the Swin / eval-compose, ConvNeXt, training, attack, model-zoo, file-stage and ETL slices; the
+# walk below must import each of them
 NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.metrics",
                "train.steps", "train.loop", "eval.compose",
                "kernels.dwconv", "kernels.mlp", "models.convnext",
@@ -25,7 +25,9 @@ NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.
                # the five-backbone zoo and the weight import
                "models.yolo11", "models.hf_import", "models.pretrained",
                # the native codec, the runner and the parity side
-               "utils.native", "tools.run_robustness", "tools.parity_e2e")
+               "utils.native", "tools.run_robustness", "tools.parity_e2e",
+               # the raw-corpus ETL
+               "data.process")
 
 
 def _sources():

@@ -6,6 +6,10 @@
   every stage that reads its outputs; a family added on resume trains that
   family alone; eval-compose always runs; a failed stage is retried once in
   a new process, then ends the run and leaves no marker.
+* Paths: a relative ``--workdir`` and ``--out`` are taken from the caller's
+  working directory (the stages run from the repository's root, so every
+  path handed to them is absolute); the default artifact names no committed
+  file.
 * One real ``--quick --device cpu`` run (``vit_test``, 32 px): eight stages,
   the 27-variant x 6-dataset matrix, a ``--resume`` run that reruns only
   eval-compose with the same accuracies; then the JAX CLI's ``eval-compose``
@@ -13,8 +17,11 @@
   ``test_results.json``: accuracies equal, F1 and loss within rtol 1e-4.
 """
 
+import glob
 import json
 import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -128,6 +135,53 @@ def test_a_failed_stage_is_retried_once_then_ends_the_run(tmp_path):
     assert not os.path.exists(tmp_path / "w" / "markers" / "attack-patch.json")
     rec, _ = _run(tmp_path, resume=True)
     assert rec.commands() == ["patch-attack", "train-lora", "eval-compose"]
+
+
+PATH_FLAGS = ("--output_dir", "--data_root", "--model_path", "--adv_root", "--lora_root",
+              "--stats_json")
+
+
+def test_a_relative_workdir_and_out_are_taken_from_the_callers_cwd(tmp_path, monkeypatch):
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    rec = Recorder()
+    art = rr.main(["--workdir", "relwd", "--out", "rel.json", "--device", "cpu"], launch=rec)
+    work = str(cwd / "relwd")
+    paths = [argv[i + 1] for argv in rec.calls for i, a in enumerate(argv[:-1]) if a in PATH_FLAGS]
+    # every stage gets its output directory; the model stages their data and checkpoint too
+    assert len(paths) >= 2 * len(STAGES)
+    for path in paths:
+        assert os.path.isabs(path) and path.startswith(work + os.sep), path
+    assert sorted(os.listdir(cwd / "relwd" / "markers")) == sorted(
+        [f"{k}.json" for k in rr.INPUTS] + [f"train-lora.{f}.json" for f in rr.FAMILIES])
+    assert os.path.exists(cwd / "relwd" / "eval" / "test_results.json")
+    with open(cwd / "rel.json") as f:
+        assert json.load(f)["matrix"] == art["matrix"] == {"base": {"clean": {"accuracy": 0.5}}}
+
+
+def _committed_files() -> set:
+    """The repository's files as git lists them, where the checkout is a git
+    work tree of its own; otherwise (an archive copy, perhaps inside another
+    repository) the committed robustness artifacts on disk."""
+    def git(*args):
+        return subprocess.run(["git", *args], cwd=rr.REPO, capture_output=True, text=True,
+                              check=True, timeout=60).stdout
+    try:
+        if os.path.realpath(git("rev-parse", "--show-toplevel").strip()) == \
+                os.path.realpath(rr.REPO):
+            return set(git("ls-files").splitlines())
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return {os.path.basename(p) for p in glob.glob(os.path.join(rr.REPO, "ROBUSTNESS*_r*.json"))}
+
+
+def test_the_default_artifact_names_no_committed_file():
+    default = rr.build_parser().get_default("out")
+    committed = _committed_files()
+    assert "ROBUSTNESS_r04.json" in committed  # the list is the repository's
+    assert os.path.basename(default) == default and default not in committed
+    assert not re.fullmatch(r"ROBUSTNESS\w*_r\d+\.json", default)
 
 
 def test_quick_run_on_the_cpu_and_the_jax_cli_reads_its_workdir(tmp_path, monkeypatch):
