@@ -75,3 +75,9 @@ def uint8_quantize(images) -> np.ndarray:
         images = images.detach().cpu().float().numpy()
     arr = np.clip(np.asarray(images), 0.0, 1.0)
     return (arr * 255.0).astype(np.uint8)
+
+
+def from_uint8(images: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1] on the host (the inverse grid of
+    :func:`uint8_quantize`)."""
+    return images.astype(np.float32) / 255.0

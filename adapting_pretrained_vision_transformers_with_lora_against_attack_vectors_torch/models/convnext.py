@@ -42,7 +42,7 @@ from ..kernels import mlp as _kmlp
 from ..kernels.dwconv import dwconv7
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
-from .vit import Leaves, _as_tensor, _sub
+from .vit import Leaves, _as_tensor, _plain_dense, _sub
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +178,7 @@ class Block(nn.Module):
             h = _dwconv_library(x, self.dwconv.w)
         h = _add_bias(h, self.dwconv.b)
         p1, p2 = self.pwconv1.tree(), self.pwconv2.tree()
-        if cfg.fuse_ln_mlp and kernel_dtype and "lora_a" not in p1 and "lora_a" not in p2:
+        if cfg.fuse_ln_mlp and kernel_dtype and _plain_dense(p1) and _plain_dense(p2):
             h = _kmlp.ln_mlp(h, self.norm.scale, self.norm.bias, p1["w"], p1["b"],
                              p2["w"], p2["b"], cfg.layer_norm_eps)
         else:

@@ -40,7 +40,7 @@ from ..kernels.mlp import mlp
 from ..kernels.window_attention import window_attention
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
-from .vit import Leaves, _as_tensor, _sub
+from .vit import Leaves, _as_tensor, _plain_dense, _sub
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +207,7 @@ class Block(nn.Module):
         h = layer_norm(self.ln2.tree(), x, eps=eps)
         fc1, fc2 = self.mlp["fc1"].tree(), self.mlp["fc2"].tree()
         if (self.cfg.use_fused_mlp and cd == torch.bfloat16
-                and "lora_a" not in fc1 and "lora_a" not in fc2):
+                and _plain_dense(fc1) and _plain_dense(fc2)):
             return x + mlp(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
         h = gelu(dense(fc1, h, compute_dtype=cd))
         return x + dense(fc2, h, compute_dtype=cd)

@@ -25,7 +25,8 @@ library LN2 to :func:`..kernels.mlp.mlp`. On a CUDA tensor a wrapper launches
 the hand-written kernel, and a shape the kernel does not take, a failed build
 or a failed launch raises (nothing gives way to the library path); on a CPU
 tensor it runs the kernel's plain version. A half whose denses carry
-unmerged LoRA factors (``lora_a``) takes the unfused path for that half, so
+unmerged LoRA factors (``lora_a``) or a W8A8 quantized form (``w_q``,
+:mod:`..ops.quant`) takes the unfused path for that half, so
 with the default q/k/v/o adapter targets ``fuse_attn_block`` leaves the
 attention half unfused and still fuses the MLP half. With f32 compute the
 fields do nothing, as in JAX. There is no memory gate. ``remat`` recomputes
@@ -99,6 +100,10 @@ VIT_TEST = ViTConfig(image_size=32, patch_size=8, hidden_dim=64, depth=2,
 # LoRA target subtrees (PEFT's query/key/value/output.dense); one path covers
 # every stacked layer.
 LORA_TARGETS_DEFAULT = ("blocks/attn/q", "blocks/attn/k", "blocks/attn/v", "blocks/attn/o")
+# the W8A8 attack-path targets (ops/quant.py): the denses that carry nearly
+# all of the encoder's operations; the patch embedding and the head stay float
+QUANT_TARGETS_DEFAULT = ("blocks/attn/q", "blocks/attn/k", "blocks/attn/v",
+                         "blocks/attn/o", "blocks/mlp/fc1", "blocks/mlp/fc2")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -182,6 +187,12 @@ class Leaves(nn.Module):
         return out
 
 
+def _plain_dense(p: Mapping) -> bool:
+    """A dense the fused kernels can take: a float ``w``, neither unmerged
+    LoRA factors (``lora_a``) nor a W8A8 quantized form (``w_q``)."""
+    return "lora_a" not in p and "w_q" not in p
+
+
 def _sub(flat: Mapping[str, torch.Tensor], prefix: str) -> dict:
     n = len(prefix) + 1
     return {p[n:]: v for p, v in flat.items() if p.startswith(prefix + "/")}
@@ -203,7 +214,7 @@ class Block(nn.Module):
         cfg, cd, eps = self.cfg, x.dtype, self.cfg.layer_norm_eps
         kernel_dtype = cd == torch.bfloat16  # the JAX gate: 2-byte compute dtypes only
         ap = {t: self.attn[t].tree() for t in ("q", "k", "v", "o")}
-        if cfg.fuse_attn_block and kernel_dtype and all("lora_a" not in p for p in ap.values()):
+        if cfg.fuse_attn_block and kernel_dtype and all(_plain_dense(p) for p in ap.values()):
             ln1 = self.ln1.tree()
             x = x + attn_block(x, ln1["scale"], ln1["bias"], ap["q"]["w"], ap["q"]["b"],
                                ap["k"]["w"], ap["k"]["b"], ap["v"]["w"], ap["v"]["b"],
@@ -214,7 +225,7 @@ class Block(nn.Module):
             x = x + dense(ap["o"], attention_packed(q, k, v, cfg.num_heads), compute_dtype=cd)
 
         fc1, fc2 = self.mlp["fc1"].tree(), self.mlp["fc2"].tree()
-        plain_mlp = kernel_dtype and "lora_a" not in fc1 and "lora_a" not in fc2
+        plain_mlp = kernel_dtype and _plain_dense(fc1) and _plain_dense(fc2)
         ln2 = self.ln2.tree()
         if (cfg.fuse_attn_block or cfg.fuse_ln_mlp) and plain_mlp:
             return x + ln_mlp(x, ln2["scale"], ln2["bias"], fc1["w"], fc1["b"], fc2["w"],

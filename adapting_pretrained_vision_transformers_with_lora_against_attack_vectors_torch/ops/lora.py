@@ -133,3 +133,7 @@ def merge_many(params, adapters: Sequence[Mapping], cfgs: Sequence[LoRAConfig]):
     for adapter, cfg in zip(adapters, cfgs):
         out = merge(out, adapter, cfg)
     return out
+
+
+def num_params(adapter: Mapping) -> int:
+    return trees.tree_count_params(adapter)

@@ -31,6 +31,8 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 
+from .quant import int8_matmul
+
 Params = Mapping[str, Any]
 
 DROPOUT_MODES = ("input", "post_a")
@@ -104,6 +106,12 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dense(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """Linear layer ``x @ W + b`` with the optional unmerged-LoRA branch."""
     cd = compute_dtype or x.dtype
+    if "w_q" in p:
+        # the W8A8 attack-time path: f32 product and bias, one rounding to cd
+        y = int8_matmul(x.to(cd), p["w_q"], p["w_s"])
+        if "b" in p:
+            y = y + p["b"].float()
+        return y.to(cd)
     w = p["w"].to(cd)
     xc = x.to(cd)
     if "lora_a" not in p:

@@ -56,6 +56,14 @@ _CLASSIFIER_KEYS = ("base_model.model.classifier.weight",
                     "base_model.model.classifier.modules_to_save.default.weight")
 
 
+def peft_targets_to_paths(target_modules) -> tuple[str, ...]:
+    """Expand PEFT ``target_modules`` (suffix-matched) into framework paths."""
+    paths: list[str] = []
+    for t in target_modules:
+        paths += [p for p, name in _PATH_TO_TARGET.items() if name == t and p not in paths]
+    return tuple(paths)
+
+
 def paths_to_peft_targets(paths) -> list[str]:
     out: list[str] = []
     for p in paths:

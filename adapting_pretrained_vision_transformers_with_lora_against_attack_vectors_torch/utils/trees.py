@@ -8,7 +8,11 @@ tree; inputs are never modified. Leaves may be torch tensors or numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+import math
+from typing import Any, Callable, Iterator, Mapping
+
+import numpy as np
+import torch
 
 Tree = Any
 
@@ -81,6 +85,51 @@ def set_path(tree: Tree, path: str, value: Any, *, sep: str = "/") -> Tree:
 def update_path(tree: Tree, path: str, fn: Callable[[Any], Any], *, sep: str = "/") -> Tree:
     """Return a copy of ``tree`` with ``fn`` applied to the node at ``path``."""
     return set_path(tree, path, fn(get_path(tree, path, sep=sep)), sep=sep)
+
+
+def iter_paths(tree: Tree, *, sep: str = "/") -> Iterator[str]:
+    yield from flatten_with_paths(tree, sep=sep)
+
+
+def match_paths(tree: Tree, suffixes: tuple[str, ...], *, sep: str = "/") -> list[str]:
+    """Paths of dict *subtrees* whose final component matches one of ``suffixes``
+    (suffix ``"q"`` matches ``"blocks/attn/q"``, whose leaves are
+    ``.../q/w`` and ``.../q/b``), sorted."""
+    hits = set()
+    for leaf_path in flatten_with_paths(tree, sep=sep):
+        parts = leaf_path.split(sep)
+        for i, part in enumerate(parts[:-1]):
+            if part in suffixes:
+                hits.add(sep.join(parts[: i + 1]))
+    return sorted(hits)
+
+
+def _leaves(tree: Tree) -> list:
+    return list(flatten_with_paths(tree).values())
+
+
+def tree_size_bytes(tree: Tree) -> int:
+    """Bytes of every tensor or array leaf."""
+    return sum(leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
+               else leaf.size * leaf.dtype.itemsize for leaf in _leaves(tree))
+
+
+def tree_count_params(tree: Tree) -> int:
+    return sum(math.prod(leaf.shape) for leaf in _leaves(tree))
+
+
+def cast_tree(tree: Tree, dtype) -> Tree:
+    """Cast the floating-point leaves to ``dtype`` (a torch dtype for tensors,
+    a numpy dtype for arrays); integer and bool leaves stay as they are."""
+
+    def cast(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(dtype) if leaf.is_floating_point() else leaf
+        if hasattr(leaf, "dtype") and np.issubdtype(leaf.dtype, np.floating):
+            return leaf.astype(dtype)
+        return leaf
+
+    return map_leaves(cast, tree)
 
 
 def map_leaves(fn: Callable[[Any], Any], tree: Tree) -> Tree:

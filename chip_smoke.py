@@ -67,8 +67,13 @@ the hand-written kernels:
   (``RUNNER_ARGS``), then the ``attack`` stage once in this process;
 * the raw-corpus ETL, the ``process`` stage (``data/process.py``: host code,
   no kernel), on the card's host: over an empty corpus root, then over a
-  LISA-layout fixture of 64 frames of 640 x 480 written by the native
-  encoder; it decodes through OpenCV or PIL, whichever imports.
+  LISA-layout fixture at LISA's size (6,610 JPEG frames of 640 x 480); it
+  decodes through OpenCV or PIL, whichever imports;
+* the W8A8 attack path (``ops/quant.py``: int8 weights per output channel,
+  int8 activations per row, ``torch._int_mm``) on the merged ViT-B/16 through
+  PGD-10 at batch 64 beside the bf16 tree, its three kernel fields bypassed,
+  BiLoRA's delta through cuFFT, and the two example workflows
+  (``examples/*_torch.py``) on the card.
 
 Phases, one line each (or a few):
 
@@ -216,7 +221,25 @@ Phases, one line each (or a few):
    every kernel count read around it (all 0): its records (names, source,
    classes), every crop 224 x 224 of one colour within ETL_JPEG_TOL of its
    box's (decoded by the native decoder), crops/s and frames/s. The line
-   says which decoder ran.
+   says which decoder ran;
+9. the W8A8 path and BiLoRA: ``int8_matmul`` on the card equal to the same
+   inputs on the CPU bit for bit (the weight's int8 form and scales, the
+   output, dx) at INT8_SHAPES (the ViT-B dense shapes at B=64 and one that
+   the wrapper pads), with its times in turns beside ``torch._int_mm`` in
+   both weight layouts, the layout copy, the quantizer and bf16
+   ``F.linear``; PGD-10 on the ViT-B quantized over
+   ``vit.QUANT_TARGETS_DEFAULT`` beside the bf16 tree on the bf16 model's own
+   labels (packed-attention launches read around each, equal, every other
+   count 0; output finite, in [0, 1], in the eps-ball, moved; input-gradient
+   sign agreement above INT8_SIGN_AGREE; the bf16 model's accuracy on each
+   attack's images; images/s of both in turns); the quantized tree with
+   ``fuse_attn_block``, ``fuse_ln_mlp``, ``use_fused_mlp``: no ``attn_block``
+   or fused-MLP launch, logits equal fields off bit for bit; one warm int8
+   PGD-10 call inside ``utils.observability.profile_trace`` (the trace file
+   and its device time by group); BiLoRA's delta at (12, 768, 768) and its
+   coefficients' gradients on the card against the CPU within BILORA_RTOL;
+   both example workflows' ``main`` on the card, their lines, walls and
+   trends.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -238,7 +261,8 @@ then off);
 off and then on; ``--profile train_swin|train_convnext`` one warm step of
 each of that backbone's TRAIN_RUNS; ``--profile patch|square`` one warm call of 20 ViT-B
 patch-training iterations (B=16) or 50 Square queries (B=64), with the
-top kernels by name. It prints no result lines.
+top kernels by name; ``--profile int8`` one warm ViT-B PGD-10 call in bf16
+and one W8A8, with the top kernels. It prints no result lines.
 """
 
 from __future__ import annotations
@@ -249,6 +273,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -367,6 +392,40 @@ ETL_KEPT = {35: "stop", 43: "yield", 13: "speed_limit"}  # LISA's table for the 
 ETL_HEADER = b"image_path,source,original_class,unified_class\r\n"
 CODEC_SIZES = ((224, 224), (97, 113), (1, 1), (300, 400), (480, 640))
 CODEC_RATE_N = 64
+# phase 9: int8_matmul (M, K, N) at the ViT-B/16 dense shapes at B=64 (64 x 197 rows: q/k/v/o,
+# fc1, fc2), then one that misses every limit of cuBLASLt's int8 GEMM (M <= 16, K and N not
+# multiples of 8), which the wrapper pads; the input-gradient sign agreement of the W8A8 ViT-B
+# with the bf16 one (the JAX package's tests/test_quant.py limit); BiLoRA's delta at ViT-B's
+# stacked q weight (a task id whose uint32 seed wraps) against the CPU, relative to max|CPU|
+INT8_SHAPES = ((12608, 768, 768), (12608, 768, 3072), (12608, 3072, 768), (16, 50, 36))
+INT8_SIGN_AGREE = 0.95
+BILORA_SHAPE, BILORA_N_FRQ, BILORA_TASK, BILORA_RTOL = (12, 768, 768), 100, 3, 1e-5
+DEMOS = ("examples/sequential_lora_demo_torch.py", "examples/bilora_fashion_demo_torch.py")
+# --profile: device time by kernel group, first match wins (one group per device function of
+# this repo, then the library's)
+TRACE_GROUPS = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
+                ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
+                ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
+                ("attn_block heads fwd: LN, q/k/v, attention (this repo)", r"heads_fwd"),
+                ("attn_block o-projection fwd (this repo)", r"oproj_fwd"),
+                ("attn_block heads bwd: recompute, da, attention bwd (this repo)", r"heads_bwd"),
+                ("attn_block dh + LN backward (this repo)", r"dh_bwd"),
+                ("window attention fwd (this repo)", r"win_fwd"),
+                ("window attention bwd (this repo)", r"win_bwd"),
+                ("packed attention fwd (this repo)", r"attn_fwd"),
+                ("packed attention bwd (this repo)", r"attn_bwd"),
+                ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
+                ("int8 GEMMs (cuBLASLt, _int_mm)", r"s8s8|i8i8|imma|[Ii]nt8|_s8|_i8"),
+                ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
+                ("optimizer (foreach Adam/AdamW)", r"multi_tensor|adam|Adam"),
+                ("grid_sample (augmentation)", r"grid_sampler"),
+                ("softmax, cross-entropy", r"softmax|nll_loss"),
+                ("LayerNorm", r"layer_norm|LayerNorm"), ("GELU", r"[Gg]elu"),
+                ("round, clamp, abs, row max, div (W8A8 quantizers; PGD's clamps)",
+                 r"round|clamp|abs_kernel|MaxNan|amax|div_true|DivFunctor"),
+                ("copies, casts, cat", r"copy|Copy|cat|Cat|direct_copy|convert"),
+                ("index_select / index_add", r"index"),
+                ("other elementwise, fills, reductions", r".*"))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -530,7 +589,8 @@ class Smoke:
                            ("native", "utils.native"), ("synthetic", "data.synthetic"),
                            ("cli", "cli.main"), ("rr", "tools.run_robustness"),
                            ("data_io", "data.io"), ("process", "data.process"),
-                           ("vocab", "utils.vocab")):
+                           ("vocab", "utils.vocab"), ("quant", "ops.quant"),
+                           ("bilora", "ops.bilora"), ("observability", "utils.observability")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2876,6 +2936,211 @@ class Smoke:
                   f"{len(names) / wall:.1f} crops/s, {ETL_IMAGES / wall:.1f} frames/s {self.card}",
                   flush=True)
 
+    # 9. the W8A8 attack path, BiLoRA and the example workflows
+    def int8_vs_cpu(self) -> None:
+        """``int8_matmul`` on the card against the same inputs on the CPU, bit
+        for bit (the weight's int8 form and scales, the output, dx), at
+        INT8_SHAPES; then each ViT-B shape's times in turns, best of three:
+        the op forward and dx, its per-row quantizer, ``torch._int_mm`` with
+        the weight column-major (the wrapper's layout) and row-major, the copy
+        that makes it column-major, and bf16 ``F.linear`` forward and dx."""
+        import torch
+        import torch.nn.functional as F
+
+        quant = self.quant
+        gen = torch.Generator(self.dev).manual_seed(9)
+        for m, k, n in INT8_SHAPES:
+            x = torch.randn(m, k, generator=gen, device=self.dev).bfloat16()
+            w = torch.randn(k, n, generator=gen, device=self.dev) * k ** -0.5
+            g = torch.randn(m, n, generator=gen, device=self.dev)
+            outs = []  # the card's, then the CPU's
+            for dev in (self.dev, torch.device("cpu")):
+                w_q, w_s = quant.quantize_weight(w.to(dev))
+                xd = x.to(dev).requires_grad_()
+                y = quant.int8_matmul(xd, w_q, w_s)
+                (dx,) = torch.autograd.grad(y, xd, g.to(dev))
+                outs.append([t.detach().cpu() for t in (w_q, w_s, y, dx)])
+            for what, a, b in zip(("w_q", "w_s", "y", "dx"), *outs):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"int8_matmul {m}x{k}x{n} {what}: the card's differs from the CPU's "
+                      f"(max |diff| {float((a.float() - b.float()).abs().max()):.3e})")
+            print(f"phase 9 int8_matmul (M, K, N) = ({m}, {k}, {n}), x bf16: w_q, w_s, y and dx "
+                  f"on the card equal the CPU's bit for bit", flush=True)
+            if m <= 16:
+                continue
+            w_q, w_s = quant.quantize_weight(w)
+            q_x, _ = quant._quantize_act(x)
+            w_qt, wb, gb = w_q.t().contiguous(), w.bfloat16(), g.bfloat16()
+            with torch.no_grad():
+                best = rivals({
+                    "int8_matmul fwd": lambda: quant.int8_matmul(x, w_q, w_s),
+                    "int8_matmul dx": lambda: quant._input_grad(g, w_q, w_s, x.dtype),
+                    "quantize x per row": lambda: quant._quantize_act(x),
+                    "_int_mm w column-major": lambda: torch._int_mm(q_x, w_qt.t()),
+                    "_int_mm w row-major": lambda: torch._int_mm(q_x, w_q),
+                    "copy of w_q^T": lambda: w_q.t().contiguous(),
+                    "bf16 F.linear fwd": lambda: F.linear(x, wb.t()),
+                    "bf16 F.linear dx": lambda: F.linear(gb, wb)})
+            print(f"phase 9 int8 times ({m}, {k}, {n}) {self.card}: "
+                  + ", ".join(f"{what} {ms:.4f} ms" for what, ms in best.items()), flush=True)
+
+    def int8_pgd(self, entry, cfg, model_tree, normalize, model, x_u8, own):
+        """PGD-10 on the merged bf16 ViT-B quantized over QUANT_TARGETS_DEFAULT
+        (``bench.py``'s int8 unit) beside the bf16 tree, labelled by the bf16
+        model's own predictions: the packed-attention launches of both (counts
+        set to 0 just before, read just after) the same exact count and every
+        other count 0; the int8 attack's images finite, in [0, 1], in the
+        eps-ball and moved; the sign agreement of the two trees' input
+        gradients above INT8_SIGN_AGREE; the bf16 model's accuracy on each
+        attack's images (the attack-strength comparison); images/s of both in
+        turns. Returns (quantized tree, quantized model, ``run(model)``)."""
+        import torch
+
+        common = self.common
+        qtree = self.quant.quantize_dense_tree(model_tree, self.vit.QUANT_TARGETS_DEFAULT)
+        qmodel = entry.from_tree(qtree, cfg)
+        pgd = self.make_pgd(entry, cfg, normalize)
+
+        def run(m):
+            return pgd(m, x_u8, own, torch.Generator(self.dev).manual_seed(1))
+
+        counters = self.vit_counters()
+        adv_b, l_b = self.counted(counters, lambda: run(model))
+        adv_q, l_q = self.counted(counters, lambda: run(qmodel))
+        per = cfg.depth * PGD_STEPS
+        want = {**{k: 0 for k in counters}, "packed_fwd": per, "packed_bwd": per}
+        check(l_b == want and l_q == l_b,
+              f"int8 PGD: kernel counts {l_q}, the bf16 tree's {l_b} (want {want})")
+        clean = common.to_unit_floats(x_u8)
+        moved = float((adv_q - clean).abs().max())
+        check(bool(torch.isfinite(adv_q).all()) and adv_q.shape == clean.shape, "int8 PGD output")
+        check(float(adv_q.min()) >= 0.0 and float(adv_q.max()) <= 1.0, "int8 PGD outside [0,1]")
+        check(moved <= EPS + 1e-6 and moved > 1e-4, f"int8 PGD: max |adv - x| {moved}")
+
+        def input_grad(m):
+            with common.frozen(m), torch.enable_grad():
+                xg = clean.clone().requires_grad_()
+                loss = common.sum_cross_entropy(entry.apply(cfg, m, normalize(xg)), own)
+                return torch.autograd.grad(loss, xg)[0]
+
+        agree = float((torch.sign(input_grad(model)) == torch.sign(input_grad(qmodel)))
+                      .float().mean())
+        check(agree > INT8_SIGN_AGREE, f"int8 input-gradient sign agreement {agree:.4f}")
+        with torch.no_grad():
+            acc = [float((entry.apply(cfg, m, normalize(x)).argmax(-1) == own).float().mean())
+                   for m, x in ((qmodel, clean), (model, adv_b), (model, adv_q))]
+        print(f"phase 9 int8 PGD-{PGD_STEPS} google_vit+LoRA B={BATCH}, W8A8 over "
+              f"{len(self.vit.QUANT_TARGETS_DEFAULT)} denses a block: launches {l_q} (the bf16 "
+              f"tree's the same), sign agreement of the input gradient with the bf16 tree "
+              f"{agree:.4f} (limit {INT8_SIGN_AGREE}), max |adv - x| {moved:.5f}; accuracy on "
+              f"the bf16 model's own labels: int8 model clean {acc[0]:.4f}, bf16 model on the "
+              f"bf16 attack's images {acc[1]:.4f}, on the int8 attack's images {acc[2]:.4f}",
+              flush=True)
+        best = rivals({"bf16": lambda: run(model), "int8": lambda: run(qmodel)}, iters=2)
+        print(f"phase 9 PGD-{PGD_STEPS} google_vit+LoRA B={BATCH} in turns {self.card}: "
+              + ", ".join(f"{label} {ms:.2f} ms/batch, {BATCH * 1000 / ms:.2f} images/s"
+                          for label, ms in best.items()), flush=True)
+        return qtree, qmodel, run
+
+    def int8_gates(self, entry, cfg, qtree, qmodel, normalize, x_u8) -> None:
+        """The quantized ViT-B with each kernel field on: the fused kernels
+        are bypassed (attn_block and both fused MLPs launch 0 times, packed
+        attention once a block) and the logits equal the fields-off ones bit
+        for bit."""
+        import torch
+
+        x = normalize(self.common.to_unit_floats(x_u8))
+        counters = self.vit_counters()
+        want_l = {**{k: 0 for k in counters}, "packed_fwd": cfg.depth}
+        with torch.no_grad():
+            want = entry.apply(cfg, qmodel, x)
+            for field in ("fuse_attn_block", "fuse_ln_mlp", "use_fused_mlp"):
+                fcfg = dataclasses.replace(cfg, **{field: True})
+                m = entry.from_tree(qtree, fcfg)
+                got, launches = self.counted(counters, lambda: entry.apply(fcfg, m, x))
+                check(launches == want_l, f"int8 with {field}: kernel counts {launches}")
+                check(torch.equal(got, want), f"int8 with {field}: logits differ from fields off")
+        print("phase 9 int8 gates: fuse_attn_block, fuse_ln_mlp, use_fused_mlp on the quantized "
+              f"ViT-B: attn_block and fused-MLP launches 0, logits equal fields off bit for bit "
+              f"(B={BATCH})", flush=True)
+
+    def int8_trace(self, run, qmodel) -> None:
+        """One warm int8 PGD-10 call inside ``utils.observability.profile_trace``:
+        the trace file it writes, and the trace's device time by group."""
+        log_dir = os.path.join(self.build_mod.build_dir(), "int8_trace")
+        shutil.rmtree(log_dir, ignore_errors=True)
+        wall_ms = cuda_ms(lambda: run(qmodel), 2)
+        with self.observability.profile_trace(log_dir) as prof:
+            run(qmodel)
+        written = os.listdir(log_dir)
+        check(len(written) == 1 and written[0].endswith(".pt.trace.json"),
+              f"profile_trace wrote {written}")
+        self.trace_summary("phase 9 trace (profile_trace)", f"int8 PGD-{PGD_STEPS} B={BATCH}",
+                           prof, wall_ms, top=True)
+
+    def bilora_vs_cpu(self) -> None:
+        """BiLoRA's delta (cuFFT) and its coefficients' gradients under a
+        random cotangent on the card against the CPU, within BILORA_RTOL of
+        the CPU's max; then their times."""
+        import torch
+
+        bilora = self.bilora
+        g = torch.Generator().manual_seed(12)
+        *lead, d_in, d_out = BILORA_SHAPE
+        fac = {k: torch.randn(*lead, BILORA_N_FRQ, generator=g) * 0.1 for k in ("re", "im")}
+        cot = torch.randn(BILORA_SHAPE, generator=g)
+        pos = bilora._positions(BILORA_TASK, BILORA_N_FRQ, d_in, d_out)
+        outs = []  # the card's, then the CPU's
+        for dev in (self.dev, torch.device("cpu")):
+            f = {k: v.to(dev).requires_grad_() for k, v in fac.items()}
+            d = bilora.delta(f, pos, BILORA_SHAPE, 1.0)
+            (d * cot.to(dev)).sum().backward()
+            outs.append([t.detach().cpu() for t in (d, f["re"].grad, f["im"].grad)])
+        errs = []
+        for what, a, b in zip(("delta", "d re", "d im"), *outs):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= BILORA_RTOL * scale, f"BiLoRA {what}: {err:.3e} against max {scale:.3e}")
+            errs.append(f"{what} {err:.3e} (max {scale:.3e})")
+        f = {k: v.to(self.dev).requires_grad_() for k, v in fac.items()}
+        cot = cot.to(self.dev)
+
+        def fwd_bwd():
+            (bilora.delta(f, pos, BILORA_SHAPE, 1.0) * cot).sum().backward()
+
+        best = rivals({"delta": lambda: bilora.delta(f, pos, BILORA_SHAPE, 1.0),
+                       "delta + coefficient gradients": fwd_bwd})
+        print(f"phase 9 BiLoRA {BILORA_SHAPE} n_frq {BILORA_N_FRQ} task {BILORA_TASK}: card vs "
+              f"CPU max |err| " + ", ".join(errs) + f" (limit {BILORA_RTOL} x max); times "
+              f"{self.card}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in best.items()),
+              flush=True)
+
+    def demos(self) -> None:
+        """Both example workflows' ``main`` on the card: their lines, their
+        walls, and the trends the CPU tests check."""
+        import importlib.util
+        import io
+
+        for path in DEMOS:
+            name = os.path.basename(path)[:-3]
+            spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, path))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(["--device", str(self.dev)])
+            wall = time.perf_counter() - t0
+            for line in buf.getvalue().splitlines():
+                print(f"phase 9 demo {name}: {line}")
+            if name.startswith("sequential"):
+                check(out[2]["noisy"] >= out[0]["noisy"] and out[1]["clean"] > out[0]["clean"],
+                      f"{name}: accuracies {out}")
+            else:
+                check(out["losses"][-1] < out["losses"][0] and out["bilora"] > out["base"],
+                      f"{name}: {out}")
+            print(f"phase 9 demo {name}: wall {wall:.2f} s (host clock, data set-up included) "
+                  f"{self.card}", flush=True)
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -2919,6 +3184,12 @@ class Smoke:
         elif name == "yolo11-cls":
             entry, cfg, model, _, normalize, _ = self.model(name)
             runs = {"no kernel of this repo": (cfg, model)}
+        elif name == "int8":
+            entry, cfg, model, _, normalize, model_tree = self.model(
+                "google_vit", self.vit, "attention_packed", self.ka.attention_packed_reference)
+            qtree = self.quant.quantize_dense_tree(model_tree, self.vit.QUANT_TARGETS_DEFAULT)
+            runs = {"bf16, fields off": (cfg, model),
+                    "W8A8 over QUANT_TARGETS_DEFAULT": (cfg, entry.from_tree(qtree, cfg))}
         elif name == "convnext":
             entry, cfg, _, _, normalize, model_tree = self.model(name, kernel_fields=CONVNEXT_KERNELS)
             runs = {label: v for label, v in self.convnext_variants(entry, cfg, model_tree).items()
@@ -2944,67 +3215,54 @@ class Smoke:
                 return lambda: pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
             calls = {label: pgd_call(vcfg, model) for label, (vcfg, model) in runs.items()}
-        groups = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
-                  ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
-                  ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
-                  ("attn_block heads fwd: LN, q/k/v, attention (this repo)", r"heads_fwd"),
-                  ("attn_block o-projection fwd (this repo)", r"oproj_fwd"),
-                  ("attn_block heads bwd: recompute, da, attention bwd (this repo)",
-                   r"heads_bwd"),
-                  ("attn_block dh + LN backward (this repo)", r"dh_bwd"),
-                  ("window attention fwd (this repo)", r"win_fwd"),
-                  ("window attention bwd (this repo)", r"win_bwd"),
-                  ("packed attention fwd (this repo)", r"attn_fwd"),
-                  ("packed attention bwd (this repo)", r"attn_bwd"),
-                  ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
-                  ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
-                  ("optimizer (foreach Adam/AdamW)", r"multi_tensor|adam|Adam"),
-                  ("grid_sample (augmentation)", r"grid_sampler"),
-                  ("softmax, cross-entropy", r"softmax|nll_loss"),
-                  ("LayerNorm", r"layer_norm|LayerNorm"), ("GELU", r"[Gg]elu"),
-                  ("copies, casts, cat", r"copy|Copy|cat|Cat|direct_copy|convert"),
-                  ("index_select / index_add", r"index"),
-                  ("other elementwise, fills, reductions", r".*"))
         for label, call in calls.items():
             wall_ms = cuda_ms(call, 2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 call()
                 torch.cuda.synchronize()
-            totals = {g: [0.0, 0] for g, _ in groups}
-            by_name: dict = {}
-            spans = []
-            for ev in prof.events():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                dur = ev.time_range.end - ev.time_range.start  # microseconds
-                group = next(g for g, pat in groups if re.search(pat, ev.name))
-                totals[group][0] += dur / 1e3
-                totals[group][1] += 1
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + dur / 1e3
-                spans.append((ev.time_range.start, ev.time_range.end))
-            check(spans, "the profiler recorded no device activity")
-            spans.sort()
-            busy, (lo, hi) = 0.0, spans[0]
-            for a, b in spans[1:]:
-                if a > hi:
-                    busy, lo, hi = busy + (hi - lo), a, b
-                else:
-                    hi = max(hi, b)
-            busy = (busy + hi - lo) / 1e3
-            total = sum(v[0] for v in totals.values())
-            print(f"profile {name} ({label}) {what} {self.card}: "
-                  f"unprofiled {wall_ms:.2f} ms/call; one traced call: device busy "
-                  f"{busy:.2f} ms (union of {len(spans)} kernel intervals), kernel time "
-                  f"{total:.2f} ms, idle share of the unprofiled wall "
-                  f"{max(0.0, 1 - busy / wall_ms):.1%}")
-            for group, (ms, calls) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
-                if calls:
-                    print(f"profile {name} ({label}):   {group:40s} {ms:9.2f} ms "
-                          f"{ms / total:6.1%}  {calls} calls", flush=True)
-            if name in ("patch", "square", "yolo11-cls"):  # few or no kernels of this repo
-                for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-                    print(f"profile {name} ({label}):     top kernel {ms:9.2f} ms  {kernel[:120]}",
-                          flush=True)
+            self.trace_summary(f"profile {name} ({label})", what, prof, wall_ms,
+                               top=name in ("patch", "square", "yolo11-cls", "int8"))
+
+    def trace_summary(self, head: str, what: str, prof, wall_ms: float, top: bool) -> None:
+        """Print a profiler's device time by kernel group (TRACE_GROUPS), the
+        union of its kernel intervals against the unprofiled wall (the idle
+        share), and with ``top`` the ten longest kernels by name."""
+        import torch
+
+        totals = {g: [0.0, 0] for g, _ in TRACE_GROUPS}
+        by_name: dict = {}
+        spans = []
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dur = ev.time_range.end - ev.time_range.start  # microseconds
+            group = next(g for g, pat in TRACE_GROUPS if re.search(pat, ev.name))
+            totals[group][0] += dur / 1e3
+            totals[group][1] += 1
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + dur / 1e3
+            spans.append((ev.time_range.start, ev.time_range.end))
+        check(spans, "the profiler recorded no device activity")
+        spans.sort()
+        busy, (lo, hi) = 0.0, spans[0]
+        for a, b in spans[1:]:
+            if a > hi:
+                busy, lo, hi = busy + (hi - lo), a, b
+            else:
+                hi = max(hi, b)
+        busy = (busy + hi - lo) / 1e3
+        total = sum(v[0] for v in totals.values())
+        print(f"{head} {what} {self.card}: "
+              f"unprofiled {wall_ms:.2f} ms/call; one traced call: device busy "
+              f"{busy:.2f} ms (union of {len(spans)} kernel intervals), kernel time "
+              f"{total:.2f} ms, idle share of the unprofiled wall "
+              f"{max(0.0, 1 - busy / wall_ms):.1%}")
+        for group, (ms, calls) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
+            if calls:
+                print(f"{head}:   {group:40s} {ms:9.2f} ms "
+                      f"{ms / total:6.1%}  {calls} calls", flush=True)
+        if top:  # few or no kernels of this repo
+            for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+                print(f"{head}:     top kernel {ms:9.2f} ms  {kernel[:120]}", flush=True)
 
 
 def main(argv=None) -> None:
@@ -3015,12 +3273,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", choices=("google_vit", "swin", "convnext", "yolo11-cls", "train",
                                           "train_lora", "train_swin", "train_convnext", "patch",
-                                          "square"),
+                                          "square", "int8"),
                     default=None,
                     help="trace one warm PGD-10 call of this backbone (or one warm ViT-B training "
                          "step, fields off and on; or one warm step of each Swin-B or ConvNeXt-B "
-                         "training run; or ViT-B patch training or Square queries) instead of the "
-                         "smoke run")
+                         "training run; or ViT-B patch training or Square queries; or ViT-B PGD-10 "
+                         "in bf16 and W8A8) instead of the smoke run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3159,6 +3417,14 @@ def main(argv=None) -> None:
     s.runner()
     # 8. the raw-corpus ETL on the card's host (no kernel)
     s.etl()
+    # 9. the W8A8 attack path, its kernel gates, BiLoRA, the two example workflows
+    s.int8_vs_cpu()
+    qtree, qmodel, run_q = s.int8_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_model,
+                                      vit_x, own)
+    s.int8_gates(vit_entry, vit_cfg, qtree, qmodel, vit_norm, vit_x)
+    s.int8_trace(run_q, qmodel)
+    s.bilora_vs_cpu()
+    s.demos()
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],

@@ -341,3 +341,11 @@ def test_generate_overlaps_batch_k_attack_with_batch_k_minus_1_encode(tmp_path, 
     assert [os.path.basename(p) for p in meta["image_path"]] == [
         "a.png", "b.png", "a__1.png", "c.png", "d.png"]
     assert (tmp_path / "metadata.csv").exists()
+
+
+def test_from_uint8_equals_jax():
+    images = np.random.default_rng(11).integers(0, 256, (2, 5, 7, 3), dtype=np.uint8)
+    got = tcommon.from_uint8(images)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, jcommon.from_uint8(images))
+    np.testing.assert_array_equal(tcommon.uint8_quantize(got), images)

@@ -12,8 +12,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch"
 JAX_PKG = "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_tpu"
-# the Swin / eval-compose, ConvNeXt, training, attack, model-zoo, file-stage and ETL slices; the
-# walk below must import each of them
+# the Swin / eval-compose, ConvNeXt, training, attack, model-zoo, file-stage, ETL and W8A8 /
+# BiLoRA slices; the walk below must import each of them
 NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.metrics",
                "train.steps", "train.loop", "eval.compose",
                "kernels.dwconv", "kernels.mlp", "models.convnext",
@@ -27,7 +27,11 @@ NEW_MODULES = ("kernels.window_attention", "models.swin", "ops.peft_io", "train.
                # the native codec, the runner and the parity side
                "utils.native", "tools.run_robustness", "tools.parity_e2e",
                # the raw-corpus ETL
-               "data.process")
+               "data.process",
+               # the W8A8 attack path, BiLoRA and its FashionMNIST loader
+               "ops.quant", "ops.bilora", "data.fashion")
+# the port's example workflows (scripts, imported by path)
+EXAMPLES = ("examples/sequential_lora_demo_torch.py", "examples/bilora_fashion_demo_torch.py")
 
 
 def _sources():
@@ -35,7 +39,8 @@ def _sources():
     for d, _, files in os.walk(os.path.join(REPO, PKG)):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out) + [os.path.join(REPO, "apvt_lora_torch", "__init__.py"),
-                          os.path.join(REPO, "chip_smoke.py")]
+                          os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, e) for e in EXAMPLES]
 
 
 def test_importing_every_module_loads_no_jax():
@@ -46,7 +51,10 @@ def test_importing_every_module_loads_no_jax():
         "names = [n for n in names if not n.endswith('__main__')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, importlib.util\n"
+        f"for path in {EXAMPLES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(path.replace('/', '_')[:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         f"or m.startswith('{JAX_PKG}') or m == 'apvt_lora')\n"
         "assert not bad, bad\n"

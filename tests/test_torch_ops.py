@@ -319,3 +319,34 @@ def test_lora_attach_training_form_streams():
         a, b = model(x), model(x)
         assert not torch.equal(a, plain(x)) and not torch.equal(a, b)
     assert set(tvit.params_to_jax(model)) == set(tvit.params_to_jax(plain))
+
+
+def test_tree_helpers_equal_jax():
+    """iter_paths, match_paths, tree_size_bytes, tree_count_params and
+    cast_tree against the JAX package's, over tensors and numpy arrays."""
+    tree = _stacked_params(_rng(9))
+    tree["step"] = np.arange(3, dtype=np.int32)
+    jt, tt = _both(tree)
+    assert list(ttrees.iter_paths(tt)) == list(jtrees.iter_paths(jt))
+    for suffixes in (("q",), ("fc1", "head"), ("attn",), ("nope",)):
+        assert ttrees.match_paths(tt, suffixes) == jtrees.match_paths(jt, suffixes)
+    for t in (tt, tree):  # tensors, numpy arrays
+        assert ttrees.tree_size_bytes(t) == jtrees.tree_size_bytes(jt)
+        assert ttrees.tree_count_params(t) == jtrees.tree_count_params(jt)
+    cast_t = ttrees.flatten_with_paths(ttrees.cast_tree(tt, torch.bfloat16))
+    cast_j = jtrees.flatten_with_paths(jtrees.cast_tree(jt, jnp.bfloat16))
+    for p, leaf in cast_t.items():
+        assert str(leaf.dtype).split(".")[-1] == str(cast_j[p].dtype), p
+        np.testing.assert_array_equal(leaf.float().numpy(), np.asarray(cast_j[p], np.float32))
+    assert cast_t["step"].dtype == torch.int32  # integer leaves untouched
+    cast_np = ttrees.flatten_with_paths(ttrees.cast_tree(tree, np.float16))
+    assert cast_np["head/w"].dtype == np.float16 and cast_np["step"].dtype == np.int32
+
+
+def test_lora_num_params_equals_jax():
+    tree = _stacked_params(_rng(10))
+    jt, tt = _both(tree)
+    targets = ("blocks/attn/q", "blocks/mlp/fc1")
+    jad = jlora.init(jax.random.key(0), jt, jlora.LoRAConfig(rank=3, targets=targets))
+    tad = tlora.init(torch.Generator().manual_seed(0), tt, tlora.LoRAConfig(rank=3, targets=targets))
+    assert tlora.num_params(tad) == jlora.num_params(jad) == 2 * (8 * 3 + 3 * 8 + 8 * 3 + 3 * 12)

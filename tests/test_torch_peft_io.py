@@ -165,3 +165,11 @@ def test_peft_library_loads_port_vit_adapter(tmp_path):
             torch.testing.assert_close(got, base + delta, atol=1e-6, rtol=0)
     torch.testing.assert_close(merged.classifier.weight.detach(),
                                torch.from_numpy(head["w"]).T, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("modules", [["query", "value"], ["query", "key", "value", "output.dense"],
+                                     ["intermediate.dense", "output.dense", "query"],
+                                     ["query", "query", "unknown"], []])
+def test_peft_targets_to_paths_equals_jax(modules):
+    assert tpeft.peft_targets_to_paths(modules) == jpeft.peft_targets_to_paths(modules)
+    assert tpeft.peft_targets_to_paths(["output.dense"]) == ("blocks/attn/o", "blocks/mlp/fc2")

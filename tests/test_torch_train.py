@@ -366,3 +366,27 @@ def test_train_lora_adapter_base_frozen_and_loads_in_jax(mode, data, tmp_path):
     named = dict(model.named_parameters())
     assert all(torch.equal(t, named[n]) for n, t in frozen.items())
     assert not model.training
+
+
+def test_step_timer_equals_jax(monkeypatch):
+    """The EMA step timer on a scripted clock, in both packages."""
+    out = {}
+    for name, mod in (("port", tobs), ("jax", jobs)):
+        ticks = iter([10.0, 10.5, 11.5, 11.75])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
+        timer = mod.StepTimer(ema=0.5)
+        assert timer.seconds_per_step is None and timer.images_per_second(8) is None
+        out[name] = ([timer.tick() for _ in range(4)], timer.seconds_per_step,
+                     timer.images_per_second(8))
+    assert out["port"] == out["jax"] == ([None, 0.5, 1.0, 0.25], 0.5, 16.0)
+
+
+def test_profile_trace_writes_a_trace_and_is_inert_without_a_dir(tmp_path):
+    with tobs.profile_trace("") as prof:
+        assert prof is None
+    with tobs.profile_trace(str(tmp_path / "trace")) as prof:
+        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    assert any(ev.name == "aten::mm" for ev in prof.events())
+    (written,) = os.listdir(tmp_path / "trace")
+    assert written.endswith(".pt.trace.json")
+    assert json.load(open(tmp_path / "trace" / written))["traceEvents"]
