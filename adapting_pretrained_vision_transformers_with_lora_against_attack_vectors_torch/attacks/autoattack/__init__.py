@@ -14,6 +14,14 @@ backbones have no batch statistics), so compaction changes no result.
 ``run.stats`` keeps the JAX package's shape, keyed by (stage, bucket), where
 the bucket is the survivor count. The host reads the misclassification mask
 once per stage.
+
+On a model built under a mesh (``parallel.mesh``) each rank runs the suite
+on its rows, and the compaction stays per rank: it holds no collective. No
+rank waits on a collective another skipped: the stages' only collectives
+are the tensor-parallel all-reduces of the model group, whose ranks hold
+the same rows, compute the same logits and so keep the same survivors and
+call the same stages with the same batch; different model groups share no
+collective inside the suite. Each stage draws over its own survivors.
 """
 
 from __future__ import annotations

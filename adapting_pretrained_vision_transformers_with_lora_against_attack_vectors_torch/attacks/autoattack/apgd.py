@@ -60,6 +60,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel import mesh as pmesh
 from ..common import IMAGENET, Normalizer, frozen, linf_project, to_unit_floats
 
 
@@ -104,9 +105,13 @@ def _schedule(n_iter: int) -> list[tuple[bool, int]]:
     return out
 
 
-def random_start(generator: torch.Generator, images: torch.Tensor, eps: float) -> torch.Tensor:
-    """Uniform-in-ball random start (the divergence table above)."""
-    noise = torch.empty_like(images).uniform_(-1.0, 1.0, generator=generator)
+def random_start(generator: torch.Generator, images: torch.Tensor, eps: float,
+                 mesh=None) -> torch.Tensor:
+    """Uniform-in-ball random start (the divergence table above); under
+    ``mesh``, this rank's rows of the draw over the global batch."""
+    total, rows = pmesh.data_rows(mesh, images.shape[0])
+    noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
+        -1.0, 1.0, generator=generator)[rows]
     return linf_project(images + eps * noise, images, eps)
 
 
@@ -245,8 +250,8 @@ def make_apgd(
         images = to_unit_floats(images)
         if generator is None:
             generator = torch.Generator(images.device).manual_seed(0)
-        return run_from(params, images, labels, random_start(generator, images, cfg.eps),
-                        targets)
+        return run_from(params, images, labels,
+                        random_start(generator, images, cfg.eps, pmesh.mesh_of(params)), targets)
 
     run.from_start = run_from
     return run
@@ -292,8 +297,8 @@ def make_apgd_targeted(
         images = to_unit_floats(images)
         if generator is None:
             generator = torch.Generator(images.device).manual_seed(0)
-        return with_starts(params, images, labels,
-                           lambda k: random_start(generator, images, tcfg.eps))
+        return with_starts(params, images, labels, lambda k: random_start(
+            generator, images, tcfg.eps, pmesh.mesh_of(params)))
 
     run.with_starts = with_starts
     return run

@@ -56,6 +56,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ...parallel import mesh as pmesh
 from ..common import IMAGENET, Normalizer, frozen, linf_project, to_unit_floats
 from .apgd import take_class
 
@@ -109,7 +110,15 @@ def make_square(
     and column (B, 1, 1) and the sign draws U(-1, 1) of shape (B, 1, 1, C).
     ``run.with_draws(params, images, labels, stripes, query_draws)`` takes
     them instead: ``stripes`` and ``query_draws(i, side) -> (pos_y, pos_x,
-    delta)`` for query ``i``."""
+    delta)`` for query ``i``.
+
+    On a model built under a mesh each draw is over the global batch and a
+    rank keeps its rows. The early exit stays per rank and holds no
+    collective: a rank whose rows are all adversarial stops, which changes
+    none of its rows (an adversarial example is never updated), and the
+    ranks of one model group hold the same rows, see the same margins and
+    stop together, so no rank waits on a tensor-parallel all-reduce that
+    another skipped."""
     apply_fn = partial(entry_apply, model_cfg)
 
     def margins(params, x, labels):
@@ -147,14 +156,16 @@ def make_square(
         dev = images.device
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
+        total, rows = pmesh.data_rows(pmesh.mesh_of(params), b)
 
         def uniform(shape):
-            return torch.empty(shape, device=dev).uniform_(-1.0, 1.0, generator=generator)
+            return torch.empty((total, *shape[1:]), device=dev).uniform_(
+                -1.0, 1.0, generator=generator)[rows]
 
         def query_draws(i, s):
-            pos_y = torch.randint(0, max(h - s, 1), (b, 1, 1), generator=generator, device=dev)
-            pos_x = torch.randint(0, max(w - s, 1), (b, 1, 1), generator=generator, device=dev)
-            return pos_y, pos_x, uniform((b, 1, 1, c))
+            pos_y = torch.randint(0, max(h - s, 1), (total, 1, 1), generator=generator, device=dev)
+            pos_x = torch.randint(0, max(w - s, 1), (total, 1, 1), generator=generator, device=dev)
+            return pos_y[rows], pos_x[rows], uniform((b, 1, 1, c))
 
         return with_draws(params, images, labels, uniform((b, 1, w, c)), query_draws)
 

@@ -7,6 +7,12 @@ directory contract: for each model x source x split, each attack writes
 Batches go to the device as uint8; the attack converts them to [0,1] there.
 The PNGs go through ``data.io.save_images`` (the native encoder), the
 metadata through ``data.io.Table``.
+
+Under a mesh (``parallel.mesh``, every rank calling) each rank attacks its
+rows of each batch, on a model built on the same mesh (whose draws are the
+global batch's, sliced); the adversarial batch is gathered over the data
+axis and rank 0 encodes and writes it, so the PNG bytes and
+``metadata.csv`` are the single-process run's.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from ..data import io as data_io
 from ..data.loader import Loader
+from ..parallel import mesh as pmesh
 
 _SEED_STRIDE = 100003  # batches per seed before two seeds' streams meet
 
@@ -33,6 +40,7 @@ def generate_adversarial_split(
     clean_metadata: data_io.Table,
     device: torch.device | str,
     seed: int = 0,
+    mesh=None,
 ) -> data_io.Table:
     """Run ``attack_fn(params, images, labels, generator) -> adv`` over a split
     on ``device`` (where ``params`` live; the caller must name it).
@@ -40,9 +48,12 @@ def generate_adversarial_split(
     Batch ``k`` draws its random start from a generator seeded with
     ``seed * 100003 + k``. Writes ``{out_dir}/images/*.png`` and
     ``{out_dir}/metadata.csv``; returns the adversarial metadata frame.
+    ``mesh``: see the module docstring; rank 0 writes.
     """
     img_dir = os.path.join(out_dir, "images")
-    os.makedirs(img_dir, exist_ok=True)
+    main = pmesh.is_main(mesh)
+    if main:
+        os.makedirs(img_dir, exist_ok=True)
     device = torch.device(device)
 
     all_names: list[str] = []  # unique written filenames, in loader order
@@ -69,16 +80,17 @@ def generate_adversarial_split(
     pending: list = []
     with ThreadPoolExecutor(max_workers=8) as pool:
         for k, batch in enumerate(loader):
-            images = torch.from_numpy(batch.images).to(device)
-            labels = torch.from_numpy(batch.labels).to(device)
+            images, labels = (torch.from_numpy(a).to(device)
+                              for a in pmesh.shard_batch(mesh, batch.images, batch.labels))
             gen = torch.Generator(device).manual_seed(seed * _SEED_STRIDE + k)
-            adv = attack_fn(params, images, labels, gen)
+            adv = pmesh.gather_rows(mesh, attack_fn(params, images, labels, gen))
             wait(pending)
             adv = adv.cpu()
             keep = [i for i, v in enumerate(batch.valid) if v > 0]
             origs = [batch.filenames[i] for i in keep]
             uniq = [unique_name(n) for n in origs]
-            pending = data_io.save_images(adv[keep], uniq, img_dir, pool=pool)
+            if main:
+                pending = data_io.save_images(adv[keep], uniq, img_dir, pool=pool)
             all_names.extend(uniq)
             all_origs.extend(origs)
             if batch.ids is not None:
@@ -93,7 +105,8 @@ def generate_adversarial_split(
     else:  # a loader without an index frame: basename matching
         adv_meta = data_io.create_adv_metadata(
             clean_metadata, all_names, img_dir, originals=all_origs)
-    data_io.save_metadata(adv_meta, os.path.join(out_dir, "metadata.csv"))
+    if main:
+        data_io.save_metadata(adv_meta, os.path.join(out_dir, "metadata.csv"))
     return adv_meta
 
 

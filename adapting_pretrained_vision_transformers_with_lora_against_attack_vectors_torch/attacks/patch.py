@@ -35,6 +35,7 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh as pmesh
 from .common import IMAGENET, Normalizer, frozen, to_unit_floats
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
@@ -201,12 +202,23 @@ def make_train_patch(
 
     ``run.with_draws(params, images, labels, draws, mask=None)`` takes the
     iterations' draws instead: an iterable of (minibatch indices, EOT
-    tuple) pairs, one per iteration."""
+    tuple) pairs, one per iteration. ``run.from_pool(params, images, labels,
+    generator=None, mask=None)`` is ``run`` on a pool that every rank
+    already holds whole (RP2's class pools).
+
+    On a model built under a mesh (``parallel.mesh``), ``images`` and
+    ``labels`` are this rank's rows: the pool is gathered over the data
+    axis, every rank draws the same global minibatch and EOT samples and
+    takes its share of the minibatch's rows, and the patch gradient, a mean
+    over the global minibatch, is summed over ``"data"`` before the Adam
+    step, so every rank takes the single-process step. A minibatch the data
+    axis does not divide raises."""
     apply_fn = partial(entry_apply, model_cfg)
     default_mask = patch_mask(cfg)
 
-    def run_with_draws(params, images, labels, draws: Iterable, mask=None):
-        images = to_unit_floats(images)
+    def train(params, images, labels, draws: Iterable, mask):
+        mesh = pmesh.mesh_of(params)
+        d, r = pmesh.axis_size(mesh, pmesh.DATA_AXIS), pmesh.axis_rank(mesh, pmesh.DATA_AXIS)
         dev = images.device
         size = images.shape[1]
         mask = (default_mask if mask is None else mask).to(dev, torch.float32)
@@ -215,6 +227,12 @@ def make_train_patch(
         losses = []
         with frozen(params), torch.no_grad():
             for t, (idx, eot) in enumerate(draws, start=1):
+                k = idx.shape[0]
+                if k % d:
+                    raise ValueError(f"a patch minibatch of {k} does not divide over the data "
+                                     f"axis of size {d}")
+                mine = slice(r * k // d, (r + 1) * k // d)
+                idx, eot = idx[mine], tuple(e[mine] for e in eot)
                 mb_images, mb_labels = images[idx], labels[idx].long()
                 if cfg.targeted:
                     mb_labels = torch.full_like(mb_labels, cfg.target_class)
@@ -224,14 +242,27 @@ def make_train_patch(
                 with torch.enable_grad():
                     x = patch.requires_grad_(True)
                     logits = apply_fn(params, normalize(composite_batch(mb_images, x, mask, eot)))
-                    ce = F.cross_entropy(logits.float(), mb_labels)
+                    ce = (F.cross_entropy(logits.float(), mb_labels) if d == 1 else
+                          F.cross_entropy(logits.float(), mb_labels, reduction="sum") / k)
                     loss = ce if cfg.targeted else -ce
                     (g,) = torch.autograd.grad(loss, x)
+                loss = loss.detach()
+                if d > 1:  # one all-reduce carries the gradient and the loss
+                    both = pmesh.all_reduce(torch.cat([g.reshape(-1), loss.reshape(1)]), mesh,
+                                            pmesh.DATA_AXIS)
+                    g, loss = both[:-1].view_as(g), both[-1]
                 patch, m, v = _adam_step(patch.detach(), g, m, v, t, cfg.learning_rate)
-                losses.append(loss.detach())
+                losses.append(loss)
         return patch, torch.stack(losses)
 
-    def run(params, images, labels, generator: Optional[torch.Generator] = None, mask=None):
+    def pool(params, images, labels):
+        return pmesh.gather_rows(pmesh.mesh_of(params), to_unit_floats(images), labels)
+
+    def run_with_draws(params, images, labels, draws: Iterable, mask=None):
+        return train(params, *pool(params, images, labels), draws, mask)
+
+    def from_pool(params, images, labels, generator: Optional[torch.Generator] = None,
+                  mask=None):
         images = to_unit_floats(images)
         dev, n, size = images.device, images.shape[0], images.shape[1]
         if generator is None:
@@ -242,9 +273,13 @@ def make_train_patch(
                 idx = torch.randint(0, n, (cfg.batch_size,), generator=generator, device=dev)
                 yield idx, sample_eot(generator, cfg.batch_size, cfg, size, dev)
 
-        return run_with_draws(params, images, labels, draws(), mask)
+        return train(params, images, labels, draws(), mask)
+
+    def run(params, images, labels, generator: Optional[torch.Generator] = None, mask=None):
+        return from_pool(params, *pool(params, images, labels), generator, mask)
 
     run.with_draws = run_with_draws
+    run.from_pool = from_pool
     return run
 
 

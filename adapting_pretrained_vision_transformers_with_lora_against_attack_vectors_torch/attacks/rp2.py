@@ -17,6 +17,7 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from .common import IMAGENET, Normalizer, to_unit_floats
 from .patch import PatchConfig, make_apply_patch, make_train_patch, patch_mask
 
@@ -92,7 +93,9 @@ def train_rp2_patches(
     the host. Classes with fewer than ``min_samples`` samples get no patch;
     the others train on their samples repeated to the largest eligible
     class's count. Class ``c`` draws from a generator seeded with
-    ``seed * 100003 + c``. Returns ``{class_index: (P, P, 3) patch}``."""
+    ``seed * 100003 + c``. Returns ``{class_index: (P, P, 3) patch}``. On a
+    model built under a mesh every rank holds the whole class pool and trains
+    on its share of each minibatch (``patch.make_train_patch``)."""
     device = torch.device(device)
     cfg = cfg or rp2_config(image_size=images.shape[1])
     train_fn = make_train_patch(entry_apply, model_cfg, cfg, normalize=normalize,
@@ -105,13 +108,15 @@ def train_rp2_patches(
         return {}
     pad_to = max(counts[c] for c in eligible)
 
+    # every rank holds the whole class pool: under a mesh it is not gathered again
+    train = train_fn if pmesh.mesh_of(params) is None else train_fn.from_pool
     patches: dict[int, np.ndarray] = {}
     for c in eligible:
         take = np.resize(np.nonzero(labels == c)[0], pad_to)  # repeat to one count
         cls_images = torch.from_numpy(np.ascontiguousarray(images[take])).to(device)
         cls_labels = torch.from_numpy(np.asarray(labels[take], np.int64)).to(device)
         gen = torch.Generator(device).manual_seed(seed * _SEED_STRIDE + c)
-        patch, losses = train_fn(params, cls_images, cls_labels, gen)
+        patch, losses = train(params, cls_images, cls_labels, gen)
         patches[c] = patch.cpu().numpy()
         log(f"rp2 class {c}: {counts[c]} samples, final loss {float(losses[-1]):.4f}")
     return patches

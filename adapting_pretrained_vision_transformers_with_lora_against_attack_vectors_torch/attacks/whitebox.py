@@ -16,7 +16,9 @@ JAX attacks are pure functions of ``params``). Frozen, not merely left out
 of ``autograd.grad``: a kernel's ``autograd.Function`` decides at forward
 time from ``requires_grad`` whether its backward recomputes the parameter
 gradients. ``sign(0) = 0``. The random start draws
-from a ``torch.Generator`` on the images' device.
+from a ``torch.Generator`` on the images' device; on a model built under a
+mesh (``parallel.mesh``) it is the draw over the global batch, of which this
+rank keeps its rows, so a sharded run is the single-process run.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import mesh as pmesh
 from .common import IMAGENET, Normalizer, frozen, linf_project, sum_cross_entropy, to_unit_floats
 
 
@@ -59,7 +62,9 @@ def pgd(apply_fn: Callable, params, images: torch.Tensor, labels: torch.Tensor, 
     if random_start:
         if generator is None:
             generator = torch.Generator(images.device).manual_seed(0)
-        noise = torch.empty_like(images).uniform_(-eps, eps, generator=generator)
+        total, rows = pmesh.data_rows(pmesh.mesh_of(params), images.shape[0])
+        noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
+            -eps, eps, generator=generator)[rows]
         x = linf_project(images + noise, images, eps)
     for _ in range(steps):
         g = grad_fn(x, params, labels)

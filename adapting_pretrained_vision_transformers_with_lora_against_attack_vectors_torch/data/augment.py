@@ -18,7 +18,8 @@ unit; a gather costs nothing special on a GPU.
 Color jitter multiplies brightness and interpolates contrast / saturation
 around the per-image mean / luma in that fixed order; factors U(1-v, 1+v).
 Draws come from an explicit ``torch.Generator`` on the images' device; its
-streams are not those of ``jax.random``.
+streams are not those of ``jax.random``. Under a data axis (``rows``) each
+draw is the draw over the global batch, of which this rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ def _uniform(generator, shape, lo: float, hi: float, device) -> torch.Tensor:
     return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
 
 
-def _sample_affine(generator: torch.Generator, n: int, size: int, cfg: AugmentConfig, device):
-    """Per-image inverse-affine params: 2x2 matrix + translation (pixels)."""
+def _sample_affine(generator: torch.Generator, n: int, size: int, cfg: AugmentConfig, device,
+                   rows: slice = slice(None)):
+    """Per-image inverse-affine params: 2x2 matrix + translation (pixels),
+    drawn for ``n`` images, of which ``rows`` are kept."""
     theta = torch.deg2rad(_uniform(generator, (n,), -cfg.rotation_deg, cfg.rotation_deg, device))
     # RandomResizedCrop: area fraction + log-uniform aspect ratio
     area = _uniform(generator, (n,), cfg.crop_scale[0], cfg.crop_scale[1], device)
@@ -61,7 +64,7 @@ def _sample_affine(generator: torch.Generator, n: int, size: int, cfg: AugmentCo
     x0 = uv[0] * (size - crop_w)
     y0 = uv[1] * (size - crop_h)
     flip = torch.rand((n,), generator=generator, device=device) < cfg.hflip_p
-    return _compose_affine(theta, crop_w, crop_h, x0, y0, flip, size)
+    return _compose_affine(*(t[rows] for t in (theta, crop_w, crop_h, x0, y0, flip)), size)
 
 
 def _compose_affine(theta, crop_w, crop_h, x0, y0, flip, size: int):
@@ -98,11 +101,12 @@ def warp(images: torch.Tensor, affine) -> torch.Tensor:
 
 
 def _color_jitter(images: torch.Tensor, generator: torch.Generator,
-                  cfg: AugmentConfig) -> torch.Tensor:
+                  cfg: AugmentConfig, total: int = None, rows: slice = slice(None)) -> torch.Tensor:
     n = images.shape[0]
+    total = total or n
 
     def factor(v: float) -> torch.Tensor:
-        return _uniform(generator, (n, 1, 1, 1), max(0.0, 1 - v), 1 + v, images.device)
+        return _uniform(generator, (total, 1, 1, 1), max(0.0, 1 - v), 1 + v, images.device)[rows]
 
     def luma(x: torch.Tensor) -> torch.Tensor:
         return 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
@@ -121,8 +125,10 @@ def _color_jitter(images: torch.Tensor, generator: torch.Generator,
 
 
 def train_augment(images: torch.Tensor, generator: torch.Generator,
-                  cfg: AugmentConfig = DEFAULT) -> torch.Tensor:
-    """(B, S, S, 3) [0,1] floats -> augmented batch, fresh draws per call."""
+                  cfg: AugmentConfig = DEFAULT, *, rows: tuple = None) -> torch.Tensor:
+    """(B, S, S, 3) [0,1] floats -> augmented batch, fresh draws per call.
+    ``rows``: ``(global batch, this rank's slice)`` (``parallel.mesh.data_rows``)."""
     n, size = images.shape[0], images.shape[1]
-    affine = _sample_affine(generator, n, size, cfg, images.device)
-    return _color_jitter(warp(images, affine), generator, cfg)
+    total, sl = rows if rows is not None else (n, slice(None))
+    affine = _sample_affine(generator, total, size, cfg, images.device, sl)
+    return _color_jitter(warp(images, affine), generator, cfg, total, sl)

@@ -14,6 +14,10 @@ the results go to a JSON file and an aligned summary table.
   compiled.
 * ``test_mode`` selects ``all`` / ``base_only`` / ``individual_only`` /
   ``combinations_only``, as the reference CLI does.
+* ``mesh=`` (``parallel.mesh``, every rank calling): each variant is merged
+  whole, then built on the mesh (this rank's slices by the rules), as the
+  JAX package merges and then places by the mesh; batches split over the
+  data axis; rank 0 logs and writes the JSON.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..attacks.common import Normalizer
 from ..data.loader import CachedLoader, Loader
 from ..models.registry import ModelEntry, get_normalization
 from ..ops import lora, peft_io
+from ..parallel import mesh as pmesh
 from ..train.loop import evaluate
 from ..train.steps import make_eval_step
 from ..utils import trees
@@ -98,9 +103,10 @@ def find_lora_adapters(lora_root: str, attacks: Sequence[str], rank: int, *,
 
 
 def make_device_variants(entry: ModelEntry, cfg, base_params,
-                         adapters: Mapping[str, tuple], device):
+                         adapters: Mapping[str, tuple], device, mesh=None):
     """``combo -> model``: base and adapters resident on ``device`` once,
-    each variant merged there and wrapped by ``entry.from_tree``."""
+    each variant merged there (whole) and wrapped by ``entry.from_tree``
+    (on ``mesh``)."""
     def put(tree):
         return trees.map_leaves(lambda t: torch.as_tensor(t).to(device), tree)
 
@@ -110,10 +116,10 @@ def make_device_variants(entry: ModelEntry, cfg, base_params,
                     None if head is None else put(head))
              for name, (ad, lcfg, head) in adapters.items()}
 
-    def build(combo: Sequence[str]):
-        return entry.from_tree(build_variant_params(base_d, combo, ads_d), cfg)
+    def variant(combo: Sequence[str]):
+        return entry.from_tree(build_variant_params(base_d, combo, ads_d), cfg, mesh=mesh)
 
-    return build
+    return variant
 
 
 def run_composability_eval(
@@ -127,6 +133,7 @@ def run_composability_eval(
     test_mode: str = "all",
     normalize: Optional[Normalizer] = None,
     out_path: Optional[str] = None,
+    mesh=None,
     cfg=None,
     log: Callable[[str], None] = print,
 ) -> dict:
@@ -145,19 +152,21 @@ def run_composability_eval(
     # each dataset is read once per variant: decode it once and replay it
     dataloaders = {k: CachedLoader(v) if isinstance(v, Loader) else v
                    for k, v in dataloaders.items()}
-    build = make_device_variants(entry, cfg, base_params, adapters, device)
+    variant = make_device_variants(entry, cfg, base_params, adapters, device, mesh)
+    main = pmesh.is_main(mesh)
 
     results: dict[str, dict] = {}
     for name, combo in enumerate_variants(tuple(adapters), test_mode=test_mode):
-        model = build(combo)
+        model = variant(combo)
         results[name] = {}
         for ds_name, loader in dataloaders.items():
-            m = evaluate(eval_step, model, loader, device=device)
+            m = evaluate(eval_step, model, loader, device=device, mesh=mesh)
             results[name][ds_name] = {k: m[k] for k in ("accuracy", "f1", "loss", "support")}
-        log(f"{name}: " + "  ".join(
-            f"{d}={results[name][d]['accuracy']:.4f}" for d in dataloaders))
+        if main:
+            log(f"{name}: " + "  ".join(
+                f"{d}={results[name][d]['accuracy']:.4f}" for d in dataloaders))
 
-    if out_path:
+    if out_path and main:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump(results, f, indent=2)

@@ -27,6 +27,13 @@ library path); on a CPU tensor it runs the kernel's plain version.
 ``fuse_ln_mlp`` applies only while ``pwconv1``/``pwconv2`` carry no unmerged
 LoRA factors. With f32 compute the fields do nothing, as in JAX. There is
 no memory gate: the kernels take all four ConvNeXt-B stages.
+
+Under a mesh (``parallel.mesh``) ConvNeXt is fully replicated: no rule of
+``vit_param_rules`` matches its tree (``pwconv1``/``pwconv2``, not
+``mlp/fc1``/``mlp/fc2``), so every rank of a model group holds every
+parameter whole and computes the same logits; only the data axis splits the
+batch. :func:`params_from_jax` raises if a rule ever splits one of its
+leaves.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from ..kernels import mlp as _kmlp
 from ..kernels.dwconv import dwconv7
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
-from .vit import Leaves, _as_tensor, _plain_dense, _sub
+from ..parallel import mesh as pmesh
+from .vit import Leaves, _as_tensor, _plain_dense, _sub, bind_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,10 +248,13 @@ class ConvNeXt(nn.Module):
 
 # --- the JAX <-> module boundary ---------------------------------------------------
 
-def params_from_jax(flat, cfg: ConvNeXtConfig) -> ConvNeXt:
+def params_from_jax(flat, cfg: ConvNeXtConfig, mesh=None) -> ConvNeXt:
     """JAX-layout tree (flat '/' paths or nested; numpy arrays or tensors;
-    blocks stacked on a depth axis) -> :class:`ConvNeXt`, on the tensors' device."""
-    return ConvNeXt(cfg, {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()})
+    blocks stacked on a depth axis) -> :class:`ConvNeXt`, on the tensors' device.
+    Under ``mesh`` every parameter stays whole (the module docstring)."""
+    flat = {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()}
+    pmesh.require_replicated(mesh, flat, 'ConvNeXt')
+    return bind_mesh(ConvNeXt(cfg, flat), mesh)
 
 
 def params_to_jax(model: ConvNeXt) -> dict[str, torch.Tensor]:

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/registry.py``. Each entry gives:
 
 * ``config(num_classes)`` — static architecture config
 * ``init(cfg, generator, device=None)`` — seeded params in the JAX layout
-* ``from_tree(flat, cfg)`` — the module built from such a tree
+* ``from_tree(flat, cfg, mesh=None)`` — the module built from such a tree
+  (under a ``parallel.mesh`` mesh: this rank's slices)
 * ``to_tree(model)`` — back: flat '/' paths -> CPU tensors (real copies)
 * ``apply(cfg, model, images)`` — logits
 * ``lora_targets(cfg)`` — default adapter target paths
@@ -31,7 +32,7 @@ class ModelEntry:
     family: str
     config: Callable  # (num_classes) -> cfg
     init: Callable  # (cfg, generator, device=None) -> JAX-layout tree
-    from_tree: Callable  # (flat tree, cfg) -> nn.Module
+    from_tree: Callable  # (flat tree, cfg, mesh=None) -> nn.Module
     to_tree: Callable  # (nn.Module) -> flat JAX-layout tree of CPU tensors
     apply: Callable  # (cfg, model, images) -> logits
     lora_targets: Callable  # (cfg) -> tuple[str, ...]

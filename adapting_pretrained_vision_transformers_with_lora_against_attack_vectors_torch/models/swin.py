@@ -25,6 +25,14 @@ factors on fc1/fc2, a block's MLP behind its library LN2 is
 version on a CPU tensor); with f32 compute the field does nothing. There is
 no memory gate: the kernel takes all four Swin-B stages (the JAX dispatch
 leaves stage 4 to XLA because its weights do not fit the TPU's fast memory).
+
+Under a mesh (``parallel.mesh``) Swin is fully replicated, as in the JAX
+package: the rules' patterns match ``mlp/fc1/w`` and ``mlp/fc2/w``, but they
+key on the leaf's rank (3 or 2 for a weight, 2 or 1 for a bias) and Swin's
+stacked leaves are ``(pairs, 2, in, out)``, rank 4 (biases rank 3), so no
+rule applies (``attn/qkv`` and ``attn/proj`` match none anyway). Every rank
+of a model group holds every parameter whole and the window kernel runs
+unchanged; only the data axis splits the batch.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from ..kernels.mlp import mlp
 from ..kernels.window_attention import window_attention
 from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
 from ..utils import trees
-from .vit import Leaves, _as_tensor, _plain_dense, _sub
+from ..parallel import mesh as pmesh
+from .vit import Leaves, _as_tensor, _plain_dense, _sub, bind_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,10 +329,13 @@ def _unpartition(x: torch.Tensor, window: int, res: int) -> torch.Tensor:
 
 # --- the JAX <-> module boundary ---------------------------------------------------
 
-def params_from_jax(flat, cfg: SwinConfig) -> Swin:
+def params_from_jax(flat, cfg: SwinConfig, mesh=None) -> Swin:
     """JAX-layout tree (flat '/' paths or nested; numpy arrays or tensors;
-    blocks stacked (pairs, 2, ...)) -> :class:`Swin`, on the tensors' device."""
-    return Swin(cfg, {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()})
+    blocks stacked (pairs, 2, ...)) -> :class:`Swin`, on the tensors' device.
+    Under ``mesh`` every parameter stays whole (the module docstring)."""
+    flat = {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()}
+    pmesh.require_replicated(mesh, flat, 'Swin')
+    return bind_mesh(Swin(cfg, flat), mesh)
 
 
 def params_to_jax(model: Swin) -> dict[str, torch.Tensor]:

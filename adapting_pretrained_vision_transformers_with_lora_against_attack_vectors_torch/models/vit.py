@@ -48,7 +48,9 @@ from ..kernels.attention import attention_packed
 from ..kernels.attn_block import attn_block
 from ..kernels.mlp import ln_mlp, mlp
 from ..ops.nn import LoRADropout
-from ..ops.nn import dense, dense_init, gelu, layer_norm, layer_norm_init
+from ..ops.nn import dense, dense_f32, dense_init, gelu, layer_norm, layer_norm_init
+from ..parallel import mesh as pmesh
+from ..parallel.tp import copy_to_model, reduce_from_model
 from ..utils import trees
 
 
@@ -166,9 +168,11 @@ class Leaves(nn.Module):
     :class:`..ops.nn.LoRADropout` stream, which :meth:`tree` hands to
     ``dense`` while the module is in training mode."""
 
-    def __init__(self, leaves: Mapping[str, torch.Tensor]):
+    def __init__(self, leaves: Mapping[str, torch.Tensor], shard_dims: Mapping[str, int] = None):
         super().__init__()
         self.dropout = None
+        # {leaf name: dim} of the leaves this rank holds a model-axis slice of
+        self.shard_dims = dict(shard_dims or {})
         for key, mode in (("lora_rng", "input"), ("lora_rng_pa", "post_a")):
             if key in leaves:
                 gen = torch.Generator(leaves[key].device).manual_seed(int(leaves[key]))
@@ -201,54 +205,119 @@ def _sub(flat: Mapping[str, torch.Tensor], prefix: str) -> dict:
 class Block(nn.Module):
     """Pre-LN transformer block: x + MHA(LN1(x)), then x + MLP(LN2(x))."""
 
-    def __init__(self, cfg: ViTConfig, flat: Mapping[str, torch.Tensor]):
+    def __init__(self, cfg: ViTConfig, flat: Mapping[str, torch.Tensor],
+                 dims: Mapping[str, int] = None, group=None, tp: int = 1):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.group, self.tp = cfg, group, tp
+        dims = dims or {}
         self.ln1 = Leaves(_sub(flat, "ln1"))
-        self.attn = nn.ModuleDict({t: Leaves(_sub(flat, f"attn/{t}"))
+        self.attn = nn.ModuleDict({t: Leaves(_sub(flat, f"attn/{t}"), _sub(dims, f"attn/{t}"))
                                    for t in ("q", "k", "v", "o")})
         self.ln2 = Leaves(_sub(flat, "ln2"))
-        self.mlp = nn.ModuleDict({t: Leaves(_sub(flat, f"mlp/{t}")) for t in ("fc1", "fc2")})
+        self.mlp = nn.ModuleDict({t: Leaves(_sub(flat, f"mlp/{t}"), _sub(dims, f"mlp/{t}"))
+                                  for t in ("fc1", "fc2")})
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.tp == 1 else copy_to_model(t, self.group)
+
+    def _dense_tree(self, leaves: Leaves) -> dict:
+        """A dense's tree; under tp > 1 its whole LoRA leaves (``lora_a`` of
+        a column split, ``lora_b`` of a row split, ``lora_s``) go through
+        :func:`copy_to_model`: each rank's gradient of them is partial. The
+        bias of a row split is added after the reduce and stays as it is."""
+        p = leaves.tree()
+        if self.tp == 1:
+            return p
+        return {k: copy_to_model(v, self.group)
+                if k.startswith("lora_") and k != "lora_drop" and k not in leaves.shard_dims
+                else v for k, v in p.items()}
+
+    def _row_out(self, partial: torch.Tensor, bias, cd) -> torch.Tensor:
+        """The row-split projection's output: the ranks' partial sums (f32)
+        added up, the bias added once, one rounding to ``cd``."""
+        y = reduce_from_model(partial.float(), self.group)
+        return (y + bias.float() if bias is not None else y).to(cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, cd, eps = self.cfg, x.dtype, self.cfg.layer_norm_eps
+        cfg, cd, eps, tp = self.cfg, x.dtype, self.cfg.layer_norm_eps, self.tp
+        heads = cfg.num_heads // tp  # this rank's heads
         kernel_dtype = cd == torch.bfloat16  # the JAX gate: 2-byte compute dtypes only
-        ap = {t: self.attn[t].tree() for t in ("q", "k", "v", "o")}
+        ap = {t: self._dense_tree(self.attn[t]) for t in ("q", "k", "v", "o")}
         if cfg.fuse_attn_block and kernel_dtype and all(_plain_dense(p) for p in ap.values()):
+            if tp > 1:
+                raise ValueError(f"attn_block takes square (C, C) weights; under a model axis of "
+                                 f"{tp} a rank's q/k/v/o are (C, C/{tp}) and (C/{tp}, C)")
             ln1 = self.ln1.tree()
             x = x + attn_block(x, ln1["scale"], ln1["bias"], ap["q"]["w"], ap["q"]["b"],
                                ap["k"]["w"], ap["k"]["b"], ap["v"]["w"], ap["v"]["b"],
                                ap["o"]["w"], ap["o"]["b"], cfg.num_heads, eps)
         else:
-            h = layer_norm(self.ln1.tree(), x, eps=eps)
+            h = self._copy(layer_norm(self.ln1.tree(), x, eps=eps))
             q, k, v = (dense(ap[t], h, compute_dtype=cd) for t in ("q", "k", "v"))
-            x = x + dense(ap["o"], attention_packed(q, k, v, cfg.num_heads), compute_dtype=cd)
+            a = attention_packed(q, k, v, heads)
+            if tp == 1:
+                x = x + dense(ap["o"], a, compute_dtype=cd)
+            else:
+                o = {n: t for n, t in ap["o"].items() if n != "b"}
+                x = x + self._row_out(dense_f32(o, a, compute_dtype=cd), ap["o"].get("b"), cd)
 
-        fc1, fc2 = self.mlp["fc1"].tree(), self.mlp["fc2"].tree()
+        fc1, fc2 = self._dense_tree(self.mlp["fc1"]), self._dense_tree(self.mlp["fc2"])
         plain_mlp = kernel_dtype and _plain_dense(fc1) and _plain_dense(fc2)
         ln2 = self.ln2.tree()
+        # under tp > 1 the fused kernels take a zero b2 and the bias goes in
+        # once after the reduce, so that its gradient is every rank's
+        b2 = fc2["b"] if tp == 1 else torch.zeros_like(fc2["b"])
         if (cfg.fuse_attn_block or cfg.fuse_ln_mlp) and plain_mlp:
-            return x + ln_mlp(x, ln2["scale"], ln2["bias"], fc1["w"], fc1["b"], fc2["w"],
-                              fc2["b"], eps)
-        h = layer_norm(ln2, x, eps=eps)
+            y = ln_mlp(self._copy(x), self._copy(ln2["scale"]), self._copy(ln2["bias"]),
+                       fc1["w"], fc1["b"], fc2["w"], b2, eps)
+            return x + (y if tp == 1 else self._row_out(y, fc2["b"], cd))
+        h = self._copy(layer_norm(ln2, x, eps=eps))
         if cfg.use_fused_mlp and plain_mlp:
-            return x + mlp(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
+            y = mlp(h, fc1["w"], fc1["b"], fc2["w"], b2)
+            return x + (y if tp == 1 else self._row_out(y, fc2["b"], cd))
         h = gelu(dense(fc1, h, compute_dtype=cd))
-        return x + dense(fc2, h, compute_dtype=cd)
+        if tp == 1:
+            return x + dense(fc2, h, compute_dtype=cd)
+        w2 = {n: t for n, t in fc2.items() if n != "b"}
+        return x + self._row_out(dense_f32(w2, h, compute_dtype=cd), fc2.get("b"), cd)
 
 
 class ViT(nn.Module):
-    """ViT over NHWC images; built from a flat JAX-layout tree."""
+    """ViT over NHWC images; built from a flat JAX-layout tree.
 
-    def __init__(self, cfg: ViTConfig, flat: Mapping[str, torch.Tensor]):
+    Under a mesh whose model axis is ``tp`` > 1 (``parallel.mesh``), each
+    block holds this rank's slices by the JAX rules and runs the Megatron
+    split: q/k/v column slices (``num_heads / tp`` heads, on which the
+    packed-attention kernel runs), the o-projection a row slice whose f32
+    partial sums one all-reduce adds up, and the MLP likewise (fc1 columns,
+    fc2 rows). LoRA follows the rules: q/k/v/fc1 ``lora_b`` column slices
+    with ``lora_a`` whole, o/fc2 ``lora_a`` row slices with ``lora_b`` whole,
+    so the adapter branch's partial sum joins the same all-reduce. The fused
+    MLPs (``use_fused_mlp``, ``fuse_ln_mlp``) run on the local slices, their
+    output bias once, after the reduce; ``attn_block`` takes square (C, C)
+    weights only, so a half-block it would fuse raises under tp > 1 (with
+    LoRA factors on q/k/v/o it is not fused, and ``fuse_attn_block`` still
+    fuses the MLP half)."""
+
+    def __init__(self, cfg: ViTConfig, flat: Mapping[str, torch.Tensor], mesh=None):
         super().__init__()
         self.cfg = cfg
+        tp = pmesh.axis_size(mesh, pmesh.MODEL_AXIS)
+        if cfg.num_heads % tp:
+            raise ValueError(f"{cfg.num_heads} heads do not divide over the model axis of {tp}")
+        if tp > 1 and any(p.endswith("/w_q") for p in flat):
+            raise NotImplementedError("W8A8 denses (ops.quant) under a model axis > 1")
+        group = pmesh.axis_group(mesh, pmesh.MODEL_AXIS) if tp > 1 else None
+        # the stacked leaves' split dims, one less in a block's own leaves
+        dims = {p: d - 1 for p, d in _sub(pmesh.model_dims(mesh, flat), "blocks").items()}
+        flat = pmesh.shard_tree(mesh, flat)
         self.proj = Leaves(_sub(flat, "embed/proj"))
         self.cls = nn.Parameter(flat["embed/cls"])
         self.pos = nn.Parameter(flat["embed/pos"])
         blocks = _sub(flat, "blocks")
         self.blocks = nn.ModuleList(
-            Block(cfg, {p: v[i] for p, v in blocks.items()}) for i in range(cfg.depth))
+            Block(cfg, {p: v[i] for p, v in blocks.items()}, dims, group, tp)
+            for i in range(cfg.depth))
         self.final_ln = Leaves(_sub(flat, "final_ln"))
         self.head = Leaves(_sub(flat, "head"))
 
@@ -282,15 +351,38 @@ def _patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
 
 # --- the JAX <-> module boundary ---------------------------------------------------
 
-def params_from_jax(flat, cfg: ViTConfig) -> ViT:
+def bind_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Record ``mesh`` on a model built from a tree (``model.mesh``, which the
+    steps and attacks read) and give every LoRA dropout stream its block of
+    the global draw: this rank's rows on the data axis and, where the mask
+    covers a dense input that is split over the model axis (mode ``input``
+    with ``lora_a`` row-split), its columns. In mode ``post_a`` the mask
+    covers the whole rank-r ``x @ lora_a``, of which each rank of the group
+    holds a partial sum: every rank draws the same mask, so the sum over the
+    group is the mask times the whole product."""
+    model.mesh = mesh
+    rows = (pmesh.axis_rank(mesh, pmesh.DATA_AXIS), pmesh.axis_size(mesh, pmesh.DATA_AXIS))
+    tp = (pmesh.axis_rank(mesh, pmesh.MODEL_AXIS), pmesh.axis_size(mesh, pmesh.MODEL_AXIS))
+    for m in model.modules():
+        if isinstance(m, Leaves) and m.dropout is not None:
+            m.dropout.rows = rows
+            if m.dropout.mode == "input" and m.shard_dims.get("lora_a") == 0:
+                m.dropout.cols = tp
+    return model
+
+
+def params_from_jax(flat, cfg: ViTConfig, mesh=None) -> ViT:
     """JAX-layout tree (flat '/' paths or nested; numpy arrays or tensors;
-    blocks stacked on axis 0) -> :class:`ViT`, on the tensors' device."""
-    return ViT(cfg, {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()})
+    blocks stacked on axis 0) -> :class:`ViT`, on the tensors' device. Under
+    ``mesh`` the module holds this rank's slices (the class docstring)."""
+    flat = {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()}
+    return bind_mesh(ViT(cfg, flat, mesh), mesh)
 
 
 def params_to_jax(model: ViT) -> dict[str, torch.Tensor]:
     """Inverse of :func:`params_from_jax`: flat '/' paths -> CPU tensors,
-    blocks stacked on axis 0."""
+    blocks stacked on axis 0; under a model axis the slices are gathered
+    first (every rank of the model group must call it)."""
     out = {f"embed/proj/{k}": v for k, v in model.proj.leaves().items()}
     out["embed/cls"], out["embed/pos"] = model.cls, model.pos
     per_layer = [trees.flatten_with_paths(
@@ -301,7 +393,8 @@ def params_to_jax(model: ViT) -> dict[str, torch.Tensor]:
         out[f"blocks/{p}"] = torch.stack([layer[p] for layer in per_layer])
     out.update({f"final_ln/{k}": v for k, v in model.final_ln.leaves().items()})
     out.update({f"head/{k}": v for k, v in model.head.leaves().items()})
-    return {p: v.detach().cpu() for p, v in out.items()}
+    out = pmesh.gather_tree(pmesh.mesh_of(model), {p: v.detach() for p, v in out.items()})
+    return {p: v.cpu() for p, v in out.items()}
 
 
 def features(cfg: ViTConfig, model: ViT, images: torch.Tensor) -> torch.Tensor:

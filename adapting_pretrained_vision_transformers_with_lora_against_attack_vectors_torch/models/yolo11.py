@@ -30,6 +30,13 @@ are deterministic. The rounding order is the JAX one:
   kernel in either package;
 * the head pools the compute-dtype map (an f32 mean, rounded) and the
   classifier takes f32 accumulation plus an f32 bias.
+
+Under a mesh (``parallel.mesh``) YOLO11-cls is fully replicated: no rule of
+``vit_param_rules`` matches its tree (the C2PSA attention is ``attn/qkv``
+and ``attn/proj``, a conv stack, not ``attn/q``...), so every rank of a
+model group holds every parameter whole; only the data axis splits the
+batch. :func:`params_from_jax` raises if a rule ever splits one of its
+leaves.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ from torch import nn
 
 from ..ops.nn import _mm_f32
 from ..utils import trees
-from .vit import Leaves, _as_tensor, _sub
+from ..parallel import mesh as pmesh
+from .vit import Leaves, _as_tensor, _sub, bind_mesh
 
 # (depth_mult, width_mult, max_channels)
 SCALES = {
@@ -388,10 +396,13 @@ class YOLO11(nn.Module):
 
 # --- the JAX <-> module boundary ---------------------------------------------------
 
-def params_from_jax(flat, cfg: YOLO11Config) -> YOLO11:
+def params_from_jax(flat, cfg: YOLO11Config, mesh=None) -> YOLO11:
     """JAX-layout tree (flat '/' paths or nested; numpy arrays or tensors)
-    -> :class:`YOLO11`, on the tensors' device."""
-    return YOLO11(cfg, {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()})
+    -> :class:`YOLO11`, on the tensors' device.
+    Under ``mesh`` every parameter stays whole (the module docstring)."""
+    flat = {p: _as_tensor(v) for p, v in trees.flatten_with_paths(flat).items()}
+    pmesh.require_replicated(mesh, flat, 'YOLO11')
+    return bind_mesh(YOLO11(cfg, flat), mesh)
 
 
 def params_to_jax(model: YOLO11) -> dict[str, torch.Tensor]:

@@ -46,6 +46,11 @@ class LoRADropout:
     rate: float
     mode: str
     generator: torch.Generator
+    # under a mesh (``parallel.mesh``): (this rank's part, parts) of the
+    # global draw along the leading (batch) dim and, for a dense whose input
+    # is split over the model axis, along the last dim; (0, 1) = all of it
+    rows: tuple[int, int] = (0, 1)
+    cols: tuple[int, int] = (0, 1)
 
     def __post_init__(self):
         if self.mode not in DROPOUT_MODES:
@@ -54,9 +59,13 @@ class LoRADropout:
             raise ValueError(f"dropout rate {self.rate} outside [0, 1)")
 
     def scale(self, shape, device) -> torch.Tensor:
-        """f32 multiplier ``mask / keep`` of ``shape``: E[scale] = 1."""
+        """f32 multiplier ``mask / keep`` of ``shape``: E[scale] = 1. The mask
+        is this rank's block of the mask over the global shape."""
         keep = 1.0 - self.rate
-        mask = torch.rand(shape, generator=self.generator, device=device) < keep
+        (r, nr), (c, nc) = self.rows, self.cols
+        full = (shape[0] * nr, *shape[1:-1], shape[-1] * nc)
+        mask = torch.rand(full, generator=self.generator, device=device) < keep
+        mask = mask[r * shape[0]:(r + 1) * shape[0], ..., c * shape[-1]:(c + 1) * shape[-1]]
         return mask.float() / keep
 
 
@@ -112,11 +121,22 @@ def dense(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
         if "b" in p:
             y = y + p["b"].float()
         return y.to(cd)
+    if "lora_a" not in p:
+        return F.linear(x.to(cd), p["w"].to(cd).t(), p["b"].to(cd) if "b" in p else None)
+    return dense_f32(p, x, compute_dtype=cd).to(cd)
+
+
+def dense_f32(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
+    """:func:`dense` (float ``w`` only) before its final rounding: operands in
+    the compute dtype, the products, the LoRA branch and the bias summed in
+    f32. A tensor-parallel row-split projection adds these partial sums up
+    across ranks and rounds once (``models.vit``)."""
+    cd = compute_dtype or x.dtype
     w = p["w"].to(cd)
     xc = x.to(cd)
-    if "lora_a" not in p:
-        return F.linear(xc, w.t(), p["b"].to(cd) if "b" in p else None)
     y = _mm_f32(xc, w)
+    if "lora_a" not in p:
+        return y + p["b"].float() if "b" in p else y
     drop = p.get("lora_drop")
     xb = xc
     if drop is not None and drop.mode == "input":
@@ -127,7 +147,7 @@ def dense(p: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     y = y + p["lora_s"].float() * _mm_f32(xa.to(cd), p["lora_b"].to(cd))
     if "b" in p:
         y = y + p["b"].float()
-    return y.to(cd)
+    return y
 
 
 def layer_norm_init(dim: int, *, dtype=torch.float32) -> dict:

@@ -18,6 +18,13 @@ The module is built **once** per run and its parameters are trained in
 place: a module rebuilt from a tree would hold fresh leaves the optimizer
 does not know. What a trainer keeps (the best parameters) it therefore reads
 out of the module as real copies (``entry.to_tree``).
+
+Every function takes ``mesh=None`` with the JAX package's meaning: pass a
+``parallel.mesh`` mesh (every rank calls the function) and each batch is
+split over its data axis; the trainers build the module on the mesh
+(``from_tree(..., mesh=)``: model-axis slices by the rules). Rank 0 alone
+logs, writes the metrics and writes checkpoints and adapter directories;
+the snapshots are full trees (gathered), the same on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from ..attacks.common import Normalizer
 from ..models.registry import ModelEntry, get_normalization
 from ..ops import lora
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint, trees
 from ..utils.vocab import LabelVocabulary
 from . import optim
@@ -49,17 +57,27 @@ class FitResult:
     eval_step: Callable
 
 
-def _device_batch(batch, device):
-    return tuple(torch.as_tensor(a).to(device) for a in (batch.images, batch.labels, batch.valid))
+def _device_batch(batch, device, mesh=None):
+    """This rank's rows of a uint8 batch, on ``device``."""
+    arrays = pmesh.shard_batch(mesh, batch.images, batch.labels, batch.valid)
+    return tuple(torch.as_tensor(a).to(device) for a in arrays)
 
 
-def evaluate(eval_step, params, loader, *, device) -> dict:
+def _check_mesh(model, mesh) -> None:
+    if pmesh.mesh_of(model) is not mesh:
+        raise ValueError("the model was built on another mesh than the one given "
+                         "(entry.from_tree(..., mesh=mesh))")
+
+
+def evaluate(eval_step, params, loader, *, device, mesh=None) -> dict:
     """Run ``eval_step`` over a loader of ``Batch``es on ``device``; returns
-    accuracy, weighted F1, mean loss and support."""
+    accuracy, weighted F1, mean loss and support (of the global batch under
+    ``mesh``, on which ``params`` must be built)."""
     device = torch.device(device)
+    _check_mesh(params, mesh)
     loss_sum = conf_sum = None
     for batch in loader:
-        images, labels, valid = _device_batch(batch, device)
+        images, labels, valid = _device_batch(batch, device, mesh)
         loss, conf = eval_step(params, images, labels, valid)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         conf_sum = conf if conf_sum is None else conf_sum + conf
@@ -82,6 +100,7 @@ def fit(
     normalize: Optional[Normalizer],
     snapshot: Callable[[], Any],
     device,
+    mesh=None,
     on_epoch_end: Optional[Callable[[int, dict, TrainState, tuple], None]] = None,
     log: Callable[[str], None] = print,
     metrics=None,
@@ -103,8 +122,12 @@ def fit(
     ``start_epoch`` / ``init_best``: resume a run mid-way, carrying the best
     so far so that a worse later epoch cannot overwrite it. The module is in
     training mode inside the train loop (LoRA dropout) and in eval mode for
-    validation and on return."""
+    validation and on return. ``mesh``: the one ``model`` is built on; every
+    rank calls ``fit``, ``on_epoch_end`` and ``snapshot`` run on every rank,
+    ``log`` and ``metrics`` on rank 0 only."""
     device = torch.device(device)
+    _check_mesh(model, mesh)
+    main = pmesh.is_main(mesh)
     train_step = make_train_step(forward, model, normalize=normalize, generator=generator,
                                  augment=augment)
     eval_step = make_eval_step(forward, num_classes, normalize=normalize)
@@ -119,7 +142,7 @@ def fit(
         loss_sum = correct = count = None
         model.train()
         for batch in train_loader:
-            images, labels, valid = _device_batch(batch, device)
+            images, labels, valid = _device_batch(batch, device, mesh)
             state, m = train_step(state, images, labels, valid)
             if loss_sum is None:
                 loss_sum, correct, count = m["loss_sum"], m["correct"], m["count"]
@@ -137,17 +160,18 @@ def fit(
             "images_per_second": n / seconds if seconds > 0 else 0.0,
         }
         if val_loader is not None:
-            val = evaluate(eval_step, model, val_loader, device=device)
+            val = evaluate(eval_step, model, val_loader, device=device, mesh=mesh)
             rec.update({f"val_{k}": v for k, v in val.items()})
             if val["accuracy"] > best_acc:
                 best_acc, best_epoch = val["accuracy"], epoch
                 best_params = snapshot()
         history.append(rec)
-        log(f"epoch {epoch}: loss {rec['train_loss']:.4f} "
-            f"acc {rec['train_accuracy']:.4f}"
-            + (f" val_acc {rec.get('val_accuracy', 0):.4f}" if val_loader else "")
-            + f" ({rec['seconds']:.1f}s)")
-        if metrics is not None:
+        if main:
+            log(f"epoch {epoch}: loss {rec['train_loss']:.4f} "
+                f"acc {rec['train_accuracy']:.4f}"
+                + (f" val_acc {rec.get('val_accuracy', 0):.4f}" if val_loader else "")
+                + f" ({rec['seconds']:.1f}s)")
+        if metrics is not None and main:
             metrics.log("epoch", step=epoch, **{k: v for k, v in rec.items() if k != "epoch"})
         if on_epoch_end is not None:
             on_epoch_end(epoch, rec, state, (best_params, best_acc, best_epoch))
@@ -179,11 +203,14 @@ def train_base_model(
     resume_save_s: float = 600.0,
     augment: bool = True,
     seed: int = 0,
+    mesh=None,
     cfg=None,
     log: Callable[[str], None] = print,
 ) -> dict:
     """Full fine-tune of ``params`` (a JAX-layout tree) on ``device``, which
     the caller must name (``"cuda"`` for the card; ``"cpu"`` only on purpose).
+    ``mesh``: see the module docstring (the files are rank 0's, and are the
+    files a single-process run writes).
 
     Files under ``out_dir``: ``class_mappings.txt``, best and final model
     checkpoints (safetensors, readable by either package), ``metrics.jsonl``
@@ -210,15 +237,18 @@ def train_base_model(
     forward = lambda m, x: entry.apply(cfg, m, x)
     # leaves of its own: the step trains in place and must not write into the caller's tree
     model = entry.from_tree(
-        trees.map_leaves(lambda t: torch.as_tensor(t).to(device, copy=True), params), cfg)
+        trees.map_leaves(lambda t: torch.as_tensor(t).to(device, copy=True), params), cfg,
+        mesh=mesh)
     steps_per_epoch = max(len(train_loader), 1)
     state = TrainState.create(model, None, lambda ps: optim.adamw_steplr(
         ps, lr, weight_decay=weight_decay, step_size_epochs=steplr_epochs, gamma=steplr_gamma,
         steps_per_epoch=steps_per_epoch))
     generator = torch.Generator(device).manual_seed(seed * 1000 + 17) if augment else None
 
+    main = pmesh.is_main(mesh)
     os.makedirs(out_dir, exist_ok=True)
-    vocab.save(os.path.join(out_dir, "class_mappings.txt"))
+    if main:
+        vocab.save(os.path.join(out_dir, "class_mappings.txt"))
 
     resume_prefix = os.path.join(out_dir, "resume")
     start_epoch, init_best = 0, None
@@ -230,9 +260,10 @@ def train_base_model(
             b_params, b_meta = checkpoint.load_pytree(best_path)
             init_best = (trees.flatten_with_paths(b_params),
                          float(b_meta.get("val_accuracy", -1.0)), int(b_meta.get("epoch", -1)))
-        log(f"resuming from epoch {start_epoch} (step {state.step})")
+        if main:
+            log(f"resuming from epoch {start_epoch} (step {state.step})")
 
-    with MetricsLogger(os.path.join(out_dir, "metrics.jsonl")) as metrics:
+    with MetricsLogger(os.path.join(out_dir, "metrics.jsonl") if main else None) as metrics:
         metrics.log("train_start", model=model_name, source=source,
                     epochs=epochs, lr=lr, start_epoch=start_epoch)
         # t = -inf: the first epoch completed after (re)start always saves
@@ -243,27 +274,29 @@ def train_base_model(
             if epoch != epochs - 1 and time.time() - last_save["t"] < resume_save_s:
                 return
             checkpoint.save_train_state(st, resume_prefix, meta={"epoch": epoch})
-            if best_epoch > last_save["best_epoch"]:
+            if best_epoch > last_save["best_epoch"] and main:
                 checkpoint.save_pytree(best_params, resume_prefix + ".best.safetensors",
                                        meta={"epoch": best_epoch, "val_accuracy": best_acc})
                 last_save["best_epoch"] = best_epoch
             last_save["t"] = time.time()
 
         result = fit(forward, model, state, train_loader, val_loader, epochs=epochs,
-                     num_classes=len(vocab), normalize=normalize, device=device, log=log,
-                     metrics=metrics, generator=generator,
+                     num_classes=len(vocab), normalize=normalize, device=device, mesh=mesh,
+                     log=log, metrics=metrics, generator=generator,
                      augment=train_augment if augment else None,
                      snapshot=lambda: entry.to_tree(model), start_epoch=start_epoch,
                      init_best=init_best, on_epoch_end=save_resume)
 
     best_path = os.path.join(out_dir, f"{model_name}_best_model_finetuned.safetensors")
-    checkpoint.save_pytree(result.best_params, best_path,
-                           meta={"model": model_name, "source": source,
-                                 "classes": list(vocab.classes),
-                                 "best_epoch": result.best_epoch,
-                                 "best_val_accuracy": result.best_val_accuracy})
-    final_path = os.path.join(out_dir, f"{model_name}_final_model.safetensors")
-    checkpoint.save_pytree(entry.to_tree(model), final_path)
+    final_tree = entry.to_tree(model)  # a collective under a model axis: every rank
+    if main:
+        checkpoint.save_pytree(result.best_params, best_path,
+                               meta={"model": model_name, "source": source,
+                                     "classes": list(vocab.classes),
+                                     "best_epoch": result.best_epoch,
+                                     "best_val_accuracy": result.best_val_accuracy})
+        checkpoint.save_pytree(final_tree,
+                               os.path.join(out_dir, f"{model_name}_final_model.safetensors"))
 
     summary = {
         "model": model_name, "source": source, "epochs": epochs,
@@ -274,14 +307,16 @@ def train_base_model(
     }
     if test_loader is not None:
         best_model = entry.from_tree(trees.map_leaves(
-            lambda t: torch.as_tensor(t).to(device), result.best_params), cfg)
-        test = evaluate(result.eval_step, best_model, test_loader, device=device)
+            lambda t: torch.as_tensor(t).to(device), result.best_params), cfg, mesh=mesh)
+        test = evaluate(result.eval_step, best_model, test_loader, device=device, mesh=mesh)
         summary["test_accuracy"] = test["accuracy"]
         summary["test_f1"] = test["f1"]
-        log(f"test: acc {test['accuracy']:.4f} f1 {test['f1']:.4f}")
+        if main:
+            log(f"test: acc {test['accuracy']:.4f} f1 {test['f1']:.4f}")
 
-    _write_results_csv(os.path.join(out_dir, "training_results.csv"), summary,
-                       append=start_epoch > 0)
+    if main:
+        _write_results_csv(os.path.join(out_dir, "training_results.csv"), summary,
+                           append=start_epoch > 0)
     return summary
 
 
@@ -298,18 +333,20 @@ def read_adapter(flat: dict, lora_cfg: lora.LoRAConfig, *, head: bool) -> dict:
 
 
 def lora_trainer(entry: ModelEntry, cfg, base_params, lora_cfg: lora.LoRAConfig, *, lr: float,
-                 train_head: bool, seed: int, device):
+                 train_head: bool, seed: int, device, mesh=None):
     """What :func:`train_lora_adapter` trains: ``(model, state, snapshot)``.
 
     ``model`` is built once from the base tree with a fresh adapter attached
     in its training form (on ``device``, with leaves of its own: training
     never writes into the caller's tree); ``state`` names the adapter factors
     and, with ``train_head``, the head, every other parameter frozen;
-    ``snapshot()`` reads the adapter (and head) back out as real copies."""
+    ``snapshot()`` reads the adapter (and head) back out as real copies
+    (whole, under ``mesh``: every rank draws the whole adapter from ``seed``
+    and the module keeps its slices)."""
     base_d = trees.map_leaves(lambda t: torch.as_tensor(t).to(device), base_params)
     adapter = lora.init(torch.Generator(device).manual_seed(seed), base_d, lora_cfg)
     attached = lora.attach(base_d, adapter, lora_cfg, dropout_seed=seed)
-    model = entry.from_tree(trees.map_leaves(lambda t: t.clone(), attached), cfg)
+    model = entry.from_tree(trees.map_leaves(lambda t: t.clone(), attached), cfg, mesh=mesh)
     names = [n for n, _ in model.named_parameters()
              if n.rsplit(".", 1)[-1] in ("lora_a", "lora_b")
              or (train_head and n.split(".", 1)[0] == "head")]
@@ -331,12 +368,14 @@ def train_lora_adapter(
     lr: float = 1e-4,
     train_head: bool = True,
     seed: int = 0,
+    mesh=None,
     model_name: Optional[str] = None,
     cfg=None,
     log: Callable[[str], None] = print,
 ) -> dict:
     """Per-attack LoRA defense training on ``device``, which the caller must
-    name (``"cuda"`` for the card; ``"cpu"`` only on purpose).
+    name (``"cuda"`` for the card; ``"cpu"`` only on purpose). ``mesh``: see
+    the module docstring (rank 0 writes the adapter directories).
 
     The trainable tensors are the adapter factors (plus, like PEFT
     ``SEQ_CLS``, the classifier head when ``train_head``: the module holds
@@ -352,18 +391,20 @@ def train_lora_adapter(
     cfg = cfg if cfg is not None else entry.config(len(vocab))
     normalize = Normalizer(*get_normalization(model_name))
     model, state, snapshot = lora_trainer(entry, cfg, base_params, lora_cfg, lr=lr,
-                                          train_head=train_head, seed=seed, device=device)
+                                          train_head=train_head, seed=seed, device=device,
+                                          mesh=mesh)
 
     result = fit(lambda m, x: entry.apply(cfg, m, x), model, state, train_loader, val_loader,
                  epochs=epochs, num_classes=len(vocab), normalize=normalize, device=device,
-                 log=log, snapshot=snapshot)
+                 mesh=mesh, log=log, snapshot=snapshot)
 
     r = lora_cfg.rank
     final = snapshot()
     for tag, tree in (("best", result.best_params), ("final", final)):
-        peft_io.save_peft_adapter(tree["adapter"], lora_cfg,
-                                  os.path.join(out_dir, f"rank{r}_{tag}_adapter"),
-                                  head=tree.get("head"))
+        if pmesh.is_main(mesh):
+            peft_io.save_peft_adapter(tree["adapter"], lora_cfg,
+                                      os.path.join(out_dir, f"rank{r}_{tag}_adapter"),
+                                      head=tree.get("head"))
     return {
         "model": model_name, "rank": r,
         "best_epoch": result.best_epoch,

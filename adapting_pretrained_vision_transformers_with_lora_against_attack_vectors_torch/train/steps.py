@@ -16,6 +16,16 @@ there and fetch once per epoch: no step copies a scalar to the host.
   keep a set of parameters must clone it.
 * :func:`make_eval_step`: the summed cross-entropy and a (C, C) confusion
   matrix (rows = true class, cols = predicted).
+
+Under a mesh (the model's, ``parallel.mesh``) each rank holds its rows of
+the global batch: the loss divides by the global valid count (the local
+counts summed over ``"data"``), the trainable gradients are summed over
+``"data"`` before the optimizer step, so one step is the JAX package's
+global-mean step, and the metrics are summed over ``"data"``. Within a model
+group no gradient is reduced again: a split leaf keeps its own slice's
+gradient, and a whole leaf already gets the same gradient on every rank
+(``parallel.tp``). The augmentation's draws are the draws over the global
+batch, of which each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -27,18 +37,23 @@ import torch
 import torch.nn.functional as F
 
 from ..attacks.common import IMAGENET, Normalizer, to_unit_floats
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
 class TrainState:
     """Everything a train step changes, in place: the named trainable
     tensors (leaves of the module the forward runs), their optimizer, the
-    lr schedule (``update count -> lr``, or ``None``) and the update count."""
+    lr schedule (``update count -> lr``, or ``None``) and the update count;
+    under a mesh, the mesh and ``{name: dim}`` of the tensors this rank holds
+    a model-axis slice of (``utils.checkpoint`` gathers and slices by it)."""
 
     trainable: dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
     schedule: Optional[Callable[[int], float]] = None
     step: int = 0
+    mesh: Any = None
+    shard_dims: dict[str, int] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, model: torch.nn.Module, names, make_optimizer) -> "TrainState":
@@ -55,7 +70,21 @@ class TrainState:
         if keep is not None and keep - set(trainable):
             raise KeyError(f"not float parameters of the model: {sorted(keep - set(trainable))}")
         optimizer, schedule = make_optimizer(trainable.values())
-        return cls(trainable, optimizer, schedule)
+        dims = {f"{prefix}.{leaf}" if prefix else leaf: d
+                for prefix, mod in model.named_modules()
+                for leaf, d in getattr(mod, "shard_dims", {}).items()}
+        return cls(trainable, optimizer, schedule, mesh=pmesh.mesh_of(model),
+                   shard_dims={n: d for n, d in dims.items() if n in trainable})
+
+
+def _sum_over_data(tensors, mesh) -> None:
+    """Sum equal-dtype tensors over the data axis in place, in one call."""
+    if pmesh.axis_size(mesh, pmesh.DATA_AXIS) == 1 or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    pmesh.all_reduce(flat, mesh, pmesh.DATA_AXIS)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def make_train_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], model, *,
@@ -72,20 +101,25 @@ def make_train_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], model,
     ``count``), device tensors, so they add up across batches exactly."""
     if augment is not None and generator is None:
         raise ValueError("augment requires a generator")
+    mesh = pmesh.mesh_of(model)
 
     def train_step(state: TrainState, images, labels, valid):
         x = to_unit_floats(images)
         if augment is not None:
-            x = augment(x, generator)
+            x = (augment(x, generator) if mesh is None
+                 else augment(x, generator, rows=pmesh.data_rows(mesh, x.shape[0])))
         if normalize is not None:
             x = normalize(x)
         labels, valid = labels.long(), valid.float()
         logits = forward(model, x).float()
         ce = F.cross_entropy(logits, labels, reduction="none")
-        count = valid.sum()
+        count = pmesh.all_reduce(valid.sum(), mesh, pmesh.DATA_AXIS)
         loss = (ce * valid).sum() / count.clamp_min(1.0)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        grads = [p.grad for p in state.trainable.values() if p.grad is not None]
+        for dtype in {g.dtype for g in grads}:
+            _sum_over_data([g for g in grads if g.dtype == dtype], mesh)
         if state.schedule is not None:
             lr = state.schedule(state.step)
             for group in state.optimizer.param_groups:
@@ -94,7 +128,11 @@ def make_train_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], model,
         state.step += 1
         with torch.no_grad():
             correct = ((logits.argmax(dim=-1) == labels).float() * valid).sum()
-            metrics = {"loss_sum": loss.detach() * count, "correct": correct, "count": count}
+            sharded = pmesh.axis_size(mesh, pmesh.DATA_AXIS) > 1
+            local = (ce * valid).sum() if sharded else None
+            _sum_over_data([correct, *([local] if local is not None else [])], mesh)
+            loss_sum = local if sharded else loss.detach() * count
+            metrics = {"loss_sum": loss_sum, "correct": correct, "count": count}
         return state, metrics
 
     return train_step
@@ -105,7 +143,8 @@ def make_eval_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], num_cla
     """``(params, images, labels, valid) -> (loss_sum, confusion)``.
 
     ``forward(params, normalized_images) -> logits``; ``valid`` is a float
-    mask (B,), 1 for real samples and 0 for padding."""
+    mask (B,), 1 for real samples and 0 for padding. Under the model's mesh
+    both sums are over the global batch."""
 
     @torch.no_grad()
     def eval_step(params, images, labels, valid):
@@ -117,6 +156,8 @@ def make_eval_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], num_cla
         preds = logits.argmax(dim=-1)
         conf = torch.zeros(num_classes * num_classes, dtype=torch.float32, device=logits.device)
         conf.index_add_(0, labels * num_classes + preds, valid)
-        return (ce * valid).sum(), conf.reshape(num_classes, num_classes)
+        loss_sum = (ce * valid).sum()
+        _sum_over_data([loss_sum, conf], pmesh.mesh_of(params))
+        return loss_sum, conf.reshape(num_classes, num_classes)
 
     return eval_step

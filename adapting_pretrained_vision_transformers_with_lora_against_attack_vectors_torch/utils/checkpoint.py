@@ -22,6 +22,9 @@ view would otherwise be written as the wrong matrix.
 :func:`save_train_state` / :func:`load_train_state` write and read a resume
 file of the port's own: a torch optimizer's state is not an optax tree, so
 these files are not exchanged with the JAX package (model checkpoints are).
+Under a mesh (the state's, ``parallel.mesh``) the save gathers the model-axis
+slices and global rank 0 writes the file a single-process run writes; the
+load reads the whole file on every rank, which keeps its slices.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from . import trees
 
 _BF16_TAG = "__bf16__"
@@ -147,15 +151,23 @@ def save_train_state(state, path_prefix: str, *, meta: Optional[dict] = None) ->
     """Persist a ``train.steps.TrainState`` as one atomic
     ``{prefix}.state.safetensors``: the trainable tensors under ``params/``
     by name, the optimizer's per-tensor state under ``opt/<position>/``, the
-    update count in the metadata."""
+    update count in the metadata. Under a mesh every rank must call it (the
+    model-axis slices are gathered); rank 0 writes."""
     m = dict(meta or {})
     m["step"] = int(state.step)
-    opt = {}
-    for i, p in enumerate(state.trainable.values()):
-        entry = state.optimizer.state.get(p, {})
-        opt[f"{i:05d}"] = {k: v for k, v in entry.items() if isinstance(v, torch.Tensor)}
-    tree = {"params": dict(state.trainable), "opt": {k: v for k, v in opt.items() if v}}
-    save_pytree(tree, path_prefix + ".state.safetensors", meta=m)
+    flat, dims = {}, {}
+    for i, (name, p) in enumerate(state.trainable.items()):
+        flat[f"params/{name}"] = p.detach()
+        for k, v in state.optimizer.state.get(p, {}).items():
+            if isinstance(v, torch.Tensor):
+                flat[f"opt/{i:05d}/{k}"] = v
+                if name in state.shard_dims and v.shape == p.shape:
+                    dims[f"opt/{i:05d}/{k}"] = state.shard_dims[name]
+        if name in state.shard_dims:
+            dims[f"params/{name}"] = state.shard_dims[name]
+    flat = pmesh.gather_dims(state.mesh, flat, dims)
+    if pmesh.is_main(state.mesh):
+        save_pytree(trees.unflatten_from_paths(flat), path_prefix + ".state.safetensors", meta=m)
 
 
 def train_state_exists(path_prefix: str) -> bool:
@@ -165,8 +177,18 @@ def train_state_exists(path_prefix: str) -> bool:
 def load_train_state(path_prefix: str, state) -> dict:
     """Load a resume file into ``state`` in place (parameters, optimizer
     moments, update count); returns the metadata. The state must name the
-    tensors the saved one named."""
+    tensors the saved one named; under a mesh each rank keeps its slices."""
     tree, meta = load_pytree(path_prefix + ".state.safetensors")
+    mr, ms = (pmesh.axis_rank(state.mesh, pmesh.MODEL_AXIS),
+              pmesh.axis_size(state.mesh, pmesh.MODEL_AXIS))
+
+    def mine(name, t):
+        d = state.shard_dims.get(name)
+        if d is None or t.ndim == 0:
+            return t
+        n = t.shape[d] // ms
+        return t.narrow(d, mr * n, n)
+
     saved = tree["params"]
     if set(saved) != set(state.trainable):
         raise ValueError("the resume file names other tensors than this run trains: "
@@ -174,11 +196,12 @@ def load_train_state(path_prefix: str, state) -> dict:
     opt_state = {}
     with torch.no_grad():
         for i, (name, p) in enumerate(state.trainable.items()):
-            p.copy_(saved[name].to(p.device, p.dtype))
+            p.copy_(mine(name, saved[name]).to(p.device, p.dtype))
             entry = tree.get("opt", {}).get(f"{i:05d}")
             if entry:
                 # the update count stays where the optimizer keeps it (the host, by default)
-                opt_state[i] = {k: v if k == "step" else v.to(p.device) for k, v in entry.items()}
+                opt_state[i] = {k: v if k == "step" else mine(name, v).to(p.device)
+                                for k, v in entry.items()}
     current = state.optimizer.state_dict()
     state.optimizer.load_state_dict({"state": opt_state, "param_groups": current["param_groups"]})
     state.step = int(meta.get("step", 0))

@@ -239,7 +239,22 @@ Phases, one line each (or a few):
    and its device time by group); BiLoRA's delta at (12, 768, 768) and its
    coefficients' gradients on the card against the CPU within BILORA_RTOL;
    both example workflows' ``main`` on the card, their lines, walls and
-   trends.
+   trends;
+10. the data x model mesh (``parallel/``): (a) NCCL at world size 1, mesh
+   (1, 1), ViT-B/16 + rank-8 LoRA in bf16 at B=64: a LoRA step through
+   ``fit``, PGD-10 and the four-variant eval-compose, each bit for bit the
+   same calls with ``mesh=None``, with both times; (b) gloo, 4 ranks sharing
+   the card (``parallel.launch``; NCCL refuses two ranks on one card), mesh
+   (2, 2), ViT-B/16 at full width cut to 2 blocks, bf16, B=16 (each rank 8
+   rows and 6 of the 12 heads): first one all-reduce and one all-gather of
+   CUDA tensors, then the forward logits, PGD-2 and a LoRA step through
+   ``fit``, fields off, ``use_fused_mlp`` and ``fuse_ln_mlp``, against one
+   process on the card (logits within TP_LOGIT_TOL, PGD-2 perturbation signs above
+   TP_SIGN_AGREE, the loss within TP_LOSS_RTOL), every rank's packed
+   attention (and fused MLP) launches non-zero; (c)
+   ``parallel.dryrun.dryrun_multichip(4, device="cuda")``; then packed
+   attention at the tensor-parallel shape (8, 197, 6, 64) against its plain
+   version, timed beside SDPA, and the phase's wall time.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -399,6 +414,18 @@ CODEC_RATE_N = 64
 # stacked q weight (a task id whose uint32 seed wraps) against the CPU, relative to max|CPU|
 INT8_SHAPES = ((12608, 768, 768), (12608, 768, 3072), (12608, 3072, 768), (16, 50, 36))
 INT8_SIGN_AGREE = 0.95
+# phase 10 (b): ViT-B/16 at full width, depth cut to TP_DEPTH, batch TP_BATCH over a
+# TP_MESH (data, model) mesh of 4 ranks sharing the card (gloo); held against one process
+TP_MESH, TP_DEPTH, TP_BATCH = (2, 2), 2, 16
+TP_FIELDS = ("use_fused_mlp", "fuse_ln_mlp")  # the opt-in kernels that take a rank's slices
+TP_LOGIT_TOL = (5e-2, 5e-2)  # (atol, rtol), LOGIT_TOL's bf16 bound (PR 13's card: 1.56e-2)
+TP_SIGN_AGREE = 0.99  # PGD-2 perturbation signs (PR 13's card: 0.9972)
+TP_LOSS_RTOL = 5e-3  # the LoRA step's loss (PR 13's card: 6.2e-4 relative)
+# the LoRA step's gradients (relative to each leaf's norm) and its trained adapter and head:
+# Adam's first step moves a leaf by about lr * sign(gradient), 1e-3, so a flipped sign differs
+# by 2e-3 (tests/test_mesh.py's 2.5e-3); the gradients show what that update hides
+TP_GRAD_RTOL, TP_TRAINED_ATOL = 5e-2, 2.5e-3
+MESH_TURNS = 3  # phase 10 (a): mesh / no mesh in turns, the median of each
 BILORA_SHAPE, BILORA_N_FRQ, BILORA_TASK, BILORA_RTOL = (12, 768, 768), 100, 3, 1e-5
 DEMOS = ("examples/sequential_lora_demo_torch.py", "examples/bilora_fashion_demo_torch.py")
 # --profile: device time by kernel group, first match wins (one group per device function of
@@ -590,7 +617,9 @@ class Smoke:
                            ("cli", "cli.main"), ("rr", "tools.run_robustness"),
                            ("data_io", "data.io"), ("process", "data.process"),
                            ("vocab", "utils.vocab"), ("quant", "ops.quant"),
-                           ("bilora", "ops.bilora"), ("observability", "utils.observability")):
+                           ("bilora", "ops.bilora"), ("observability", "utils.observability"),
+                           ("pmesh", "parallel.mesh"), ("launch", "parallel.launch"),
+                           ("compare", "parallel.compare"), ("dryrun", "parallel.dryrun")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3141,6 +3170,207 @@ class Smoke:
             print(f"phase 9 demo {name}: wall {wall:.2f} s (host clock, data set-up included) "
                   f"{self.card}", flush=True)
 
+    # 10. the data x model mesh (parallel/)
+    def mesh_job(self, depth: int, batch: int, stages, workdir: str) -> dict:
+        """A ``parallel.compare`` job on ViT-B/16 (cut to ``depth`` blocks): the
+        tree from a seed with its biases and LayerNorm leaves moved off their
+        init values (``compare.jitter_affine``: a row-split bias added on
+        every rank, or a column slice from the wrong rank, changes the
+        logits), a uint8 batch from a numpy seed."""
+        import numpy as np
+        import torch
+
+        cfg = dataclasses.replace(self.vit.VIT_B16.with_classes(CLASSES), depth=depth)
+        rng = np.random.default_rng(10)
+        return {"model": "google_vit", "num_classes": CLASSES, "fields": {"depth": depth},
+                "tree": self.compare.jitter_affine(
+                    self.vit.init(cfg, torch.Generator().manual_seed(10)), 10),
+                "images": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3),
+                                                        dtype=np.uint8)),
+                "labels": torch.from_numpy(rng.integers(0, CLASSES, batch)),
+                "stages": list(stages), "workdir": workdir}
+
+    def mesh_world1(self) -> None:
+        """(a) NCCL, world size 1, mesh (1, 1), full ViT-B/16 in bf16, B=64: a
+        LoRA step through ``fit``, PGD-10 and the four-variant eval-compose,
+        each bit for bit the same calls without a mesh; the stage walls with
+        and without the mesh in turns (MESH_TURNS each), the median of each."""
+        import tempfile
+
+        import torch
+        import torch.distributed as dist
+
+        def same(a, b) -> bool:
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+            return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+        compare, pmesh, launch = self.compare, self.pmesh, self.launch
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                                rank=0, world_size=1)
+        mesh = pmesh.make_mesh(pmesh.MeshSpec(1, 1), device="cuda")
+        with tempfile.TemporaryDirectory() as work:
+            job = self.mesh_job(12, BATCH, ("lora_step", "pgd10", "compose"), work)
+            walls = {"mesh": [], "none": []}
+            compare.run_stages(job, self.dev, None)  # warm-up: the first call of each stage
+            for turn in range(MESH_TURNS):
+                for name in (("mesh", "none") if turn % 2 == 0 else ("none", "mesh")):
+                    t = {}
+                    out = compare.run_stages(job, self.dev, mesh if name == "mesh" else None, t)
+                    walls[name].append(t)
+                    if name == "mesh":
+                        got = out
+                    else:
+                        ref = out
+                for stage in job["stages"]:
+                    check(same(got[stage], ref[stage]), f"phase 10 (a) {stage}: the (1, 1) "
+                          f"mesh over NCCL differs from no mesh (turn {turn})")
+        dist.destroy_process_group()
+
+        t_mesh = walls["mesh"][-1]
+        check(min(t_mesh["pgd10"]["attention_fwd"], t_mesh["lora_step"]["attention_bwd"]) > 0,
+              f"phase 10 (a): no packed-attention launch {t_mesh}")
+
+        def median(name, stage):
+            return sorted(t[stage]["seconds"] for t in walls[name])[MESH_TURNS // 2]
+
+        print(f"phase 10 (a) mesh (1, 1) over NCCL, world size 1, google_vit ViT-B/16 + rank-8 "
+              f"LoRA bf16 B={BATCH}: LoRA step through fit, PGD-{PGD_STEPS}, 4-variant "
+              f"eval-compose each bit for bit the calls with mesh=None in each of {MESH_TURNS} "
+              f"turns; seconds, median of {MESH_TURNS} in turns (mesh / none): "
+              + ", ".join(f"{k} {median('mesh', k):.3f} / {median('none', k):.3f}"
+                          for k in job["stages"])
+              + "; every reading (mesh / none): " + ", ".join(
+                  f"{k} {[round(t[k]['seconds'], 3) for t in walls['mesh']]} / "
+                  f"{[round(t[k]['seconds'], 3) for t in walls['none']]}" for k in job["stages"])
+              + f" (after a warm-up pass, model build included) {self.card}", flush=True)
+
+    def mesh_gloo4(self) -> tuple:
+        """(b) gloo, 4 ranks sharing the card, mesh TP_MESH, ViT-B/16 at full
+        width cut to TP_DEPTH blocks, bf16, B=TP_BATCH: forward logits, PGD-2
+        and a LoRA step's loss, fields off and each of TP_FIELDS, against one
+        process on the card; every rank's packed-attention (and fused-MLP)
+        launches non-zero. Returns the packed-attention launches over the
+        ranks and runs, ``{"fwd": n, "bwd": n}``."""
+        import tempfile
+
+        import torch
+
+        compare, launch = self.compare, self.launch
+        with tempfile.TemporaryDirectory() as work:
+            job = self.mesh_job(TP_DEPTH, TP_BATCH, ("forward", "pgd2", "lora_step"), work)
+            job["runs"] = [{"spec": TP_MESH, "stages": ["collectives", *job["stages"]]},
+                           *({"spec": TP_MESH, "fields": {"depth": TP_DEPTH, field: True}}
+                             for field in TP_FIELDS)]
+            torch.save(job, os.path.join(work, "job.pt"))
+            t0 = time.perf_counter()
+            backend = launch.spawn(compare.run_rank, 4, device="cuda",
+                                   args=(os.path.join(work, "job.pt"),
+                                         os.path.join(work, "out.pt")),
+                                   log=lambda m: print(f"phase 10 (b) {m}", flush=True))
+            spawn_s = time.perf_counter() - t0
+            runs = torch.load(os.path.join(work, "out.pt"), weights_only=False)
+        check(backend == "gloo", f"phase 10 (b): backend {backend}")
+        x = job["images"].float() / 255.0
+        launches = {"fwd": 0, "bwd": 0}
+        for run, res in zip(job["runs"], runs):
+            name = next((f for f in TP_FIELDS if f in run.get("fields", {})), "fields off")
+            ref = compare.run_stages({**job, **run, "stages": job["stages"]}, self.dev)
+            got, counts = res["outputs"], res["counts"]
+            if "collectives" in got:
+                print(f"phase 10 (b) gloo all_reduce and all_gather on CUDA tensors over 4 ranks: "
+                      f"{got['collectives']['all_reduce'].tolist()}", flush=True)
+            err = close(got["forward"]["logits"], ref["forward"]["logits"], *TP_LOGIT_TOL,
+                        f"phase 10 (b) {name} logits")
+            d_g, d_r = (torch.sign(o["pgd2"]["adv"] - x) for o in (got, ref))
+            agree = float((d_g == d_r).float().mean())
+            check(agree > TP_SIGN_AGREE, f"phase 10 (b) {name} PGD-2 sign agreement {agree}")
+            l_g, l_r = float(got["lora_step"]["loss"]), float(ref["lora_step"]["loss"])
+            check(abs(l_g - l_r) <= TP_LOSS_RTOL * abs(l_r),
+                  f"phase 10 (b) {name} LoRA loss {l_g} vs {l_r}")
+            g_g, g_r = got["lora_step"]["grads"], ref["lora_step"]["grads"]
+            check(g_g.keys() == g_r.keys(), f"phase 10 (b) {name}: gradient names differ")
+            grad_rel = max(float((g_g[k] - g_r[k]).norm() / g_r[k].norm()) if g_r[k].norm() > 0
+                           else float(g_g[k].norm()) for k in g_r)
+            check(grad_rel <= TP_GRAD_RTOL,
+                  f"phase 10 (b) {name} LoRA step gradients: relative error {grad_rel}")
+            t_g, t_r = ({p: v.cpu() for p, v in
+                         self.trees.flatten_with_paths(o["lora_step"]["trained"]).items()}
+                        for o in (got, ref))
+            check(t_g.keys() == t_r.keys(), f"phase 10 (b) {name}: trained adapter paths differ")
+            trained_err = max(close(t_g[p], t_r[p], TP_TRAINED_ATOL, 0,
+                                    f"phase 10 (b) {name} trained {p}") for p in t_r)
+            keys = ["attention_fwd", "attention_bwd"] + {
+                "use_fused_mlp": ["fused_mlp_fwd", "fused_mlp_bwd"],
+                "fuse_ln_mlp": ["ln_mlp_fwd", "ln_mlp_bwd"]}.get(name, [])
+            per_rank = [{k: sum(c[st][k] for st in job["stages"]) for k in keys}
+                        for c in counts]
+            check(all(v > 0 for r in per_rank for v in r.values()),
+                  f"phase 10 (b) {name}: a rank launched no kernel {per_rank}")
+            for k in launches:
+                launches[k] += sum(r[f"attention_{k}"] for r in per_rank)
+            print(f"phase 10 (b) mesh {TP_MESH} over gloo, 4 ranks on one card, google_vit "
+                  f"ViT-B/16 width 768 depth {TP_DEPTH} (cut from 12) bf16 B={TP_BATCH}, {name}: "
+                  f"logits max|err| {err:.3e} (limit atol/rtol {TP_LOGIT_TOL}), PGD-2 sign "
+                  f"agreement {agree:.5f} (limit {TP_SIGN_AGREE}), LoRA step loss {l_g:.6f} vs "
+                  f"{l_r:.6f} (rtol {TP_LOSS_RTOL}), its gradients' largest relative error "
+                  f"{grad_rel:.3e} (limit {TP_GRAD_RTOL}), the trained adapter and head max|err| "
+                  f"{trained_err:.3e} (limit {TP_TRAINED_ATOL}); launches per rank {per_rank}; rank 0 "
+                  f"seconds " + ", ".join(f"{st} {counts[0][st]['seconds']:.2f}"
+                                          for st in counts[0] if st != "foreign_modules")
+                  + f" {self.card}", flush=True)
+            check(all(c["foreign_modules"] == [] for c in counts), "a rank imported jax")
+        print(f"phase 10 (b) spawn + both runs: {spawn_s:.1f} s {self.card}", flush=True)
+        return launches
+
+    def time_attention_tp(self, launches: dict) -> list[dict]:
+        """Packed attention at the tensor-parallel shape of phase 10 (b): each
+        rank's 6 of ViT-B's 12 heads on its TP_BATCH/2 rows, (8, 197, 6, 64):
+        kernel against plain (forward and backward), bound, SDPA."""
+        import torch
+        import torch.nn.functional as F
+
+        ka = self.ka
+        b, n, h, hd = TP_BATCH // TP_MESH[0], 197, 12 // TP_MESH[1], 64
+        gen = torch.Generator(self.dev).manual_seed(11)
+        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        check(ka.kernel_variant(torch.bfloat16, n, hd) == "wgmma", "TP shape not on wgmma")
+        (fa, fr), (ga, gr) = TOL["bfloat16"]
+        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+        e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, "tp fwd")
+        got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+        want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+        e_b = max(close(g_, w_, ga, gr, f"tp d{nm}") for nm, g_, w_ in zip("qkv", got, want))
+        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = do.view(b, n, h, hd).transpose(1, 2)
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                           lambda: ka.attention_packed_reference(q, k, v, h),
+                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
+                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                               retain_graph=True))
+        unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
+        bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
+        bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
+        print(f"phase 10 attention_packed at the TP shape {(b, n, h, hd)} bf16 [wgmma]: fwd "
+              f"max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd "
+              f"{kb:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
+              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
+              f"{self.card}", flush=True)
+        src = f"{PKG}/csrc/attention_packed.cu"
+        self.tp_errs = {"attention_packed_tp_fwd": e_f, "attention_packed_tp_bwd": e_b}
+        return [
+            {"name": "attention_packed_tp_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "attention_packed_tp_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -3425,6 +3655,15 @@ def main(argv=None) -> None:
     s.int8_trace(run_q, qmodel)
     s.bilora_vs_cpu()
     s.demos()
+    # 10. the data x model mesh: NCCL at world size 1, gloo over 4 ranks on the card, the dry run
+    t10 = time.perf_counter()
+    s.mesh_world1()
+    tp_launches = s.mesh_gloo4()
+    s.dryrun.dryrun_multichip(4, device="cuda")
+    print(f"phase 10 (c) dryrun_multichip(4, device='cuda'): passed (4 ranks over gloo on one "
+          f"card) {s.card}", flush=True)
+    kernels += s.time_attention_tp(tp_launches)
+    print(f"phase 10 wall {time.perf_counter() - t10:.1f} s {s.card}", flush=True)
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],
@@ -3432,7 +3671,8 @@ def main(argv=None) -> None:
             "ln_mlp_fwd": err_m["fwd"], "ln_mlp_bwd": err_m["bwd"],
             "fused_mlp_fwd": err_f["fwd"], "fused_mlp_bwd": err_f["bwd"],
             "attn_block_fwd": err_a["fwd"], "attn_block_bwd": err_a["bwd"],
-            "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"]}
+            "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"],
+            **s.tp_errs}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # composition_ms: where no one PyTorch call computes the function (library_ms null),

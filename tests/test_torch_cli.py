@@ -258,7 +258,8 @@ def test_fused_block_flag_sets_fuse_ln_mlp(convnext_runs, swin_runs, runs, tmp_p
     seen = []
     entry = tregistry.get_model("convnext_test")
     monkeypatch.setitem(tregistry._REGISTRY, "convnext_test", dataclasses.replace(
-        entry, from_tree=lambda flat, cfg: (seen.append(cfg), entry.from_tree(flat, cfg))[1]))
+        entry, from_tree=lambda flat, cfg, mesh=None: (
+            seen.append(cfg), entry.from_tree(flat, cfg, mesh=mesh))[1]))
     common = ["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "convnext_test",
               "--model_path", convnext_runs["ck"], "--splits", "test", "--batch_size", "8",
               "--attacks", "fgsm"]
@@ -286,7 +287,8 @@ def test_vit_kernel_flags_follow_the_jax_order(runs, tmp_path, monkeypatch):
     seen = []
     entry = tregistry.get_model("vit_test")
     monkeypatch.setitem(tregistry._REGISTRY, "vit_test", dataclasses.replace(
-        entry, from_tree=lambda flat, cfg: (seen.append(cfg), entry.from_tree(flat, cfg))[1]))
+        entry, from_tree=lambda flat, cfg, mesh=None: (
+            seen.append(cfg), entry.from_tree(flat, cfg, mesh=mesh))[1]))
     common = ["--device", "cpu", "attack", "--data_root", runs["data"], "--model", "vit_test",
               "--model_path", runs["ck"], "--splits", "test", "--batch_size", "8",
               "--attacks", "fgsm"]
