@@ -18,7 +18,9 @@ time from ``requires_grad`` whether its backward recomputes the parameter
 gradients. ``sign(0) = 0``. The random start draws
 from a ``torch.Generator`` on the images' device; on a model built under a
 mesh (``parallel.mesh``) it is the draw over the global batch, of which this
-rank keeps its rows, so a sharded run is the single-process run.
+rank keeps its rows, so a sharded run is the single-process run. A caller
+that holds the draw itself (another framework's, in a parity test) passes it
+as ``noise`` instead.
 """
 
 from __future__ import annotations
@@ -55,16 +57,20 @@ def fgsm(apply_fn: Callable, params, images: torch.Tensor, labels: torch.Tensor,
 def pgd(apply_fn: Callable, params, images: torch.Tensor, labels: torch.Tensor, *,
         eps: float, alpha: float, steps: int, random_start: bool = True,
         generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
         normalize: Normalizer = IMAGENET) -> torch.Tensor:
-    """Projected gradient descent over the whole step budget."""
+    """Projected gradient descent over the whole step budget. ``noise``:
+    the random start's U(-eps, eps) draw for these rows (the images' shape),
+    in place of a draw from ``generator``."""
     grad_fn = _loss_grad(apply_fn, normalize)
     x = images
     if random_start:
-        if generator is None:
-            generator = torch.Generator(images.device).manual_seed(0)
-        total, rows = pmesh.data_rows(pmesh.mesh_of(params), images.shape[0])
-        noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
-            -eps, eps, generator=generator)[rows]
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(images.device).manual_seed(0)
+            total, rows = pmesh.data_rows(pmesh.mesh_of(params), images.shape[0])
+            noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
+                -eps, eps, generator=generator)[rows]
         x = linf_project(images + noise, images, eps)
     for _ in range(steps):
         g = grad_fn(x, params, labels)
@@ -87,13 +93,14 @@ def make_fgsm(entry_apply: Callable, cfg, *, eps: float,
 
 def make_pgd(entry_apply: Callable, cfg, *, eps: float, alpha: float, steps: int,
              random_start: bool = True, normalize: Normalizer = IMAGENET) -> Callable:
-    """``(params, images, labels, generator) -> adv`` PGD; images uint8 or [0,1]."""
+    """``(params, images, labels, generator, noise=None) -> adv`` PGD; images
+    uint8 or [0,1]; ``noise``: the random start's draw (see :func:`pgd`)."""
     apply_fn = partial(entry_apply, cfg)
 
-    def run(params, images, labels, generator=None):
+    def run(params, images, labels, generator=None, noise=None):
         with frozen(params):
             return pgd(apply_fn, params, to_unit_floats(images), labels, eps=eps,
                        alpha=alpha, steps=steps, random_start=random_start,
-                       generator=generator, normalize=normalize)
+                       generator=generator, noise=noise, normalize=normalize)
 
     return run

@@ -254,7 +254,21 @@ Phases, one line each (or a few):
    attention (and fused MLP) launches non-zero; (c)
    ``parallel.dryrun.dryrun_multichip(4, device="cuda")``; then packed
    attention at the tensor-parallel shape (8, 197, 6, 64) against its plain
-   version, timed beside SDPA, and the phase's wall time.
+   version, timed beside SDPA, and the phase's wall time;
+11. the measurement entry points: (a) ``python3 bench_torch.py`` from the
+   checkout as a user runs it (a fresh process, the default variant): its
+   card line, its JSON line (a value, ``bench.py``'s metric name, ``mfu_pct``
+   in (0, 100]) and its packed-attention launches, 12 x 10 each way per call
+   over 1 + 8 calls, beside phase 6's in-process ViT-B reading; (b) the other
+   four ``BENCH_VARIANT``s through ``bench_torch.measure`` in this process at
+   BENCH_VARIANT_ITERS timed calls, each held to its kernels' launches
+   (BENCH_KERNELS: ``int8`` no fused kernel, ``fusedblock`` ``attn_block`` and
+   the LN-fused MLP and no packed attention, ``lnmlp`` the LN-fused MLP); (c)
+   each tool of ``<port>/tools/`` (``bench_zoo``, ``bench_train``,
+   ``bench_eval``, ``bench_compose``, ``profile_pgd``, ``profile_train``,
+   ``profile_eval``) once at cut counts (BENCH_TOOL_ARGS, full widths), its
+   artifact read back (every record a value; each profile table with device
+   time, an idle share and a kernel of this repo); the phase's wall.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -268,7 +282,8 @@ fails with a non-zero exit.
 Run: ``python3 chip_smoke.py`` from the repository root. ``python3
 chip_smoke.py --profile google_vit|swin|convnext`` instead builds that
 backbone, traces one warm PGD-10 call with ``torch.profiler`` and prints the
-device time by kernel group, one group per device function of this repo
+device time by kernel group (``<port>/tools/trace_table.py``, the table the
+port's ``profile_*`` tools print), one group per device function of this repo
 (ViT-B: fields off, then ``fuse_attn_block``; ConvNeXt: kernel fields on,
 then off);
 ``--profile yolo11-cls`` one warm YOLO11-cls PGD-10 call;
@@ -428,31 +443,20 @@ TP_GRAD_RTOL, TP_TRAINED_ATOL = 5e-2, 2.5e-3
 MESH_TURNS = 3  # phase 10 (a): mesh / no mesh in turns, the median of each
 BILORA_SHAPE, BILORA_N_FRQ, BILORA_TASK, BILORA_RTOL = (12, 768, 768), 100, 3, 1e-5
 DEMOS = ("examples/sequential_lora_demo_torch.py", "examples/bilora_fashion_demo_torch.py")
-# --profile: device time by kernel group, first match wins (one group per device function of
-# this repo, then the library's)
-TRACE_GROUPS = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
-                ("fused MLP fwd, with or without LN (this repo)", r"ln_mlp_fwd|wg_mlp_fwd"),
-                ("fused MLP bwd, with or without LN (this repo)", r"ln_mlp_bwd|wg_mlp_bwd"),
-                ("attn_block heads fwd: LN, q/k/v, attention (this repo)", r"heads_fwd"),
-                ("attn_block o-projection fwd (this repo)", r"oproj_fwd"),
-                ("attn_block heads bwd: recompute, da, attention bwd (this repo)", r"heads_bwd"),
-                ("attn_block dh + LN backward (this repo)", r"dh_bwd"),
-                ("window attention fwd (this repo)", r"win_fwd"),
-                ("window attention bwd (this repo)", r"win_bwd"),
-                ("packed attention fwd (this repo)", r"attn_fwd"),
-                ("packed attention bwd (this repo)", r"attn_bwd"),
-                ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
-                ("int8 GEMMs (cuBLASLt, _int_mm)", r"s8s8|i8i8|imma|[Ii]nt8|_s8|_i8"),
-                ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),
-                ("optimizer (foreach Adam/AdamW)", r"multi_tensor|adam|Adam"),
-                ("grid_sample (augmentation)", r"grid_sampler"),
-                ("softmax, cross-entropy", r"softmax|nll_loss"),
-                ("LayerNorm", r"layer_norm|LayerNorm"), ("GELU", r"[Gg]elu"),
-                ("round, clamp, abs, row max, div (W8A8 quantizers; PGD's clamps)",
-                 r"round|clamp|abs_kernel|MaxNan|amax|div_true|DivFunctor"),
-                ("copies, casts, cat", r"copy|Copy|cat|Cat|direct_copy|convert"),
-                ("index_select / index_add", r"index"),
-                ("other elementwise, fills, reductions", r".*"))
+# phase 11: the bench entry (bench_torch.py) as a user runs it, its other variants in this
+# process at BENCH_VARIANT_ITERS timed calls, then each tool of <port>/tools/ at cut counts
+# (full widths). Launches per PGD-10 call of ViT-B: 12 blocks x 10 steps, forward and backward,
+# of each kernel a variant runs (bench_torch.COUNTERS' names); every other count 0
+BENCH_ENTRY_TIMEOUT_S, BENCH_VARIANT_ITERS = 900, 2
+BENCH_KERNELS = {"merged": ("attention_packed",), "attached": ("attention_packed",),
+                 "int8": ("attention_packed",), "fusedblock": ("attn_block", "ln_mlp"),
+                 "lnmlp": ("attention_packed", "ln_mlp")}
+BENCH_TOOL_ARGS = {"bench_zoo": ("--iters", "1"),
+                   "bench_train": ("--modes", "full", "lora", "lora_pa", "--iters", "2"),
+                   "bench_eval": ("--iters", "2", "--sweep_batch", "64"),
+                   "bench_compose": ("--n_per_dataset", "64", "--datasets", "2"),
+                   "profile_pgd": (), "profile_train": ("--mode", "lora"),
+                   "profile_eval": ("--iters", "2")}
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -479,18 +483,9 @@ def close(got, want, atol: float, rtol: float, what: str) -> float:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over ``iters`` calls (after one warm-up)."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """The package's ``tools/timing.cuda_ms``: mean device milliseconds per
+    call over ``iters`` calls (after one warm-up)."""
+    return importlib.import_module(f"{PKG}.tools.timing").cuda_ms(fn, iters)
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -619,8 +614,10 @@ class Smoke:
                            ("vocab", "utils.vocab"), ("quant", "ops.quant"),
                            ("bilora", "ops.bilora"), ("observability", "utils.observability"),
                            ("pmesh", "parallel.mesh"), ("launch", "parallel.launch"),
-                           ("compare", "parallel.compare"), ("dryrun", "parallel.dryrun")):
+                           ("compare", "parallel.compare"), ("dryrun", "parallel.dryrun"),
+                           ("trace_table", "tools.trace_table"), ("timing", "tools.timing")):
             setattr(self, attr, importlib.import_module(f"{PKG}.{name}"))
+        self.bench = importlib.import_module("bench_torch")
         check("jax" not in sys.modules, "the port imported jax")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2574,9 +2571,9 @@ class Smoke:
              "replaces": f"{JAX_SRC}/attention.py:95", "launches": launches["bwd"],
              "ms": kb_, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
-    def time_vit_pgd(self, entry, cfg, model_tree, normalize, x, y) -> None:
+    def time_vit_pgd(self, entry, cfg, model_tree, normalize, x, y) -> dict:
         """ViT-B PGD-10 images/s with each kernel field and none: two turns
-        over the variants, the best of each."""
+        over the variants, the best of each; returns ``{label: ms}``."""
         import torch
 
         best = {}
@@ -2591,6 +2588,7 @@ class Smoke:
         for label, ms in best.items():
             print(f"phase 6 PGD-{PGD_STEPS} google_vit+LoRA bf16 B={BATCH}, {label}: {ms:.2f} "
                   f"ms/batch, {BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
+        return best
 
     def train_callables(self, entry, tree, normalize, kind: str) -> dict:
         """``{label: one training step}`` for ``kind`` = "train" (full
@@ -3371,6 +3369,98 @@ class Smoke:
              "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
              "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
+    def bench_expect(self, variant: str, calls: int) -> dict:
+        """Each of ``bench_torch.COUNTERS`` that ``calls`` ViT-B PGD-10 calls of
+        ``variant`` must show (BENCH_KERNELS)."""
+        per_call = 12 * PGD_STEPS
+        return {name: calls * per_call if name.rsplit("_", 1)[0] in BENCH_KERNELS[variant] else 0
+                for name in self.bench.COUNTERS}
+
+    def bench_entry(self, phase6_ms: float) -> None:
+        """Phase 11 (a): ``python3 bench_torch.py`` from the checkout, as a user
+        runs it (the default variant, in a fresh process): its JSON line and
+        the kernel launches it printed."""
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
+                             capture_output=True, text=True, timeout=BENCH_ENTRY_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = out.stdout.strip().splitlines()
+        check(out.returncode == 0 and lines, f"bench_torch.py: rc {out.returncode} "
+              f"{out.stderr[-2000:]}")
+        rec = json.loads(lines[-1])
+        for line in lines[:-1]:
+            print(f"phase 11 (a) bench_torch.py: {line}", flush=True)
+        check(rec.get("value") is not None, f"bench_torch.py printed no value: {rec}")
+        check(rec["metric"] == self.bench.metric_name(PGD_STEPS, "merged"),
+              f"bench_torch.py metric {rec['metric']}")
+        check(0 < rec["mfu_pct"] <= 100, f"bench_torch.py mfu_pct {rec['mfu_pct']}")
+        got = next((json.loads(m.group(1)) for m in map(
+            re.compile(r"^kernel launches over \d+ PGD-\d+ calls .*?: (\{.*\})$").match, lines)
+            if m), None)
+        want = self.bench_expect("merged", 1 + self.bench.settings()["iters"])
+        check(got == want, f"bench_torch.py launches {got} (want {want})")
+        print(f"phase 11 (a) bench_torch.py (fresh process, wall {wall:.1f} s): {rec['value']} "
+              f"images/s, mfu {rec['mfu_pct']}% of 989.4 TFLOP/s, beside phase 6's in-process "
+              f"ViT-B fields off {BATCH * 1000 / phase6_ms:.2f} images/s {self.card}", flush=True)
+
+    def bench_variants(self) -> None:
+        """Phase 11 (b): the other BENCH_VARIANTs through ``bench_torch.measure``
+        in this process, each held to its kernels' launch counts."""
+        for variant in self.bench.VARIANTS[1:]:
+            rec, got = self.bench.measure(self.dev, variant, batch=BATCH, steps=PGD_STEPS,
+                                          iters=BENCH_VARIANT_ITERS)
+            want = self.bench_expect(variant, 1 + BENCH_VARIANT_ITERS)
+            check(got == want, f"bench_torch {variant} launches {got} (want {want})")
+            check(rec["metric"] == self.bench.metric_name(PGD_STEPS, variant) and rec["value"] > 0
+                  and 0 < rec["mfu_pct"] <= 100, f"bench_torch {variant}: {rec}")
+            print(f"phase 11 (b) BENCH_VARIANT={variant}: {rec['value']} images/s, mfu "
+                  f"{rec['mfu_pct']}%, launches {' '.join(f'{k} {v}' for k, v in got.items() if v)}"
+                  f" {self.card}", flush=True)
+
+    def bench_tools(self) -> None:
+        """Phase 11 (c): each tool of ``<port>/tools/`` once, in this process,
+        at cut counts (BENCH_TOOL_ARGS), writing its artifact."""
+        out_dir = os.path.join(self.build_mod.build_dir(), "phase11")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        for tool, args in BENCH_TOOL_ARGS.items():
+            path = os.path.join(out_dir, f"{tool}.json")
+            flag = "--table_json" if tool.startswith("profile") else "--json"
+            extra = ("--out", os.path.join(out_dir, f"trace_{tool}")) if tool.startswith(
+                "profile") else ()
+            t0 = time.perf_counter()
+            rc = importlib.import_module(f"{PKG}.tools.{tool}").main([*args, *extra, flag, path])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"tools/{tool}: rc {rc}")
+            art = json.load(open(path))
+            if tool.startswith("profile"):
+                check(art["busy_ms"] and art["device_total_ms"] and art["idle_share"] is not None
+                      and os.path.exists(art["trace"]), f"tools/{tool}: table {art}")
+                groups = [g["group"] for g in art["groups"]]
+                check(any("this repo" in g for g in groups), f"tools/{tool}: no kernel of this "
+                      f"repo in the trace: {groups}")
+                what = (f"busy {art['busy_ms']:.2f} ms, idle share {art['idle_share']:.1%}, "
+                        f"first groups " + "; ".join(
+                            f"{g['group']} {g['total_ms']:.2f} ms" for g in art["groups"][:3]))
+            elif tool == "bench_compose":
+                check(art["variants"] == 27 and art["matrix_wall_s"]["host"] > 0,
+                      f"tools/{tool}: {art}")
+                what = (f"{art['variants']} variants x {art['datasets']} x "
+                        f"{art['n_per_dataset']}: build {art['build_wall_s']['host']} s, matrix "
+                        f"{art['matrix_wall_s']['host']} s, {art['matrix_imgs_per_s']['host']} "
+                        f"images/s")
+            else:
+                check(art["device"] == self.timing.device_kind(self.dev) and all(
+                    r.get("value") for r in art["records"]), f"tools/{tool}: {art}")
+                what = "; ".join(f"{r.get('backbone', r['metric'])}"
+                                 + (f" B={r['batch']}" if tool == "bench_eval" else "")
+                                 + (" int8" if r.get("int8") else "") + f" {r['value']}"
+                                 + (f" (mfu {r['mfu_pct_analytic']}%)"
+                                    if r.get("mfu_pct_analytic") else "")
+                                 for r in art["records"])
+            print(f"phase 11 (c) tools/{tool} {' '.join(args)} (wall {wall:.1f} s): {what} "
+                  f"{self.card}", flush=True)
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -3454,46 +3544,14 @@ class Smoke:
                                top=name in ("patch", "square", "yolo11-cls", "int8"))
 
     def trace_summary(self, head: str, what: str, prof, wall_ms: float, top: bool) -> None:
-        """Print a profiler's device time by kernel group (TRACE_GROUPS), the
-        union of its kernel intervals against the unprofiled wall (the idle
-        share), and with ``top`` the ten longest kernels by name."""
-        import torch
-
-        totals = {g: [0.0, 0] for g, _ in TRACE_GROUPS}
-        by_name: dict = {}
-        spans = []
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dur = ev.time_range.end - ev.time_range.start  # microseconds
-            group = next(g for g, pat in TRACE_GROUPS if re.search(pat, ev.name))
-            totals[group][0] += dur / 1e3
-            totals[group][1] += 1
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + dur / 1e3
-            spans.append((ev.time_range.start, ev.time_range.end))
-        check(spans, "the profiler recorded no device activity")
-        spans.sort()
-        busy, (lo, hi) = 0.0, spans[0]
-        for a, b in spans[1:]:
-            if a > hi:
-                busy, lo, hi = busy + (hi - lo), a, b
-            else:
-                hi = max(hi, b)
-        busy = (busy + hi - lo) / 1e3
-        total = sum(v[0] for v in totals.values())
-        print(f"{head} {what} {self.card}: "
-              f"unprofiled {wall_ms:.2f} ms/call; one traced call: device busy "
-              f"{busy:.2f} ms (union of {len(spans)} kernel intervals), kernel time "
-              f"{total:.2f} ms, idle share of the unprofiled wall "
-              f"{max(0.0, 1 - busy / wall_ms):.1%}")
-        for group, (ms, calls) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
-            if calls:
-                print(f"{head}:   {group:40s} {ms:9.2f} ms "
-                      f"{ms / total:6.1%}  {calls} calls", flush=True)
-        if top:  # few or no kernels of this repo
-            for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-                print(f"{head}:     top kernel {ms:9.2f} ms  {kernel[:120]}", flush=True)
-
+        """Print a profiler's device time by kernel group, the union of its
+        kernel intervals against the unprofiled wall (the idle share), and
+        with ``top`` the ten longest kernels by name: the package's
+        ``tools/trace_table`` table."""
+        table = self.trace_table.summarize(prof, wall_ms=wall_ms)
+        check(table["intervals"] > 0, "the profiler recorded no device activity")
+        for line in self.trace_table.lines(table, head, what, self.card, top=10 if top else 0):
+            print(line, flush=True)
 
 def main(argv=None) -> None:
     import argparse
@@ -3620,7 +3678,7 @@ def main(argv=None) -> None:
     print(f"phase 6 PGD-{PGD_STEPS} swin+LoRA bf16 B={BATCH}, use_fused_mlp: {pgd_ms:.2f} "
           f"ms/batch, {BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
     del swin_model, swin_pgd, swin_fused, f_pgd, f_model
-    s.time_vit_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_x, vit_y)
+    vit_ms = s.time_vit_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_x, vit_y)
     s.time_families(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own, patch_ms, aa_out)
     s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
     s.time_training(vit_entry, vit_tree, vit_norm)
@@ -3664,6 +3722,12 @@ def main(argv=None) -> None:
           f"card) {s.card}", flush=True)
     kernels += s.time_attention_tp(tp_launches)
     print(f"phase 10 wall {time.perf_counter() - t10:.1f} s {s.card}", flush=True)
+    # 11. the bench entry as a user runs it, its other variants, the tools of <port>/tools/
+    t11 = time.perf_counter()
+    s.bench_entry(vit_ms["fields off"])
+    s.bench_variants()
+    s.bench_tools()
+    print(f"phase 11 wall {time.perf_counter() - t11:.1f} s {s.card}", flush=True)
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],

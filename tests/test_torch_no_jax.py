@@ -81,3 +81,35 @@ def test_source_has_no_jax_import(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", JAX_PKG,
                                            "apvt_lora"), f"{path}: imports {n}"
+
+
+# the measurement entry points: the root script and the tools of the port
+MEASUREMENT_MODULES = ("tools.flops", "tools.trace_table", "tools.timing", "tools.bench_zoo",
+                       "tools.bench_train", "tools.bench_eval", "tools.bench_compose",
+                       "tools.profile_pgd", "tools.profile_train", "tools.profile_eval")
+
+
+def test_bench_torch_and_the_measurement_tools_load_no_jax():
+    code = (
+        "import importlib, sys\n"
+        "import bench_torch\n"
+        f"for n in {MEASUREMENT_MODULES!r}:\n"
+        f"    importlib.import_module('{PKG}.' + n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        f"or m.startswith('{JAX_PKG}') or m == 'apvt_lora' or m.startswith('tools'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=180)
+    assert out.returncode == 0, out.stderr
+
+
+def test_bench_torch_has_no_jax_import():
+    test_source_has_no_jax_import(os.path.join(REPO, "bench_torch.py"))
+    tree = ast.parse(open(os.path.join(REPO, "bench_torch.py")).read())
+    for node in ast.walk(tree):  # nor the JAX package's tools/ or bench.py
+        if isinstance(node, ast.ImportFrom):
+            assert (node.module or "").split(".")[0] not in ("tools", "bench", "tunnel_probe")
+        elif isinstance(node, ast.Import):
+            assert all(a.name.split(".")[0] not in ("tools", "bench", "tunnel_probe")
+                       for a in node.names)
