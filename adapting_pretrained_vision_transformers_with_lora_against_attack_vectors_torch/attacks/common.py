@@ -34,9 +34,12 @@ IMAGENET = Normalizer((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 def to_unit_floats(images: torch.Tensor) -> torch.Tensor:
     """uint8 batches become [0,1] float32 on the tensor's own device; float
-    inputs (already [0,1]) pass through unchanged."""
+    inputs (already [0,1]) pass through unchanged. The divisor is a tensor on
+    that device: CUDA divides by a CPU scalar as a product with its
+    reciprocal, one ulp off the quotient for 126 of the 256 values, which
+    moves truncated adversarial pixels by one level."""
     if images.dtype == torch.uint8:
-        return images.to(torch.float32) / 255.0
+        return images.to(torch.float32) / images.new_full((), 255.0, dtype=torch.float32)
     return images
 
 

@@ -361,6 +361,11 @@ def params_to_jax(model: Swin) -> dict[str, torch.Tensor]:
     return {p: v.detach().cpu() for p, v in out.items()}
 
 
+def features(cfg: SwinConfig, model: Swin, images: torch.Tensor) -> torch.Tensor:
+    """Final-norm tokens (B, res^2, C_last) (the JAX ``swin.features`` signature)."""
+    return model.features(images)
+
+
 def apply(cfg: SwinConfig, model: Swin, images: torch.Tensor) -> torch.Tensor:
     """Forward pass to float32 logits (the JAX ``swin.apply`` signature)."""
     return model(images)

@@ -108,6 +108,14 @@ QUANT_TARGETS_DEFAULT = ("blocks/attn/q", "blocks/attn/k", "blocks/attn/v",
                          "blocks/attn/o", "blocks/mlp/fc1", "blocks/mlp/fc2")
 
 
+def lora_target_paths(targets: tuple[str, ...] = ("q", "k", "v", "o")) -> tuple[str, ...]:
+    """The adapter paths of short target names (``q k v o fc1 fc2 head``)."""
+    mapping = {"q": "blocks/attn/q", "k": "blocks/attn/k", "v": "blocks/attn/v",
+               "o": "blocks/attn/o", "fc1": "blocks/mlp/fc1", "fc2": "blocks/mlp/fc2",
+               "head": "head"}
+    return tuple(mapping[t] for t in targets)
+
+
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 

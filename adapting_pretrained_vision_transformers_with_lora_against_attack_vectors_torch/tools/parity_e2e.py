@@ -18,13 +18,21 @@ and the merged variants through ``eval/compose.build_variant_params``.
 It follows that file's pinned protocol: dropout 0 (the ViT has none, LoRA
 dropout 0), PGD without a random start, shared batch orders, final-epoch
 weights, uint8-truncated adversarial images, the LoRA init (factors and the
-``SEQ_CLS`` classifier copy) read from a PEFT directory. This module keeps
-its own copy of ``make_corpus`` and ``batch_orders``, because the port
-imports nothing that imports JAX; ``tests/test_torch_parity_e2e.py`` runs
-the three sides.
+``SEQ_CLS`` classifier copy) read from a PEFT directory.
+:func:`run_port_side` drives the four stages on one :class:`PortSide`; the
+root script ``parity_e2e_torch.py`` runs it beside the other two sides (on
+the CPU, at the tiny geometry or with ``--full`` at ViT-B/224), and
+``chip_smoke.py`` runs it at ViT-B/224 on the card beside the CPU. This
+module keeps its own copy of ``make_corpus``, ``batch_orders``,
+``FULL_HF_CFG`` and ``LORA_TARGETS``, because the port imports nothing that
+imports JAX.
 """
 
 from __future__ import annotations
+
+import os
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -45,6 +53,16 @@ IMG = 32
 # the tiny HF-compatible geometry of the experiment (12 labels)
 HF_CFG = dict(image_size=IMG, patch_size=8, hidden_size=64, num_hidden_layers=2,
               num_attention_heads=2, intermediate_size=128, num_labels=N_CLASSES)
+# the production ViT-B/224 geometry (google/vit-base-patch16-224's shape), 12 labels
+FULL_HF_CFG = dict(image_size=224, patch_size=16, hidden_size=768, num_hidden_layers=12,
+                   num_attention_heads=12, intermediate_size=3072, num_labels=N_CLASSES)
+# the reference's five LoRA target families (PEFT's query/key/value/output.dense
+# with suffix matching): attention q/k/v/o and the MLP's second dense
+LORA_TARGETS = ("blocks/attn/q", "blocks/attn/k", "blocks/attn/v", "blocks/attn/o",
+                "blocks/mlp/fc2")
+ATTACKS = ("fgsm", "pgd")
+# the composability matrix: variant -> the adapters merged into the base
+VARIANTS = {"base": (), "lora_fgsm": ("fgsm",), "lora_pgd": ("pgd",), "fgsm+pgd": ("fgsm", "pgd")}
 
 
 def make_corpus(n_train: int, n_val: int, n_test: int, *, image_size: int = IMG):
@@ -70,18 +88,28 @@ def batch_orders(rng: np.random.Generator, n: int, batch: int, epochs: int):
     return orders
 
 
+def vit_config(hf_cfg: dict) -> vit.ViTConfig:
+    """The port's f32 ViT config of an HF ``ViTConfig``'s fields."""
+    return vit.ViTConfig(
+        image_size=hf_cfg["image_size"], patch_size=hf_cfg["patch_size"],
+        hidden_dim=hf_cfg["hidden_size"], depth=hf_cfg["num_hidden_layers"],
+        num_heads=hf_cfg["num_attention_heads"], mlp_dim=hf_cfg["intermediate_size"],
+        num_classes=hf_cfg["num_labels"], compute_dtype="float32")
+
+
 class PortSide:
     """The experiment through the port, from an HF ``ViTForImageClassification``
-    state dict (the other sides' init), on ``device``."""
+    state dict (the other sides' init), on ``device`` (the card unless the
+    caller asks for the CPU). The model trains copies: the state dict is left
+    as it was."""
 
-    def __init__(self, hf_state_dict, *, hf_cfg: dict = HF_CFG, device="cpu"):
+    def __init__(self, hf_state_dict, *, hf_cfg: dict = HF_CFG, device="cuda"):
         self.device = torch.device(device)
-        self.cfg = vit.ViTConfig(
-            image_size=hf_cfg["image_size"], patch_size=hf_cfg["patch_size"],
-            hidden_dim=hf_cfg["hidden_size"], depth=hf_cfg["num_hidden_layers"],
-            num_heads=hf_cfg["num_attention_heads"], mlp_dim=hf_cfg["intermediate_size"],
-            num_classes=hf_cfg["num_labels"], compute_dtype="float32")
-        tree = hf_import.vit_params_from_hf(hf_state_dict, self.cfg)
+        self.cfg = vit_config(hf_cfg)
+        # the importer's tree holds views of the state dict's tensors (a module
+        # built over a tree trains those tensors in place)
+        tree = hf_import.vit_params_from_hf(
+            {k: v.detach().clone() for k, v in hf_state_dict.items()}, self.cfg)
         self.model = vit.params_from_jax(tree, self.cfg).to(self.device)
 
     def _apply(self, model, x):
@@ -166,3 +194,59 @@ class PortSide:
         adapters = {d: peft_io.load_peft_adapter(d, depth=self.cfg.depth) for d in adapter_dirs}
         tree = build_variant_params(self.tree, list(adapter_dirs), adapters)
         return vit.params_from_jax(tree, self.cfg).to(self.device)
+
+
+def accuracy_matrix(accuracy, variant, test, adv_test) -> dict:
+    """``{variant: {dataset: accuracy}}`` over :data:`VARIANTS` and the clean
+    and each attack's test set: ``variant(combo)`` builds a variant's model
+    and ``accuracy(model, x_uint8, y)`` scores it; ``test`` is the clean
+    ``(images, labels)``, ``adv_test[attack]`` that attack's images."""
+    datasets = {"clean": test, **{k: (x, test[1]) for k, x in adv_test.items()}}
+    matrix = {}
+    for vname, combo in VARIANTS.items():
+        model = variant(combo)
+        matrix[vname] = {dname: accuracy(model, *data) for dname, data in datasets.items()}
+    return matrix
+
+
+def run_port_side(side: PortSide, corpus, orders, lora_orders,
+                  lora_init: Callable[[PortSide, str, int], str], workdir: str, *,
+                  eps: float, alpha: float, pgd_steps: int, lr: float, wd: float) -> dict:
+    """The experiment's four stages on ``side``: (1) the base fine-tune over
+    ``orders``; (2) FGSM and PGD (no random start) on the train and test
+    splits, uint8-truncated; (3) one LoRA adapter an attack, trained over
+    ``lora_orders`` on that attack's train split from the PEFT directory
+    ``lora_init(side, attack, index)`` (called after stage 1, so that it may
+    read the trained head) and written under ``workdir``; (4) the accuracy of
+    each of :data:`VARIANTS` on the clean and the two adversarial test sets.
+
+    Returns ``{"losses": per-step base losses, "adv": {attack: {split: uint8
+    NHWC}}, "adapters": {attack: directory}, "matrix": {variant: {dataset:
+    accuracy}}, "seconds": {stage: wall seconds}}``.
+    """
+    seconds = {}
+    t = time.perf_counter()
+    losses = side.train_base(corpus, orders, lr, wd)
+    seconds["base"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    adv = {kind: {split: side.attack_split(*corpus[split], kind=kind, eps=eps, alpha=alpha,
+                                           steps=pgd_steps)
+                  for split in ("train", "test")}
+           for kind in ATTACKS}
+    seconds["attacks"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    adapters = {}
+    for i, kind in enumerate(ATTACKS):
+        adapters[kind] = side.train_lora(lora_init(side, kind, i),
+                                         (adv[kind]["train"], corpus["train"][1]), lora_orders,
+                                         lr, os.path.join(workdir, f"port_{kind}"))
+    seconds["lora"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    matrix = accuracy_matrix(side.accuracy, lambda combo: side.merged([adapters[a] for a in combo]),
+                             corpus["test"], {k: adv[k]["test"] for k in ATTACKS})
+    seconds["matrix"] = time.perf_counter() - t
+    return {"losses": losses, "adv": adv, "adapters": adapters, "matrix": matrix,
+            "seconds": seconds}

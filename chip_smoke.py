@@ -73,7 +73,16 @@ the hand-written kernels:
   int8 activations per row, ``torch._int_mm``) on the merged ViT-B/16 through
   PGD-10 at batch 64 beside the bf16 tree, its three kernel fields bypassed,
   BiLoRA's delta through cuFFT, and the two example workflows
-  (``examples/*_torch.py``) on the card.
+  (``examples/*_torch.py``) on the card;
+* the port's side of the end-to-end accuracy parity experiment
+  (``tools/parity_e2e.run_port_side``, the stages the root script
+  ``parity_e2e_torch.py`` runs beside HF + PEFT and the JAX package on a
+  CPU host) at ViT-B/224 in f32 (``FULL_HF_CFG``, 12 classes): base
+  fine-tune, FGSM and PGD-10 without a random start, a LoRA adapter an
+  attack on the reference's five target families, the four merged variants'
+  accuracy on the clean and adversarial test sets, on the card and on this
+  host's CPU from one init: the packed-attention kernel's f32 device code in
+  every forward and backward.
 
 Phases, one line each (or a few):
 
@@ -269,6 +278,21 @@ Phases, one line each (or a few):
    ``profile_eval``) once at cut counts (BENCH_TOOL_ARGS, full widths), its
    artifact read back (every record a value; each profile table with device
    time, an idle share and a kernel of this repo); the phase's wall.
+12. the parity experiment's port side (PARITY_COUNTS: 24 train and 24 test
+   images of the hard 12-class corpus at 224 px, batch PARITY_BATCH, one
+   epoch of each training, PGD-10 at eps 8/255, alpha 3/255, TF32 off) from
+   one seeded ``vit.init`` at ``FULL_HF_CFG`` turned into HF keys by
+   ``hf_from_vit_params``, first on this host's CPU (no launch), then on the
+   card, the LoRA inits (``ops/lora.init`` from seeded generators) written
+   once with the CPU side's trained head by the port's PEFT writer and read
+   by both (``attacks/common.to_unit_floats`` first held equal on the card
+   and the CPU for all 256 levels): every accuracy cell card against CPU within PARITY_ACC_TOL, the
+   base losses within PARITY_LOSS_RTOL, the card's packed-attention launches
+   equal to the count the stages give (12 a forward, 12 a backward), every
+   other count 0; the adversarial uint8 mismatch, each side's stage walls,
+   the host's cores and threads, the phase's wall; then packed attention in
+   f32 at the attack and eval shape (24, 197, 12, 64) against its plain
+   version, timed beside SDPA.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -457,6 +481,15 @@ BENCH_TOOL_ARGS = {"bench_zoo": ("--iters", "1"),
                    "bench_compose": ("--n_per_dataset", "64", "--datasets", "2"),
                    "profile_pgd": (), "profile_train": ("--mode", "lora"),
                    "profile_eval": ("--iters", "2")}
+# phase 12: the parity experiment's port side (tools/parity_e2e.run_port_side) at ViT-B/224
+# in f32, on the card and on this host's CPU from one init: images per class of the train,
+# val and test splits (24 train and 24 test images over 12 classes), the batch, the epochs
+# of the base fine-tune and of the LoRA defense, lr and weight decay (the experiment's), the
+# first LoRA init seed (JaxSide.init_lora's 10 + i); every accuracy cell within the
+# experiment's tolerance (tools/parity_e2e.py --tol), the base losses within PARITY_LOSS_RTOL
+PARITY_COUNTS, PARITY_BATCH, PARITY_EPOCHS = (2, 1, 2), 12, (1, 1)
+PARITY_LR, PARITY_WD, PARITY_LORA_SEED = 1e-4, 1e-4, 10
+PARITY_ACC_TOL, PARITY_LOSS_RTOL = 0.005, 1e-3
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -3461,6 +3494,166 @@ class Smoke:
             print(f"phase 11 (c) tools/{tool} {' '.join(args)} (wall {wall:.1f} s): {what} "
                   f"{self.card}", flush=True)
 
+    def parity(self) -> dict:
+        """Phase 12: the port's side of the end-to-end parity experiment
+        (``tools/parity_e2e.run_port_side``: base fine-tune, FGSM and PGD-10
+        on both splits, a LoRA adapter an attack, the 4 x 3 accuracy matrix)
+        at ViT-B/224 in f32, first on this host's CPU, then on the card, from
+        one seeded init and one LoRA init an attack (written once, with the
+        CPU side's trained head, by the port's PEFT writer). Holds every cell
+        and the base losses card against CPU, and the card's packed-attention
+        launches to the count the stages give; the CPU side launches none.
+        Returns the card's launches."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        tpar = importlib.import_module(f"{PKG}.tools.parity_e2e")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # every uint8 value becomes the same f32 on the card as on the CPU (the
+        # adversarial pixels are truncated from sums on that grid)
+        levels = torch.arange(256, dtype=torch.uint8)
+        check(torch.equal(self.common.to_unit_floats(levels.to(self.dev)).cpu(),
+                          self.common.to_unit_floats(levels)),
+              "phase 12: to_unit_floats on the card is not the CPU's")
+        cfg = tpar.vit_config(tpar.FULL_HF_CFG)
+        variant = self.ka.kernel_variant(torch.float32, cfg.seq_len, cfg.head_dim)
+        check(variant == "cuda_core", f"f32 ViT-B attention takes {variant}")
+        state = self.hf_import.hf_from_vit_params(
+            self.vit.init(cfg, torch.Generator().manual_seed(0)), cfg)
+        corpus = tpar.make_corpus(*PARITY_COUNTS, image_size=cfg.image_size)
+        n_train, n_test = len(corpus["train"][1]), len(corpus["test"][1])
+        orders, lora_orders = (tpar.batch_orders(np.random.default_rng(seed), n_train,
+                                                 PARITY_BATCH, epochs)
+                               for seed, epochs in zip((99, 100), PARITY_EPOCHS))
+        lcfg = self.lora.LoRAConfig(rank=8, alpha=16.0, dropout=0.0, targets=tpar.LORA_TARGETS)
+        # launches the stages give: a forward and a backward a training step (base, and each
+        # attack's LoRA) and a PGD or FGSM step, a forward an eval batch; batches of 64
+        batches = lambda n: -(-n // 64)  # noqa: E731
+        grads = (sum(map(len, orders)) + len(tpar.ATTACKS) * sum(map(len, lora_orders))
+                 + (1 + PGD_STEPS) * (batches(n_train) + batches(n_test)))
+        fwds = grads + len(tpar.VARIANTS) * (1 + len(tpar.ATTACKS)) * batches(n_test)
+        expect = {k: 0 for k in self.all_counters()}
+        expect.update(packed_fwd=cfg.depth * fwds, packed_bwd=cfg.depth * grads)
+
+        # what else holds this host's cores as the CPU side starts (its walls vary by host)
+        import multiprocessing
+        import threading
+
+        busy = (os.getloadavg()[0], threading.active_count(),
+                len(multiprocessing.active_children()))
+        t12 = time.perf_counter()
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="apvt_parity_") as work:
+            def lora_init(side, kind, index):
+                path = os.path.join(work, f"init_{kind}")
+                if side.device.type == "cpu":
+                    adapter = self.lora.init(
+                        torch.Generator().manual_seed(PARITY_LORA_SEED + index), side.tree, lcfg)
+                    self.peft_io.save_peft_adapter(adapter, lcfg, path, head=side.tree["head"])
+                return path
+
+            for dev in ("cpu", "cuda"):
+                side = tpar.PortSide(state, hf_cfg=tpar.FULL_HF_CFG, device=dev)
+                runs[dev] = self.counted(self.all_counters(), lambda: tpar.run_port_side(
+                    side, corpus, orders, lora_orders, lora_init, os.path.join(work, dev),
+                    eps=EPS, alpha=ALPHA, pgd_steps=PGD_STEPS, lr=PARITY_LR, wd=PARITY_WD))
+                del side
+        (cpu, cpu_l), (card, card_l) = runs["cpu"], runs["cuda"]
+
+        check(cpu_l == {k: 0 for k in cpu_l}, f"phase 12: the CPU side launched {cpu_l}")
+        check(card_l == expect, f"phase 12: launches {card_l}, expected {expect}")
+        lc, lg = np.asarray(cpu["losses"]), np.asarray(card["losses"])
+        check(lc.shape == lg.shape == (sum(map(len, orders)),) and np.isfinite(lg).all(),
+              f"phase 12: base losses {lg} / {lc}")
+        loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+        check(loss_rel <= PARITY_LOSS_RTOL, f"phase 12: base losses card {lg} cpu {lc}")
+        for kind in tpar.ATTACKS:
+            for split in ("train", "test"):
+                adv = card["adv"][kind][split]
+                check(adv.dtype == np.uint8 and adv.shape == corpus[split][0].shape,
+                      f"phase 12: {kind} {split} {adv.dtype} {adv.shape}")
+        print(f"phase 12 parity port side ViT-B/224 f32 [{variant}], {n_train} train / {n_test} "
+              f"test images, batch {PARITY_BATCH}, epochs {PARITY_EPOCHS}, PGD-{PGD_STEPS}: "
+              f"packed attention launches on the card fwd {card_l['packed_fwd']} bwd "
+              f"{card_l['packed_bwd']} (expected {expect['packed_fwd']} / "
+              f"{expect['packed_bwd']}), every other count 0; the CPU side none; base losses "
+              f"card {np.round(lg, 6).tolist()} cpu {np.round(lc, 6).tolist()} (max rel "
+              f"{loss_rel:.2e}, limit {PARITY_LOSS_RTOL}) {self.card}", flush=True)
+        worst = 0.0
+        for vname, per in card["matrix"].items():
+            for dname, acc in per.items():
+                want = cpu["matrix"][vname][dname]
+                check(0.0 <= acc <= 1.0, f"phase 12: {vname} {dname} accuracy {acc}")
+                worst = max(worst, abs(acc - want))
+                check(abs(acc - want) <= PARITY_ACC_TOL,
+                      f"phase 12: {vname} {dname} card {acc} cpu {want}")
+        print("phase 12 matrix card/cpu: " + "; ".join(
+            f"{v} {d} {acc:.4f}/{cpu['matrix'][v][d]:.4f}"
+            for v, per in card["matrix"].items() for d, acc in per.items())
+            + f" (max |d| {worst:.4f}, limit {PARITY_ACC_TOL})", flush=True)
+        print("phase 12 adversarial uint8 mismatch card vs cpu: " + "; ".join(
+            f"{kind} {split} {float((card['adv'][kind][split] != cpu['adv'][kind][split]).mean()):.6f}"
+            for kind in tpar.ATTACKS for split in ("train", "test")), flush=True)
+        for dev, (res, _) in runs.items():
+            print(f"phase 12 {dev} side stage walls: " + ", ".join(
+                f"{k} {v:.1f} s" for k, v in res["seconds"].items()), flush=True)
+        print(f"phase 12 host: {os.cpu_count()} cores, torch {torch.get_num_threads()} threads; "
+              f"before the CPU side: load average {busy[0]:.2f}, {busy[1]} threads in this "
+              f"process, {busy[2]} child processes; phase 12 wall "
+              f"{time.perf_counter() - t12:.1f} s {self.card}", flush=True)
+        return {"fwd": card_l["packed_fwd"], "bwd": card_l["packed_bwd"]}
+
+    def time_attention_f32(self, launches: dict) -> list[dict]:
+        """Packed attention in f32 (its CUDA-core device code) at phase 12's
+        attack and eval shape, (24, 197, 12, 64): kernel against plain
+        (forward and backward), bound, SDPA."""
+        import torch
+        import torch.nn.functional as F
+
+        ka = self.ka
+        b, n, h, hd = PARITY_COUNTS[2] * 12, 197, 12, 64
+        gen = torch.Generator(self.dev).manual_seed(12)
+        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                       for _ in range(4))
+        variant = ka.kernel_variant(torch.float32, n, hd)
+        (fa, fr), (ga, gr) = TOL["float32"]
+        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+        e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, "f32 fwd")
+        got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+        want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+        e_b = max(close(g_, w_, ga, gr, f"f32 d{nm}") for nm, g_, w_ in zip("qkv", got, want))
+        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = do.view(b, n, h, hd).transpose(1, 2)
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                           lambda: ka.attention_packed_reference(q, k, v, h),
+                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
+                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                               retain_graph=True))
+        unit, tensor = b * h * n * n * hd, b * n * h * hd * 4
+        bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_F32)
+        bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_F32)
+        print(f"phase 12 attention_packed at the parity shape {(b, n, h, hd)} f32 [{variant}]: "
+              f"fwd max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd "
+              f"{kb:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
+              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
+              f"{self.card}", flush=True)
+        src = f"{PKG}/csrc/attention_packed.cu"
+        self.parity_errs = {"attention_packed_f32_fwd": e_f, "attention_packed_f32_bwd": e_b}
+        return [
+            {"name": "attention_packed_f32_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "attention_packed_f32_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
         time by kernel group, busy time against the wall."""
@@ -3728,6 +3921,8 @@ def main(argv=None) -> None:
     s.bench_variants()
     s.bench_tools()
     print(f"phase 11 wall {time.perf_counter() - t11:.1f} s {s.card}", flush=True)
+    # 12. the parity experiment's port side at ViT-B/224 in f32: the card against this host's CPU
+    kernels += s.time_attention_f32(s.parity())
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],
@@ -3736,7 +3931,7 @@ def main(argv=None) -> None:
             "fused_mlp_fwd": err_f["fwd"], "fused_mlp_bwd": err_f["bwd"],
             "attn_block_fwd": err_a["fwd"], "attn_block_bwd": err_a["bwd"],
             "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"],
-            **s.tp_errs}
+            **s.tp_errs, **s.parity_errs}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # composition_ms: where no one PyTorch call computes the function (library_ms null),

@@ -57,6 +57,31 @@ def test_to_unit_floats_matches_jax(batch):
     assert tcommon.to_unit_floats(f) is f
 
 
+def test_to_unit_floats_divides_by_a_tensor_on_the_images_device():
+    """CUDA turns a division by a CPU scalar into a product with its
+    reciprocal, one ulp off the quotient for 126 of the 256 values, and the
+    card's truncated adversarial pixels then land a level off the CPU's
+    (5.4% of them in ``chip_smoke.py`` phase 12 before this was repaired):
+    the divisor is a tensor on the images' device, and every value is
+    numpy's f32 quotient."""
+    from torch.overrides import TorchFunctionMode
+
+    divisors = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.div, torch.Tensor.__truediv__, torch.div, torch.true_divide):
+                divisors.append(args[1])
+            return func(*args, **(kwargs or {}))
+
+    u8 = torch.arange(256, dtype=torch.uint8)
+    with Record():
+        got = tcommon.to_unit_floats(u8)
+    assert divisors and all(isinstance(d, torch.Tensor) and d.device == u8.device
+                            for d in divisors), divisors
+    np.testing.assert_array_equal(got.numpy(), np.arange(256, dtype=np.float32) / np.float32(255))
+
+
 def test_linf_project_matches_jax():
     rng = np.random.default_rng(1)
     origin = rng.random((4, 8, 8, 3), dtype=np.float32)

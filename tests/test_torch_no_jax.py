@@ -113,3 +113,19 @@ def test_bench_torch_has_no_jax_import():
         elif isinstance(node, ast.Import):
             assert all(a.name.split(".")[0] not in ("tools", "bench", "tunnel_probe")
                        for a in node.names)
+
+
+def test_the_parity_runner_sits_outside_the_port():
+    """``parity_e2e_torch.py`` imports the JAX tool, so it is a root script:
+    not in the package, and no file of the port or ``chip_smoke.py`` imports
+    it (the port's side of the experiment, ``tools/parity_e2e.py``, is in
+    the walk above)."""
+    assert os.path.isfile(os.path.join(REPO, "parity_e2e_torch.py"))
+    assert not any(os.path.basename(p) == "parity_e2e_torch.py" for p in _sources())
+    for path in _sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] in ("parity_e2e_torch", "tools") for n in names), \
+                f"{path}: imports {names}"

@@ -97,6 +97,19 @@ def test_logits_match_jax(setup):
                                atol=ATOL, rtol=RTOL)
 
 
+def test_features_match_jax(setup):
+    """The module-level ``features`` (final-norm tokens) against JAX's."""
+    jcfg, tcfg, jparams = setup
+    x = _images(jcfg, 6)
+    model = tswin.params_from_jax(_flat_np(jparams), tcfg)
+    with torch.no_grad():
+        got = tswin.features(tcfg, model, torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jswin.features, static_argnums=0)(jcfg, jparams, x))
+    res = jcfg.stage_res(jcfg.num_stages - 1)
+    assert got.shape == want.shape == (2, res * res, jcfg.stage_dim(jcfg.num_stages - 1))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 def test_logits_match_jax_pallas_kernel_path(setup):
     """Against the JAX ``use_fused_attention`` path with the Pallas window
     kernel (interpret mode; the backend is reported as "tpu")."""

@@ -64,6 +64,15 @@ def test_config_fields_match_jax():
     assert tvit.LORA_TARGETS_DEFAULT == jvit.LORA_TARGETS_DEFAULT
 
 
+@pytest.mark.parametrize("targets", [None, ("q", "v"), ("fc2", "o", "fc1", "head", "k")])
+def test_lora_target_paths_equal_jax(targets):
+    args = () if targets is None else (targets,)
+    assert tvit.lora_target_paths(*args) == jvit.lora_target_paths(*args)
+    for fn in (tvit.lora_target_paths, jvit.lora_target_paths):
+        with pytest.raises(KeyError):
+            fn(("q", "qkv"))
+
+
 def test_logits_match_jax_plain(jparams):
     x = _images()
     model = tvit.params_from_jax(_flat_np(jparams), TCFG)
