@@ -36,13 +36,43 @@
 //   format). namespace tc below: the core of attn_core.cuh, which
 //   attn_block.cu also uses: a warp owns 16 rows with their whole score row
 //   in registers, mma.sync m16n8k16 with ldmatrix operands;
-// * "cuda_core": f32, and bf16 with N > 256: a warp per row, a lane per key.
-// All three: one CTA (or a few) per (batch, head); the backward in two
-// phases, query-row owners for dQ, key-row owners for dK and dV, every sum
-// with one owner and a fixed order: no atomics, bitwise reproducible; keys
-// >= N get P = 0, rows >= N are never written. The forward writes the row
-// log-sum-exp (B, H, N) f32 and the backward reads it and the forward's
-// output only in the wgmma variant; the other two ignore those pointers.
+// * "cuda_core": f32 at every N, and bf16 with N > 256 (namespace cc below).
+//   Exact f32 arithmetic on the CUDA cores, as the f32 reference computes.
+//   What bounds it: the f32 FMA rate. At the parity shape (B=24, N=197,
+//   H=12, hd=64, f32) the forward's two products need 0.0427 ms at 67
+//   TFLOP/s and the backward's five 0.1068 ms, against 0.0062 / 0.0109 ms
+//   of bytes. So the design keeps the FMA pipes fed and holds no part of a
+//   head's length on chip:
+//   - a CTA owns a block of rows of one (batch, head) (64 query rows in the
+//     forward, 8 warps, two CTAs an SM; in the backward 128 key rows for dK
+//     and dV or 128 query rows for dQ, 8 warps) and streams the other side
+//     in 64-row blocks through a two-stage cp.async ring, so shared memory
+//     does not depend on N (any N >= 1);
+//   - every product is register-tiled as an SGEMM: a thread owns TR rows
+//     (g, g + 2, ...; TR = 4 in the forward, 8 in the backward, a warp 2 TR)
+//     by 4 score columns (c, c + 16, c + 32, c + 48) or by hd / 16 adjacent
+//     output columns, and reads float4 rows of both operands from padded f32
+//     tiles: TR + 4 shared loads for 16 TR FMAs, no bank conflict beyond the
+//     minimum wavefronts;
+//   - the forward keeps a running (max, sum) a row (online softmax) in f32;
+//     in bf16 it takes two passes over the keys (statistics, then P), so
+//     that P is rounded to bf16 after its normalisation, as the Pallas
+//     kernel rounds it. It writes O and the row log-sum-exp;
+//   - the backward runs from the saved log-sum-exp and D = rowsum(dO * O)
+//     in one launch of two CTA roles with one owner a sum: dK, dV (a CTA
+//     walks the query blocks in order) and dQ (a CTA walks the key blocks
+//     in order); each role recomputes S and dP and computes D, seven
+//     products against the bound's five, and the roles share the last wave;
+//   - the softmax and the P / dS arithmetic are straight-line code over a
+//     thread's 8 rows, so that their shuffles and exponentials overlap;
+//   - the last block's keys past N are masked (P = 0) and skipped in 16-key
+//     steps; a warp whose rows all lie past N does no products.
+// All three: the backward in two phases or two CTA roles, query-row owners
+// for dQ, key-row owners for dK and dV, every sum with one owner and a fixed
+// order: no atomics, bitwise reproducible; keys >= N get P = 0, rows >= N
+// are never written. The forward writes the row log-sum-exp (B, H, N) f32;
+// the backward reads it and the forward's output in the "wgmma" and
+// "cuda_core" variants, the "mma_sync" variant ignores those pointers.
 //
 // C interface (loaded with ctypes): each entry point returns the CUDA error
 // code of its launch (cudaGetLastError), 0 on success, -1 for an
@@ -52,9 +82,6 @@
 #include "attn_wgmma.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 
 template <typename T>
 struct Cvt;
@@ -81,35 +108,6 @@ __device__ __forceinline__ float round_to(float x) {
   return Cvt<T>::to_f(Cvt<T>::from_f(x));
 }
 
-// Row stride (in elements) of a head tile in shared memory: hd elements plus
-// one 32-bit word, so consecutive rows start in consecutive banks.
-template <typename T, int HD>
-struct Tile {
-  static constexpr int kStride = HD + 4 / static_cast<int>(sizeof(T));
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// f32 dot product of two hd-long rows in a fixed order (both passes use it,
-// so the backward's recomputed scores equal the forward's bit for bit).
-template <typename T, int HD>
-__device__ __forceinline__ float dot_row(const T* a, const T* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < HD; ++d) acc = fmaf(Cvt<T>::to_f(a[d]), Cvt<T>::to_f(b[d]), acc);
-  return acc;
-}
-
 // Where head h of batch element b starts, and the distance between its rows,
 // in elements: packed (B, N, H*hd) is {N*H*hd, hd, H*hd}, head-major
 // (B, H, N, hd) is {H*N*hd, N*hd, hd}.
@@ -118,198 +116,8 @@ struct Layout {
   int row;
 };
 
-// Copy one head (N rows of HD values, row stride rs) into a shared-memory tile.
-template <typename T, int HD>
-__device__ void load_tile(T* dst, const T* __restrict__ src, int N, int rs) {
-  constexpr int S = Tile<T, HD>::kStride;
-  for (int idx = threadIdx.x; idx < N * HD; idx += blockDim.x) {
-    const int j = idx / HD, d = idx % HD;
-    dst[j * S + d] = src[(size_t)j * rs + d];
-  }
-}
-
-// Softmax of one score row, computed by one warp: prow[j] = P[j] in f32 for
-// j < N. Returns the row max and the sum of exponentials.
-template <typename T, int HD>
-__device__ __forceinline__ void softmax_row(const T* qrow, const T* Ks, int N, float scale,
-                                            float* prow, float& m_out, float& l_out) {
-  constexpr int S = Tile<T, HD>::kStride;
-  const int lane = threadIdx.x & 31;
-  float m = -INFINITY;
-  for (int j = lane; j < N; j += 32) {
-    const float s = dot_row<T, HD>(qrow, Ks + j * S) * scale;
-    prow[j] = s;
-    m = fmaxf(m, s);
-  }
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < N; j += 32) {
-    const float e = expf(prow[j] - m);
-    prow[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  for (int j = lane; j < N; j += 32) prow[j] = prow[j] / l;
-  __syncwarp();
-  m_out = m;
-  l_out = l;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int N, int H, Layout lay, float scale) {
-  constexpr int S = Tile<T, HD>::kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t base = (size_t)(blockIdx.x / H) * lay.batch + (size_t)(blockIdx.x % H) * lay.head;
-  const int rs = lay.row;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + N * S;
-  float* prow = reinterpret_cast<float*>(Vs + N * S) + warp * N;
-  T* qbuf = reinterpret_cast<T*>(reinterpret_cast<float*>(Vs + N * S) + kWarps * N) + warp * HD;
-
-  load_tile<T, HD>(Ks, k + base, N, rs);
-  load_tile<T, HD>(Vs, v + base, N, rs);
-  __syncthreads();
-
-  for (int i = warp; i < N; i += kWarps) {
-    for (int d = lane; d < HD; d += 32) qbuf[d] = q[base + (size_t)i * rs + d];
-    __syncwarp();
-    float m, l;
-    softmax_row<T, HD>(qbuf, Ks, N, scale, prow, m, l);
-    for (int j = lane; j < N; j += 32) prow[j] = round_to<T>(prow[j]);
-    __syncwarp();
-    for (int d = lane; d < HD; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(prow[j], Cvt<T>::to_f(Vs[j * S + d]), acc);
-      o[base + (size_t)i * rs + d] = Cvt<T>::from_f(acc);
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-                T* __restrict__ dv, int N, int H, Layout lay, float scale) {
-  constexpr int S = Tile<T, HD>::kStride;
-  constexpr int R = HD / 32;  // output channels per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t base = (size_t)(blockIdx.x / H) * lay.batch + (size_t)(blockIdx.x % H) * lay.head;
-  const int rs = lay.row;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wbuf = max(2 * N, 64);
-
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + N * S;
-  T* Qs = Vs + N * S;
-  T* dOs = Qs + N * S;
-  float* stat_m = reinterpret_cast<float*>(dOs + N * S);
-  float* stat_l = stat_m + N;
-  float* stat_D = stat_l + N;
-  float* prow = stat_D + N + warp * wbuf;
-  float* dsrow = prow + N;
-
-  load_tile<T, HD>(Ks, k + base, N, rs);
-  load_tile<T, HD>(Vs, v + base, N, rs);
-  load_tile<T, HD>(Qs, q + base, N, rs);
-  load_tile<T, HD>(dOs, dout + base, N, rs);
-  __syncthreads();
-
-
-  // Phase 1: one warp per query row -> dQ and the row statistics.
-  for (int i = warp; i < N; i += kWarps) {
-    const T* qi = Qs + i * S;
-    const T* doi = dOs + i * S;
-    float m, l;
-    softmax_row<T, HD>(qi, Ks, N, scale, prow, m, l);
-    float part = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float dp = dot_row<T, HD>(doi, Vs + j * S);
-      dsrow[j] = dp;
-      part += prow[j] * dp;
-    }
-    const float D = warp_sum(part);
-    for (int j = lane; j < N; j += 32)
-      dsrow[j] = round_to<T>(prow[j] * (dsrow[j] - D) * scale);
-    if (lane == 0) {
-      stat_m[i] = m;
-      stat_l[i] = l;
-      stat_D[i] = D;
-    }
-    __syncwarp();
-    for (int d = lane; d < HD; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(dsrow[j], Cvt<T>::to_f(Ks[j * S + d]), acc);
-      dq[base + (size_t)i * rs + d] = Cvt<T>::from_f(acc);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // Phase 2: one warp per key row -> dK, dV. Lanes recompute P and dS for 32
-  // query rows at a time, then switch to one output channel per lane.
-  float* pbuf = prow;
-  float* dsbuf = prow + 32;
-  for (int j = warp; j < N; j += kWarps) {
-    const T* kj = Ks + j * S;
-    const T* vj = Vs + j * S;
-    float dk_acc[R], dv_acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) dk_acc[r] = dv_acc[r] = 0.f;
-    for (int i0 = 0; i0 < N; i0 += 32) {
-      const int i = i0 + lane;
-      float p = 0.f, ds = 0.f;
-      if (i < N) {
-        const float s = dot_row<T, HD>(Qs + i * S, kj) * scale;
-        p = expf(s - stat_m[i]) / stat_l[i];
-        const float dp = dot_row<T, HD>(dOs + i * S, vj);
-        ds = p * (dp - stat_D[i]) * scale;
-      }
-      pbuf[lane] = round_to<T>(p);
-      dsbuf[lane] = round_to<T>(ds);
-      __syncwarp();
-      const int cnt = min(32, N - i0);
-      for (int t = 0; t < cnt; ++t) {
-        const float pt = pbuf[t], dst = dsbuf[t];
-        const T* dorow = dOs + (i0 + t) * S;
-        const T* qrow = Qs + (i0 + t) * S;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int d = lane + 32 * r;
-          dv_acc[r] = fmaf(pt, Cvt<T>::to_f(dorow[d]), dv_acc[r]);
-          dk_acc[r] = fmaf(dst, Cvt<T>::to_f(qrow[d]), dk_acc[r]);
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int d = lane + 32 * r;
-      dk[base + (size_t)j * rs + d] = Cvt<T>::from_f(dk_acc[r]);
-      dv[base + (size_t)j * rs + d] = Cvt<T>::from_f(dv_acc[r]);
-    }
-  }
-}
-
-template <typename T, int HD>
-size_t fwd_smem(int N) {
-  return 2 * (size_t)N * Tile<T, HD>::kStride * sizeof(T) + (size_t)kWarps * N * sizeof(float) +
-         (size_t)kWarps * HD * sizeof(T);
-}
-
-template <typename T, int HD>
-size_t bwd_smem(int N) {
-  const size_t wbuf = (size_t)(2 * N > 64 ? 2 * N : 64);
-  return 4 * (size_t)N * Tile<T, HD>::kStride * sizeof(T) + 3 * (size_t)N * sizeof(float) +
-         (size_t)kWarps * wbuf * sizeof(float);
-}
-
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int grid, int threads, size_t smem, cudaStream_t stream,
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
            Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -318,22 +126,598 @@ int launch(Kernel kernel, int grid, int threads, size_t smem, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// "cuda_core" variant: f32, and bf16 with N > 256 (the note at the top says
+// what bounds it). Thread (warp w, lane 16 g + c) owns rows 2 TR w + g + 2 m
+// (m < TR) of its CTA's block, score columns c + 16 j (j < 4) of a streamed
+// block and output columns E c + e (e < E = hd / 16). Shared tiles hold f32
+// (bf16 operands are widened as they land).
+
+namespace cc {
+
+constexpr int kBlock = 64;                 // rows of a streamed block
+// Rows a thread owns (a warp owns twice as many): the forward's 4 keep it under
+// 128 registers, so that two CTAs of 8 warps fit an SM; the backward's two
+// score tiles and two accumulators need 8 (254 registers, 8 warps an SM).
+constexpr int kFwdTR = 4, kBwdTR = 8;
+constexpr int kFwdRows = 64;               // forward CTA: 64 query rows, two CTAs an SM
+constexpr int kBwdRows = 128;              // backward CTAs: 128 own rows
+constexpr int kFwdWarps = kFwdRows / (2 * kFwdTR), kBwdWarps = kBwdRows / (2 * kBwdTR);
+constexpr int kXStride = kBlock + 16;      // a P / dS row: rows g = 0, 1 sit 16 banks apart
+
+// f32 tile row: hd values and 4 of padding, so that rows r and r + 1 start 4
+// banks apart and every row stays 16-byte aligned.
+template <int HD>
+__host__ __device__ constexpr int stride() {
+  return HD + 4;
+}
+
+template <int HD>
+constexpr size_t fwd_smem() {  // Q; two stages of K, V; P
+  return sizeof(float) * ((size_t)(kFwdRows + 4 * kBlock) * stride<HD>() +
+                          (size_t)kFwdRows * kXStride);
+}
+
+// The backward: the larger of its two roles' (dQ: Q, dO; two stages of K, V;
+// dS; lse and D of the rows. dK, dV: K, V; two stages of Q, dO, O; P then dS;
+// two stages of lse; D)
+template <int HD>
+constexpr size_t bwd_smem() {
+  const size_t dq = (size_t)(2 * kBwdRows + 4 * kBlock) * stride<HD>() +
+                    (size_t)kBwdRows * kXStride + 2 * kBwdRows;
+  const size_t dkdv = (size_t)(2 * kBwdRows + 6 * kBlock) * stride<HD>() +
+                      (size_t)kBwdRows * kXStride + 3 * kBlock;
+  return sizeof(float) * (dq > dkdv ? dq : dkdv);
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(apvt::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Rows [r0, r0 + ROWS) of a head (row stride rs elements) into an f32 tile;
+// rows >= N become zeros. f32 by cp.async (the caller commits the group),
+// bf16 through registers.
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0, int N,
+                                          int rs) {
+  constexpr int S = stride<HD>(), Q = HD / 4;
+  for (int idx = threadIdx.x; idx < ROWS * Q; idx += blockDim.x) {
+    const int r = idx / Q, d = (idx % Q) * 4, row = r0 + r;
+    const bool valid = row < N;
+    float* to = dst + r * S + d;
+    if constexpr (sizeof(T) == 4) {
+      const float* from = reinterpret_cast<const float*>(src);
+      cp16(to, valid ? from + (size_t)row * rs + d : from, valid);
+    } else {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (valid) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(src + (size_t)row * rs + d);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        f = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *reinterpret_cast<float4*>(to) = f;
+    }
+  }
+}
+
+// s[m][j] = sum over d (ascending) of A[2 m][d] * B[16 j][d] for j < JN, 0 for
+// the other column groups. A points at the thread's first own row, B at its
+// first column's row of the streamed block. Both passes of every kernel use
+// it, so a recomputed score equals the forward's bit for bit (fmaf is
+// symmetric in its factors).
+template <int HD, int JN, int TR>
+__device__ __forceinline__ void dot_nt(float (&s)[TR][4], const float* A, const float* B) {
+  constexpr int S = stride<HD>();
+#pragma unroll
+  for (int m = 0; m < TR; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[m][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[TR], b[JN];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) b[j] = *reinterpret_cast<const float4*>(B + 16 * j * S + d);
+#pragma unroll
+    for (int m = 0; m < TR; ++m) a[m] = *reinterpret_cast<const float4*>(A + 2 * m * S + d);
+#pragma unroll
+    for (int m = 0; m < TR; ++m)
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        s[m][j] = fmaf(a[m].x, b[j].x, s[m][j]);
+        s[m][j] = fmaf(a[m].y, b[j].y, s[m][j]);
+        s[m][j] = fmaf(a[m].z, b[j].z, s[m][j]);
+        s[m][j] = fmaf(a[m].w, b[j].w, s[m][j]);
+      }
+  }
+}
+
+// ... over the jn (block-uniform) column groups that hold a key below N.
+template <int HD, int TR>
+__device__ __forceinline__ void dot_nt(float (&s)[TR][4], const float* A, const float* B, int jn) {
+  switch (jn) {
+    case 1: dot_nt<HD, 1>(s, A, B); break;
+    case 2: dot_nt<HD, 2>(s, A, B); break;
+    case 3: dot_nt<HD, 3>(s, A, B); break;
+    default: dot_nt<HD, 4>(s, A, B);
+  }
+}
+
+// o[m][e] += sum over k < kn (ascending) of X[2 m][k] * C[k][e]. X points at
+// the thread's first row of its warp's P / dS tile, C at its first output
+// column of the streamed block; kn is a multiple of 4 (X and C are zero past
+// the block's last valid row, so the sum is that of the valid rows).
+template <int HD, int TR>
+__device__ __forceinline__ void acc_nn(float (&o)[TR][HD / 16], const float* X, const float* C,
+                                       int kn) {
+  constexpr int S = stride<HD>(), E = HD / 16;
+#pragma unroll 2
+  for (int k = 0; k < kn; k += 4) {
+    float4 x[TR];
+#pragma unroll
+    for (int m = 0; m < TR; ++m) x[m] = *reinterpret_cast<const float4*>(X + 2 * m * kXStride + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float cv[E];
+      if constexpr (E == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(C + (k + kk) * S);
+        cv[0] = t.x, cv[1] = t.y, cv[2] = t.z, cv[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(C + (k + kk) * S);
+        cv[0] = t.x, cv[1] = t.y;
+      }
+#pragma unroll
+      for (int m = 0; m < TR; ++m) {
+        const float xv = kk == 0 ? x[m].x : kk == 1 ? x[m].y : kk == 2 ? x[m].z : x[m].w;
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[m][e] = fmaf(xv, cv[e], o[m][e]);
+      }
+    }
+  }
+}
+
+// max and sum over the 16 lanes (c) that share a row, in a fixed tree, for a
+// thread's 8 rows at once (the rows' shuffles overlap)
+template <int TR>
+__device__ __forceinline__ void row_max(float (&x)[TR]) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int m = 0; m < TR; ++m) x[m] = fmaxf(x[m], __shfl_xor_sync(0xffffffffu, x[m], o));
+}
+
+template <int TR>
+__device__ __forceinline__ void row_sum(float (&x)[TR]) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int m = 0; m < TR; ++m) x[m] = __fadd_rn(x[m], __shfl_xor_sync(0xffffffffu, x[m], o));
+}
+
+// The backward's P from the row's log-sum-exp, and dS = P (dP - D) scale, in
+// the plain version's order (no contraction into FMAs): the dQ and the dK/dV
+// kernels get the same bits for one (row, key).
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+}
+
+__device__ __forceinline__ float dscore(float p, float dp, float d, float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, d)), scale);
+}
+
+// D = rowsum(dO * O) of ROWS rows (tiles of stride hd + 4) into Ds, for both
+// kernels of the backward: four lanes a row, each over a quarter of hd in
+// ascending order, the quarters summed in a fixed tree. 4 ROWS is a multiple
+// of the CTA's threads, so that every lane takes part in each shuffle.
+template <int HD, int ROWS>
+__device__ __forceinline__ void block_delta(float* Ds, const float* dOs, const float* Os) {
+  constexpr int S = stride<HD>(), P = HD / 4;
+  for (int idx = threadIdx.x; idx < 4 * ROWS; idx += blockDim.x) {
+    const int r = idx >> 2, d0 = (idx & 3) * P;
+    float acc = 0.f;
+#pragma unroll
+    for (int d = d0; d < d0 + P; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(dOs + r * S + d);
+      const float4 b = *reinterpret_cast<const float4*>(Os + r * S + d);
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
+    if ((idx & 3) == 0) Ds[r] = acc;
+  }
+}
+
+template <typename T, int HD, int TR>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[TR][HD / 16],
+                                           int r0, int N, int rs, int c) {
+#pragma unroll
+  for (int m = 0; m < TR; ++m) {
+    const int row = r0 + 2 * m;
+    if (row < N) {
+#pragma unroll
+      for (int e = 0; e < HD / 16; ++e)
+        dst[(size_t)row * rs + HD / 16 * c + e] = Cvt<T>::from_f(acc[m][e]);
+    }
+  }
+}
+
+// The forward on one key block of nk valid keys (Ks: K, then V): the scores
+// scaled, keys past nk at -inf; with kStats the running max and sum updated
+// (and, one pass, the running output rescaled) and P~ = exp(s - max); without
+// it (bf16's second pass) P = exp(s - max) / sum rounded to bf16; with kPV,
+// acc += P V. Straight-line code over every column group: the rows' shuffles
+// and exponentials overlap.
+template <typename T, int HD, bool kStats, bool kPV, int TR>
+__device__ __forceinline__ void fwd_block(float (&acc)[TR][HD / 16], float (&mrow)[TR],
+                                          float (&lrow)[TR], const float* A, const float* Ks,
+                                          float* X, int nk, int c, float scale) {
+  constexpr int S = stride<HD>(), E = HD / 16;
+  float s[TR][4];
+  dot_nt<HD>(s, A, Ks + c * S, (nk + 15) >> 4);
+#pragma unroll
+  for (int m = 0; m < TR; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[m][j] = c + 16 * j < nk ? __fmul_rn(s[m][j], scale) : -INFINITY;
+  if constexpr (kStats) {
+    float mx[TR], sum[TR];
+#pragma unroll
+    for (int m = 0; m < TR; ++m) mx[m] = fmaxf(fmaxf(s[m][0], s[m][1]), fmaxf(s[m][2], s[m][3]));
+    row_max(mx);
+#pragma unroll
+    for (int m = 0; m < TR; ++m) {
+      mx[m] = fmaxf(mrow[m], mx[m]);
+      sum[m] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[m][j] = expf(__fsub_rn(s[m][j], mx[m]));
+        sum[m] = __fadd_rn(sum[m], s[m][j]);
+      }
+    }
+    row_sum(sum);
+#pragma unroll
+    for (int m = 0; m < TR; ++m) {
+      const float alpha = expf(__fsub_rn(mrow[m], mx[m]));
+      lrow[m] = __fadd_rn(__fmul_rn(lrow[m], alpha), sum[m]);
+      mrow[m] = mx[m];
+      if constexpr (kPV) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[m][e] = __fmul_rn(acc[m][e], alpha);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < TR; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[m][j] = round_to<T>(__fdiv_rn(expf(__fsub_rn(s[m][j], mrow[m])), lrow[m]));
+  }
+  if constexpr (kPV) {
+#pragma unroll
+    for (int m = 0; m < TR; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) X[2 * m * kXStride + c + 16 * j] = s[m][j];
+    __syncwarp();
+    acc_nn<HD>(acc, X, Ks + kBlock * S + E * c, (nk + 3) & ~3);
+    __syncwarp();
+  }
+}
+
+// Forward: grid (ceil(N / 64), H, B), kFwdWarps warps.
 template <typename T, int HD>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-               Layout lay, float scale, cudaStream_t stream) {
-  return launch(attn_fwd_kernel<T, HD>, B * H, kThreads, fwd_smem<T, HD>(N), stream,
+__global__ void __launch_bounds__(kFwdWarps * 32, 2)
+fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+    float* __restrict__ lse, int N, int H, Layout lay, float scale) {
+  constexpr int S = stride<HD>(), E = HD / 16;
+  constexpr bool kTwoPass = sizeof(T) == 2;  // P rounds to bf16 after its normalisation
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KV = Qs + kFwdRows * S;  // stage t: K at KV + 2 t * 64 S, V after it
+  float* Xs = KV + 4 * kBlock * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 15;
+  const int wr = warp * 2 * kFwdTR + (lane >> 4);  // the thread's first row in the block
+  const size_t base = (size_t)blockIdx.z * lay.batch + (size_t)blockIdx.y * lay.head;
+  const int rs = lay.row, i0 = blockIdx.x * kFwdRows;
+  const bool active = i0 + warp * 2 * kFwdTR < N;
+  const int nblk = (N + kBlock - 1) / kBlock, total = (kTwoPass ? 2 : 1) * nblk;
+
+  load_rows<T, HD, kFwdRows>(Qs, q + base, i0, N, rs);
+  load_rows<T, HD, kBlock>(KV, k + base, 0, N, rs);
+  load_rows<T, HD, kBlock>(KV + kBlock * S, v + base, 0, N, rs);
+  apvt::cp_commit();
+
+  float mrow[kFwdTR], lrow[kFwdTR], acc[kFwdTR][E];
+#pragma unroll
+  for (int m = 0; m < kFwdTR; ++m) {
+    mrow[m] = -INFINITY, lrow[m] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[m][e] = 0.f;
+  }
+  const float* A = Qs + wr * S;
+  float* X = Xs + wr * kXStride;
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) {
+      const int next = (it + 1) % nblk;
+      float* to = KV + ((it + 1) & 1) * 2 * kBlock * S;
+      load_rows<T, HD, kBlock>(to, k + base, next * kBlock, N, rs);
+      load_rows<T, HD, kBlock>(to + kBlock * S, v + base, next * kBlock, N, rs);
+    }
+    apvt::cp_commit();
+    apvt::cp_wait<1>();
+    __syncthreads();
+    if (active) {
+      const float* Ks = KV + (it & 1) * 2 * kBlock * S;
+      const int nk = min(kBlock, N - (it % nblk) * kBlock);
+      if constexpr (!kTwoPass)
+        fwd_block<T, HD, true, true>(acc, mrow, lrow, A, Ks, X, nk, c, scale);
+      else if (it < nblk)  // the first pass: statistics only
+        fwd_block<T, HD, true, false>(acc, mrow, lrow, A, Ks, X, nk, c, scale);
+      else
+        fwd_block<T, HD, false, true>(acc, mrow, lrow, A, Ks, X, nk, c, scale);
+    }
+    __syncthreads();  // the stage is refilled next
+  }
+  if (active) {
+    float* lrow_out = lse + ((size_t)blockIdx.z * H + blockIdx.y) * N;
+#pragma unroll
+    for (int m = 0; m < kFwdTR; ++m) {
+      const int row = i0 + wr + 2 * m;
+      if (!kTwoPass) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[m][e] = __fdiv_rn(acc[m][e], lrow[m]);
+      }
+      if (row < N && c == 0) lrow_out[row] = __fadd_rn(mrow[m], logf(lrow[m]));
+    }
+    store_rows<T, HD>(o + base, acc, i0 + wr, N, rs, c);
+  }
+}
+
+// The backward's dQ role: a CTA owns query rows [128 blk, 128 blk + 128) and
+// walks the key blocks in order; D of its rows from its dO rows and the
+// forward's output.
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, const T* __restrict__ dout,
+                                       const T* __restrict__ out, const float* __restrict__ lse,
+                                       T* __restrict__ dq, int N, int H, Layout lay, float scale,
+                                       int blk) {
+  constexpr int S = stride<HD>(), E = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kBwdRows * S;
+  float* KV = dOs + kBwdRows * S;  // stage t: K at KV + 2 t * 64 S, V after it
+  float* Xs = KV + 4 * kBlock * S;
+  float* Ls = Xs + kBwdRows * kXStride;
+  float* Ds = Ls + kBwdRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 15;
+  const int wr = warp * 2 * kBwdTR + (lane >> 4);
+  const size_t base = (size_t)blockIdx.z * lay.batch + (size_t)blockIdx.y * lay.head;
+  const float* lse_bh = lse + ((size_t)blockIdx.z * H + blockIdx.y) * N;
+  const int rs = lay.row, i0 = blk * kBwdRows;
+  const bool active = i0 + warp * 2 * kBwdTR < N;
+  const int nblk = (N + kBlock - 1) / kBlock;
+
+  load_rows<T, HD, kBwdRows>(Qs, q + base, i0, N, rs);
+  load_rows<T, HD, kBwdRows>(dOs, dout + base, i0, N, rs);
+  apvt::cp_commit();
+  load_rows<T, HD, kBlock>(KV, k + base, 0, N, rs);
+  load_rows<T, HD, kBlock>(KV + kBlock * S, v + base, 0, N, rs);
+  apvt::cp_commit();
+  // the forward's output lands where dS goes, for D; rows past N get an
+  // infinite log-sum-exp (P = 0)
+  load_rows<T, HD, kBwdRows>(Xs, out + base, i0, N, rs);
+  apvt::cp_commit();
+  for (int r = threadIdx.x; r < kBwdRows; r += blockDim.x)
+    Ls[r] = i0 + r < N ? lse_bh[i0 + r] : INFINITY;
+  apvt::cp_wait<0>();
+  __syncthreads();
+  block_delta<HD, kBwdRows>(Ds, dOs, Xs);
+  __syncthreads();
+
+  float L[kBwdTR], D[kBwdTR], acc[kBwdTR][E];
+#pragma unroll
+  for (int m = 0; m < kBwdTR; ++m) {
+    L[m] = Ls[wr + 2 * m], D[m] = Ds[wr + 2 * m];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[m][e] = 0.f;
+  }
+  float* X = Xs + wr * kXStride;
+  for (int it = 0; it < nblk; ++it) {
+    if (it + 1 < nblk) {
+      float* to = KV + ((it + 1) & 1) * 2 * kBlock * S;
+      load_rows<T, HD, kBlock>(to, k + base, (it + 1) * kBlock, N, rs);
+      load_rows<T, HD, kBlock>(to + kBlock * S, v + base, (it + 1) * kBlock, N, rs);
+    }
+    apvt::cp_commit();
+    apvt::cp_wait<1>();
+    __syncthreads();
+    if (active) {
+      const float* Ks = KV + (it & 1) * 2 * kBlock * S;
+      const int nk = min(kBlock, N - it * kBlock), jn = (nk + 15) >> 4;
+      float s[kBwdTR][4], dp[kBwdTR][4];
+      dot_nt<HD>(s, Qs + wr * S, Ks + c * S, jn);
+      dot_nt<HD>(dp, dOs + wr * S, Ks + kBlock * S + c * S, jn);
+#pragma unroll
+      for (int m = 0; m < kBwdTR; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = c + 16 * j < nk ? prob(s[m][j], scale, L[m]) : 0.f;
+          X[2 * m * kXStride + c + 16 * j] = round_to<T>(dscore(p, dp[m][j], D[m], scale));
+        }
+      __syncwarp();
+      acc_nn<HD>(acc, X, Ks + E * c, (nk + 3) & ~3);
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  if (active) store_rows<T, HD>(dq + base, acc, i0 + wr, N, rs, c);
+}
+
+// The backward's dK, dV role: a CTA owns key rows [128 blk, 128 blk + 128)
+// and walks the query blocks in order; D of each query block from its dO and
+// O rows, as the dQ role computes it (the same bits).
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const T* __restrict__ dout,
+                                         const T* __restrict__ out,
+                                         const float* __restrict__ lse, T* __restrict__ dk,
+                                         T* __restrict__ dv, int N, int H, Layout lay,
+                                         float scale, int blk) {
+  constexpr int S = stride<HD>(), E = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kBwdRows * S;
+  float* QD = Vs + kBwdRows * S;  // stage t: Q at QD + 3 t * 64 S, then dO, then O
+  float* Xs = QD + 6 * kBlock * S;
+  float* Ls = Xs + kBwdRows * kXStride;  // stage t: lse at Ls + 64 t
+  float* Dq = Ls + 2 * kBlock;           // D of the block in use
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 15;
+  const int wr = warp * 2 * kBwdTR + (lane >> 4);
+  const size_t base = (size_t)blockIdx.z * lay.batch + (size_t)blockIdx.y * lay.head;
+  const float* lse_bh = lse + ((size_t)blockIdx.z * H + blockIdx.y) * N;
+  const int rs = lay.row, j0 = blk * kBwdRows;
+  const bool active = j0 + warp * 2 * kBwdTR < N;
+  const int nblk = (N + kBlock - 1) / kBlock;
+
+  load_rows<T, HD, kBwdRows>(Ks, k + base, j0, N, rs);
+  load_rows<T, HD, kBwdRows>(Vs, v + base, j0, N, rs);
+  apvt::cp_commit();
+  load_rows<T, HD, kBlock>(QD, q + base, 0, N, rs);
+  load_rows<T, HD, kBlock>(QD + kBlock * S, dout + base, 0, N, rs);
+  load_rows<T, HD, kBlock>(QD + 2 * kBlock * S, out + base, 0, N, rs);
+  for (int r = threadIdx.x; r < kBlock; r += blockDim.x) Ls[r] = r < N ? lse_bh[r] : INFINITY;
+  apvt::cp_commit();
+
+  float dk_acc[kBwdTR][E], dv_acc[kBwdTR][E];
+#pragma unroll
+  for (int m = 0; m < kBwdTR; ++m)
+#pragma unroll
+    for (int e = 0; e < E; ++e) dk_acc[m][e] = dv_acc[m][e] = 0.f;
+  float* X = Xs + wr * kXStride;
+  for (int it = 0; it < nblk; ++it) {
+    if (it + 1 < nblk) {
+      const int i1 = (it + 1) * kBlock;
+      float* to = QD + ((it + 1) & 1) * 3 * kBlock * S;
+      load_rows<T, HD, kBlock>(to, q + base, i1, N, rs);
+      load_rows<T, HD, kBlock>(to + kBlock * S, dout + base, i1, N, rs);
+      load_rows<T, HD, kBlock>(to + 2 * kBlock * S, out + base, i1, N, rs);
+      float* lt = Ls + ((it + 1) & 1) * kBlock;
+      for (int r = threadIdx.x; r < kBlock; r += blockDim.x)
+        lt[r] = i1 + r < N ? lse_bh[i1 + r] : INFINITY;
+    }
+    apvt::cp_commit();
+    apvt::cp_wait<1>();
+    __syncthreads();
+    const float* Qb = QD + (it & 1) * 3 * kBlock * S;
+    const float* dOb = Qb + kBlock * S;
+    block_delta<HD, kBlock>(Dq, dOb, dOb + kBlock * S);
+    __syncthreads();
+    if (active) {
+      const float* Lb = Ls + (it & 1) * kBlock;
+      const int nq = min(kBlock, N - it * kBlock), jn = (nq + 15) >> 4;
+      float lq[4], dq_row[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lq[j] = Lb[c + 16 * j], dq_row[j] = Dq[c + 16 * j];
+      float st[kBwdTR][4], dpt[kBwdTR][4];
+      dot_nt<HD>(st, Ks + wr * S, Qb + c * S, jn);
+      dot_nt<HD>(dpt, Vs + wr * S, dOb + c * S, jn);
+#pragma unroll
+      for (int m = 0; m < kBwdTR; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = c + 16 * j < nq ? prob(st[m][j], scale, lq[j]) : 0.f;
+          dpt[m][j] = round_to<T>(dscore(p, dpt[m][j], dq_row[j], scale));
+          X[2 * m * kXStride + c + 16 * j] = round_to<T>(p);
+        }
+      __syncwarp();
+      acc_nn<HD>(dv_acc, X, dOb + E * c, (nq + 3) & ~3);
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < kBwdTR; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) X[2 * m * kXStride + c + 16 * j] = dpt[m][j];
+      __syncwarp();
+      acc_nn<HD>(dk_acc, X, Qb + E * c, (nq + 3) & ~3);
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  if (active) {
+    store_rows<T, HD>(dk + base, dk_acc, j0 + wr, N, rs, c);
+    store_rows<T, HD>(dv + base, dv_acc, j0 + wr, N, rs, c);
+  }
+}
+
+// Backward: grid (2 ceil(N / 128), H, B), kBwdWarps warps. The first
+// ceil(N / 128) CTAs of a (batch, head) take the dK, dV role (four products,
+// the longer), the others the dQ role. The roles share no sum (each computes
+// D), so one launch runs them side by side and they share the card's last
+// wave.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+bwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const T* __restrict__ out, const float* __restrict__ lse,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int N, int H, Layout lay,
+    float scale) {
+  const int nrb = (N + kBwdRows - 1) / kBwdRows;
+  if ((int)blockIdx.x < nrb)
+    bwd_dkdv<T, HD>(q, k, v, dout, out, lse, dk, dv, N, H, lay, scale, blockIdx.x);
+  else
+    bwd_dq<T, HD>(q, k, v, dout, out, lse, dq, N, H, lay, scale, blockIdx.x - nrb);
+}
+
+}  // namespace cc
+
+template <typename T, int HD>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int N,
+               int H, Layout lay, float scale, cudaStream_t stream) {
+  const dim3 grid((N + cc::kFwdRows - 1) / cc::kFwdRows, H, B);
+  return launch(cc::fwd<T, HD>, grid, cc::kFwdWarps * 32, cc::fwd_smem<HD>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(o), N, H, lay, scale);
+                static_cast<T*>(o), static_cast<float*>(lse), N, H, lay, scale);
 }
 
 template <typename T, int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
-               void* dk, void* dv, int B, int N, int H, Layout lay, float scale, cudaStream_t stream) {
-  return launch(attn_bwd_kernel<T, HD>, B * H, kThreads, bwd_smem<T, HD>(N), stream,
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o,
+               const void* lse, void* dq, void* dk, void* dv, int B, int N, int H, Layout lay,
+               float scale, cudaStream_t stream) {
+  const dim3 grid(2 * ((N + cc::kBwdRows - 1) / cc::kBwdRows), H, B);
+  return launch(cc::bwd<T, HD>, grid, cc::kBwdWarps * 32, cc::bwd_smem<HD>(), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+                static_cast<const T*>(dout), static_cast<const T*>(o),
+                static_cast<const float*>(lse), static_cast<T*>(dq), static_cast<T*>(dk),
                 static_cast<T*>(dv), N, H, lay, scale);
 }
+
+}  // namespace
+
+extern "C" {
+
+// The "cuda_core" launchers' plan at head dim hd (32 or 64): out[0..5] = rows
+// a CTA owns, threads a CTA, dynamic shared memory in bytes, for the forward
+// and the backward kernel (the same at every N and dtype). Returns -1 for
+// another head dim.
+int apvt_attn_cc_plan(int hd, int* out) {
+  if (hd != 32 && hd != 64) return -1;
+  const size_t smem[2] = {hd == 32 ? cc::fwd_smem<32>() : cc::fwd_smem<64>(),
+                          hd == 32 ? cc::bwd_smem<32>() : cc::bwd_smem<64>()};
+  const int rows[2] = {cc::kFwdRows, cc::kBwdRows};
+  const int warps[2] = {cc::kFwdWarps, cc::kBwdWarps};
+  for (int i = 0; i < 2; ++i) {
+    out[3 * i] = rows[i];
+    out[3 * i + 1] = warps[i] * 32;
+    out[3 * i + 2] = (int)smem[i];
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+namespace {
 
 // ---------------------------------------------------------------------------
 // mma.sync variant for bf16 operands with hd = 32 and N <= 256: the same math
@@ -475,14 +859,16 @@ int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse, int
   const Layout lay = layout_of(layout, N, H, hd);
   if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
     return apvt::wg::launch_fwd(q, k, v, o, static_cast<float*>(lse), B, N, H, layout, scale, s);
-  if (dtype == 0 && hd == 32) return launch_fwd<float, 32>(q, k, v, o, B, N, H, lay, scale, s);
-  if (dtype == 0 && hd == 64) return launch_fwd<float, 64>(q, k, v, o, B, N, H, lay, scale, s);
+  if (dtype == 0 && hd == 32)
+    return launch_fwd<float, 32>(q, k, v, o, lse, B, N, H, lay, scale, s);
+  if (dtype == 0 && hd == 64)
+    return launch_fwd<float, 64>(q, k, v, o, lse, B, N, H, lay, scale, s);
   if (dtype == 1 && N <= kTcMaxN && hd == 32)
     return launch_fwd_tc<32>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
-    return launch_fwd<__nv_bfloat16, 32>(q, k, v, o, B, N, H, lay, scale, s);
+    return launch_fwd<__nv_bfloat16, 32>(q, k, v, o, lse, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, B, N, H, lay, scale, s);
+    return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, B, N, H, lay, scale, s);
   return -1;
 }
 
@@ -495,15 +881,17 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, const
     return apvt::wg::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse), dq, dk, dv, B, N,
                                 H, layout, scale, s);
   if (dtype == 0 && hd == 32)
-    return launch_bwd<float, 32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
+    return launch_bwd<float, 32>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 0 && hd == 64)
-    return launch_bwd<float, 64>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
+    return launch_bwd<float, 64>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && N <= kTcMaxN && hd == 32)
     return launch_bwd_tc<32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
-    return launch_bwd<__nv_bfloat16, 32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
+    return launch_bwd<__nv_bfloat16, 32>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay,
+                                         scale, s);
   if (dtype == 1 && hd == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
+    return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay,
+                                         scale, s);
   return -1;
 }
 

@@ -26,10 +26,13 @@ differentiated by autograd; a CUDA tensor launches the kernel
 shape picks the variant (:func:`kernel_variant` is the same test in Python):
 bf16 with hd = 64 and N <= 256 (the ViT path) runs on ``wgmma`` with TMA
 loads (``csrc/attn_wgmma.cuh``); bf16 with hd = 32 and N <= 256 on
-``mma.sync``; f32, and bf16 with longer sequences, on the CUDA cores. The
-``wgmma`` forward also returns the row log-sum-exp ``(B, H, N)`` in f32, and
-its backward takes that and the forward's output, so that P needs no second
-max/sum pass and ``D = rowsum(dO * O)`` no second product
+``mma.sync``; f32 at every N, and bf16 with longer sequences, on the CUDA
+cores (``"cuda_core"``: the other side streamed in 64-row blocks past a
+CTA's block of rows, so that its shared memory does not depend on N, and
+register-tiled f32 products; :func:`kernel_plan` is its launchers' plan). The ``wgmma`` and
+``cuda_core`` forwards also return the row log-sum-exp ``(B, H, N)`` in f32,
+and their backwards take that and the forward's output, so that P needs no
+second max/sum pass and ``D = rowsum(dO * O)`` no second product
 (:func:`attention_bwd_from_saved` is that arithmetic in plain PyTorch; it
 differs from :func:`attention_bwd_reference` only by the rounding of O). The
 ``autograd.Function``s save both; a direct call of a backward wrapper without
@@ -52,6 +55,13 @@ BHND_BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64)
 WGMMA_MAX_N = 256  # the wgmma and mma.sync variants hold a whole score row in registers
+MAX_SMEM = 232_448  # dynamic shared memory a block may use on the H100
+# the "cuda_core" variant: rows of a streamed block; rows a CTA owns and rows a thread
+# owns (a warp twice as many), for the forward and the backward (whose CTAs take the
+# dK, dV role or the dQ role)
+CC_BLOCK = 64
+CC_ROWS = {"fwd": 64, "bwd": 128}
+CC_THREAD_ROWS = {"fwd": 4, "bwd": 8}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "attention_packed.cu"
 
@@ -148,6 +158,29 @@ def kernel_variant(dtype: torch.dtype, n: int, hd: int) -> str:
     return "cuda_core"
 
 
+def kernel_plan(dtype: torch.dtype, n: int, hd: int) -> dict:
+    """The ``"cuda_core"`` launchers' plan for one (batch, head) of ``n``
+    rows at head dim ``hd`` (``apvt_attn_cc_plan`` returns the launcher's):
+    per kernel (``"fwd"``, ``"bwd"``) the rows a CTA owns, its threads, its
+    CTAs along N (the grid is that by H by B; the backward's first half takes
+    the dK, dV role, its second the dQ role) and its dynamic shared memory in
+    bytes. Shared tiles are f32 with rows of hd + 4 values:
+    the CTA's own rows (Q; Q and dO; K and V), two ring stages of the
+    streamed 64-row blocks (K and V; K and V; Q, dO and O), the warps' P / dS
+    rows of 80 values, and the row statistics; the backward holds the larger
+    role's. None of it grows with ``n``."""
+    kernel_variant(dtype, n, hd)
+    s, x = (hd + 4) * 4, (CC_BLOCK + 16) * 4
+    fwd, bwd = CC_ROWS["fwd"], CC_ROWS["bwd"]
+    threads = {name: 16 * CC_ROWS[name] // CC_THREAD_ROWS[name] for name in CC_ROWS}
+    dq = (2 * bwd + 4 * CC_BLOCK) * s + bwd * x + 2 * bwd * 4
+    dkdv = (2 * bwd + 6 * CC_BLOCK) * s + bwd * x + 3 * CC_BLOCK * 4
+    return {"fwd": {"rows": fwd, "threads": threads["fwd"], "ctas": -(-n // fwd),
+                    "smem": (fwd + 4 * CC_BLOCK) * s + fwd * x},
+            "bwd": {"rows": bwd, "threads": threads["bwd"], "ctas": 2 * -(-n // bwd),
+                    "smem": max(dq, dkdv)}}
+
+
 def _lib():
     from . import _build
 
@@ -162,10 +195,22 @@ def _lib():
         lib.apvt_attn_bhnd_fwd.restype = i
         lib.apvt_attn_bhnd_bwd.argtypes = lib.apvt_attn_packed_bwd.argtypes
         lib.apvt_attn_bhnd_bwd.restype = i
+        lib.apvt_attn_cc_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.apvt_attn_cc_plan.restype = i
         lib.apvt_cuda_error_string.argtypes = [i]
         lib.apvt_cuda_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
     return lib
+
+
+def launcher_plan(hd: int) -> dict:
+    """The ``"cuda_core"`` launchers' own plan at head dim ``hd``: per kernel
+    the rows a CTA owns, its threads and its dynamic shared memory."""
+    out = (ctypes.c_int * 6)()
+    if _lib().apvt_attn_cc_plan(hd, out) != 0:
+        raise ValueError(f"head dim {hd} unsupported by the CUDA kernel")
+    return {name: {"rows": out[3 * i], "threads": out[3 * i + 1], "smem": out[3 * i + 2]}
+            for i, name in enumerate(("fwd", "bwd"))}
 
 
 def _check(*tensors: torch.Tensor, heads: int | None) -> tuple[int, int, int, int, int]:
@@ -209,7 +254,8 @@ def _raise_on(code: int, lib, what: str) -> None:
 
 def _launch_fwd(q, k, v, heads: int | None):
     """The forward kernel over packed (``heads`` given) or head-major operands:
-    ``(o, lse)``; ``lse`` ``(B, H, N)`` f32 is written by the wgmma variant only."""
+    ``(o, lse)``; ``lse`` ``(B, H, N)`` f32 is written by the ``wgmma`` and
+    ``cuda_core`` variants."""
     b, n, h, hd, code = _check(q, k, v, heads=heads)
     lib = _lib()
     o = torch.empty_like(q)
@@ -224,7 +270,7 @@ def _launch_fwd(q, k, v, heads: int | None):
 
 def _launch_bwd(q, k, v, do, o, lse, heads: int | None):
     """The backward kernel: ``(dq, dk, dv)``. ``o`` and ``lse`` are the
-    forward's; the variants other than wgmma do not read them."""
+    forward's; the ``mma_sync`` variant does not read them."""
     b, n, h, hd, code = _check(q, k, v, do, o, heads=heads)
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("the log-sum-exp must be (B, H, N) float32, contiguous")

@@ -26,6 +26,9 @@ the hand-written kernels:
   forward and backward;
 * the head-major attention kernel through its entry ``attention_auto`` (no
   model path of the package calls it);
+* ViT-B/16 at 384 px (N = 577, google/vit-base-patch16-384's sequence), bf16,
+  through PGD-2 at batch 8: the packed-attention kernel's CUDA-core device
+  code, which takes every sequence past 256, forward and backward;
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
   in bf16, through FGSM and PGD-10 at batch 64: the window-attention kernel
   (``csrc/window_attention.cu``, at every Swin-B stage its wgmma + TMA
@@ -90,8 +93,10 @@ Phases, one line each (or a few):
 2. build: every kernel source compiled with nvcc from the checkout, in
    parallel; per source nvcc's seconds, ptxas registers and spills and any
    wgmma serialisation warning, each wgmma kernel's and dwconv7's TMA-ring
-   kernel's own line, and dwconv7's plan (tile, items, CTAs, ring) at the
-   ConvNeXt-B stages, its launcher's held equal to the wrapper's;
+   kernel's own line, dwconv7's plan (tile, items, CTAs, ring) at the
+   ConvNeXt-B stages and packed attention's CUDA-core plan (rows a CTA,
+   threads, shared memory within a block's, the same at any N) at both
+   head dims, each launcher's held equal to its wrapper's;
 3. kernels against their plain PyTorch versions on the card, forward and
    gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
    (64, 197, 12, 64), (bf16) (2, 300, 2, 64) and (bf16) the tile edges of
@@ -127,7 +132,11 @@ Phases, one line each (or a few):
    head-major attention kernel at the packed kernel's shapes, equal bit for
    bit to the packed kernel on the transposed operands; the three parameter-
    gradient functions against autograd through the plain versions; every
-   backward bitwise reproducible; then dwconv7 at its TMA-ring kernel's
+   backward bitwise reproducible; packed attention at lengths whose whole
+   head would not fit in a block's shared memory (LONG_SHAPES: f32 at the
+   wgmma edges, N = 209 and 577 in both dtypes, hd 32 at 577), both layouts,
+   forward, log-sum-exp and backward against the plain versions, the
+   head-major kernel bit for bit the packed one; then dwconv7 at its TMA-ring kernel's
    edges (DW_EDGE_SHAPES: a 1 x 1 map, tiles ragged in H, W and channels, a
    persistent schedule's ragged tail), both roles, against the plain
    version and bit for bit against the staged kernel; and the LN-fused MLP
@@ -150,7 +159,10 @@ Phases, one line each (or a few):
    bias gradient, for ConvNeXt 36 x 11 launches of each kernel role and no
    filter or parameter gradient, for ViT-B with ``fuse_attn_block`` 12 x 11
    launches of the half-block and of the LN-fused MLP, forward and backward,
-   no packed-attention launch and no parameter gradient. Training: exact
+   no packed-attention launch and no parameter gradient; ViT-B/16 at 384 px
+   (N = 577, the packed kernel's CUDA-core code in bf16), random weights:
+   logits against the plain attention, PGD-2 at batch 8 with 12 x 2
+   launches each way. Training: exact
    launch counts per step (full fine-tune: 12 parameter-gradient recomputes
    of each fused op; LoRA: none, and no half-block launch where LoRA factors
    are attached), finite gradients, every trainable leaf changed and every
@@ -289,10 +301,15 @@ Phases, one line each (or a few):
    and the CPU for all 256 levels): every accuracy cell card against CPU within PARITY_ACC_TOL, the
    base losses within PARITY_LOSS_RTOL, the card's packed-attention launches
    equal to the count the stages give (12 a forward, 12 a backward), every
-   other count 0; the adversarial uint8 mismatch, each side's stage walls,
-   the host's cores and threads, the phase's wall; then packed attention in
-   f32 at the attack and eval shape (24, 197, 12, 64) against its plain
-   version, timed beside SDPA.
+   other count 0; the adversarial uint8 mismatch below PARITY_PIXEL_TOL on
+   each attack and split; the card's PGD once more on its trained base with
+   the ViT's attention on the plain version, its uint8 mismatch against the
+   CPU and against the kernel's images (what share of the card-CPU gap the
+   attention route makes); each side's stage walls, the host's cores and
+   threads, the phase's wall; then packed attention in f32 at the attack and
+   eval shape (24, 197, 12, 64) against its plain version, timed beside
+   SDPA, and in bf16 at ViT-B/16's 384-pixel shape (8, 577, 12, 64) beside
+   SDPA.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -344,6 +361,16 @@ MAIN = (64, 197, 12, 64)
 EDGE_N = (1, 63, 64, 65, 128, 208, 256)
 SHAPES = {"float32": ((2, 37, 3, 32), MAIN),
           "bfloat16": ((2, 37, 3, 32), (2, 300, 2, 64), *((2, n, 2, 64) for n in EDGE_N), MAIN)}
+# ... and the CUDA-core device code at lengths whose whole head would not fit in a block's
+# shared memory (f32 backward N > 208, bf16 backward N > 384, f32 forward N > 417), both
+# layouts, from a generator of its own: f32 at the wgmma edges, N = 209 and 577 (ViT-B/16 at
+# 384 px: 9 x 64 + 1) in both dtypes (bf16 at 209: the wgmma code), and hd 32 at N = 577
+LONG_SHAPES = {"float32": (*((2, n, 2, 64) for n in EDGE_N), (2, 209, 2, 64), (2, 577, 2, 64),
+                           (2, 577, 2, 32)),
+               "bfloat16": ((2, 209, 2, 64), (2, 577, 2, 64), (2, 577, 2, 32))}
+# packed attention at ViT-B/16's 384-pixel sequence (google/vit-base-patch16-384: N = 577),
+# bf16: timed beside SDPA; its launches come from VIT384_BATCH images through PGD-2
+LONG_MAIN, VIT384_SIZE, VIT384_BATCH, VIT384_STEPS = (8, 577, 12, 64), 384, 8, 2
 # window attention (B, nW, n, heads, mask): the four Swin-B stages at B=64
 # (window 7, hd 32) and a ragged window-4 case; then the Hopper kernel's tile
 # edges (n = 16, 49, 64 in one window; a batch that its chunks do not divide)
@@ -490,6 +517,8 @@ BENCH_TOOL_ARGS = {"bench_zoo": ("--iters", "1"),
 PARITY_COUNTS, PARITY_BATCH, PARITY_EPOCHS = (2, 1, 2), 12, (1, 1)
 PARITY_LR, PARITY_WD, PARITY_LORA_SEED = 1e-4, 1e-4, 10
 PARITY_ACC_TOL, PARITY_LOSS_RTOL = 0.005, 1e-3
+# adversarial uint8 pixels that may differ card against CPU, on each attack and split
+PARITY_PIXEL_TOL = 1e-3
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -698,14 +727,16 @@ class Smoke:
                   f"wgmma serialisation warnings {len(serial)}", flush=True)
             for ln in serial[:4]:
                 print(f"phase 2 build: {src}: {ln[:300]}", flush=True)
-            # the wgmma kernels one by one: a spill in a main loop would be silent
+            # the wgmma kernels and packed attention's CUDA-core ones one by one: a spill in
+            # a main loop would be silent
             for fn, spill, used in re.findall(
                     r"Compiling entry function '(\w+)'(?:.*\n)+?.*?(\d+) bytes spill stores.*\n"
                     r".*Used (\d+) registers", ptxas):
                 short = re.search(r"(wg_mlp_(?:fwd|bwd)ILi\d+ELb[01]|2wg\d+attn_(?:fwd|bwd)"
                                   r"(?:ILi\d+)?|3wgw7win_(?:fwd|bwd)|3wgb\d+(?:heads_fwd|"
                                   r"heads_bwd|oproj_fwd|dh_bwd)ILi\d+E(?:Li\d+E)?|"
-                                  r"dwconv7_tmaILi\d+E)", fn)
+                                  r"dwconv7_tmaILi\d+E|2cc3(?:fwd|bwd)I(?:f|13__nv_bfloat16)"
+                                  r"Li\d+E)", fn)
                 if short:
                     print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
                           f"spill stores {spill} bytes", flush=True)
@@ -716,6 +747,18 @@ class Smoke:
         check(blk[0] == self.kb._smem_bytes(MAIN[1], 768, False)
               and blk[2] == self.kb._smem_bytes(MAIN[1], 768, True),
               f"attn_block: the wrapper's shared-memory budget is not the launcher's ({blk})")
+        # packed attention's CUDA-core launchers: the wrapper's plan is theirs, and it fits
+        for hd in self.ka.HEAD_DIMS:
+            want = {name: {k: v for k, v in kernel.items() if k != "ctas"} for name, kernel in
+                    self.ka.kernel_plan(torch.float32, MAIN[1], hd).items()}
+            got = self.ka.launcher_plan(hd)
+            check(got == want and all(p["smem"] <= self.ka.MAX_SMEM for p in got.values()),
+                  f"attention hd {hd}: the launcher's plan {got} is not the wrapper's {want}")
+            print(f"phase 2 build: attention_packed.cu cuda_core plan hd {hd} (rows a CTA, "
+                  f"threads, dynamic shared memory, the same at any N): " + "; ".join(
+                      f"{name} {p['rows']}, {p['threads']}, {p['smem']} B"
+                      for name, p in got.items()) + "; the launcher's equals the wrapper's",
+                  flush=True)
         # the bf16 dwconv7 launcher's plan (tile, schedule, ring) is the wrapper's
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for shape in DW_SHAPES + DW_EDGE_SHAPES:
@@ -1284,6 +1327,44 @@ class Smoke:
                       f"kernel on the transposed operands; backward bitwise reproducible",
                       flush=True)
         return err
+
+    def long_vs_plain(self) -> None:
+        """Packed attention at LONG_SHAPES in both layouts (the CUDA-core
+        device code but for bf16 at N = 209, the wgmma one): forward,
+        log-sum-exp and backward against the plain versions at TOL, the
+        backward bit for bit on a second run, the head-major kernel bit for
+        bit the packed one."""
+        import torch
+
+        ka, gen = self.ka, torch.Generator(self.dev).manual_seed(16)
+        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+            dtype = getattr(torch, dtype_name)
+            for (b, n, h, hd) in LONG_SHAPES[dtype_name]:
+                variant = ka.kernel_variant(dtype, n, hd)
+                q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                               .to(dtype) for _ in range(4))
+                tag = f"{dtype_name} {(b, n, h, hd)}"
+                o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+                e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, f"fwd {tag}")
+                close(lse, ka.attention_lse_reference(ka._split(q, h), ka._split(k, h)),
+                      1e-4, 1e-4, f"lse {tag}")
+                got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+                want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+                e_b = max(close(g_, w_, ga, gr, f"d{nm} {tag}")
+                          for nm, g_, w_ in zip("qkv", got, want))
+                check(all(torch.equal(a_, b_) for a_, b_ in
+                          zip(got, ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse))),
+                      f"backward not reproducible {tag}")
+                qh, kh, vh, doh = (ka._split(t, h).contiguous() for t in (q, k, v, do))
+                oh, lse_h = ka.fused_attention_fwd(qh, kh, vh, with_lse=True)
+                check(torch.equal(ka._merge(oh), o) and torch.equal(lse_h, lse)
+                      and all(torch.equal(ka._merge(a_), b_) for a_, b_ in
+                              zip(ka.fused_attention_bwd(qh, kh, vh, doh, oh, lse_h), got)),
+                      f"head-major and packed kernels differ {tag}")
+                torch.cuda.synchronize()
+                print(f"phase 3 attention_packed vs plain {tag} [{variant}]: fwd max|err| "
+                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}, log-sum-exp within 1e-4; "
+                      f"backward bitwise reproducible; head-major equal bit for bit", flush=True)
 
     # 4. model
     def model(self, name: str, module=None, attn_name: str = "", plain=None, kernel_fields=None):
@@ -2030,6 +2111,51 @@ class Smoke:
         return launches
 
     # 5. the other attack families on ViT-B/16
+    def vit384(self) -> dict:
+        """ViT-B/16 at 384 px (google/vit-base-patch16-384's geometry, N = 577),
+        random weights from a seed, bf16: its logits against the plain
+        attention, then PGD-2 at batch VIT384_BATCH through the entry points,
+        the packed kernel's CUDA-core device code in every forward and
+        backward. Returns the launches."""
+        import numpy as np
+        import torch
+
+        ka, entry = self.ka, self.registry.get_model("google_vit")
+        cfg = dataclasses.replace(entry.config(CLASSES), image_size=VIT384_SIZE)
+        variant = ka.kernel_variant(torch.bfloat16, cfg.seq_len, cfg.head_dim)
+        check(cfg.seq_len == LONG_MAIN[1] and variant == "cuda_core",
+              f"ViT-B/16 at {VIT384_SIZE} px: N {cfg.seq_len} [{variant}]")
+        tree = self.trees.map_leaves(lambda t: t.to(self.dev, torch.bfloat16),
+                                     entry.init(cfg, torch.Generator().manual_seed(16)))
+        model = entry.from_tree(tree, cfg)
+        normalize = self.common.Normalizer(*self.registry.get_normalization("google_vit"))
+        rng = np.random.default_rng(16)
+        images_u8 = torch.from_numpy(rng.integers(0, 256, (VIT384_BATCH, VIT384_SIZE,
+                                                           VIT384_SIZE, 3), dtype=np.uint8))
+        images_u8 = images_u8.to(self.dev)
+        labels = torch.from_numpy(rng.integers(0, CLASSES, VIT384_BATCH)).to(self.dev)
+        x = normalize(self.common.to_unit_floats(images_u8))
+        with torch.no_grad():
+            got = entry.apply(cfg, model, x)
+            with plain_path(self.vit, "attention_packed", ka.attention_packed_reference):
+                want = entry.apply(cfg, model, x)
+        la, lr = LOGIT_TOL["google_vit"]["bfloat16"]
+        e = close(got, want, la, lr, "ViT-B/16 384 px logits")
+        pgd = self.whitebox.make_pgd(entry.apply, cfg, eps=EPS, alpha=ALPHA,
+                                     steps=VIT384_STEPS, normalize=normalize)
+        adv, launches = self.counted({"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
+                                     lambda: pgd(model, images_u8, labels,
+                                                 torch.Generator(self.dev).manual_seed(16)))
+        calls = cfg.depth * VIT384_STEPS
+        check(launches == {"fwd": calls, "bwd": calls}, f"ViT-B/16 384 px launches {launches}")
+        clean = self.common.to_unit_floats(images_u8)
+        check(bool(torch.isfinite(adv).all()) and float((adv - clean).abs().max()) <= EPS + 1e-6,
+              "ViT-B/16 384 px PGD outside the eps-ball or not finite")
+        print(f"phase 5 attack: google_vit at {VIT384_SIZE} px (N = {cfg.seq_len}) bf16 "
+              f"[{variant}], logits kernel vs plain max|err| {e:.3e}; PGD-{VIT384_STEPS} "
+              f"B={VIT384_BATCH}: packed attention launches {launches}", flush=True)
+        return launches
+
     def counting_apply(self, entry):
         """``entry.apply`` that counts its calls: every call is one forward
         pass, and a call whose input asks a gradient is one the attack
@@ -3560,8 +3686,15 @@ class Smoke:
                 runs[dev] = self.counted(self.all_counters(), lambda: tpar.run_port_side(
                     side, corpus, orders, lora_orders, lora_init, os.path.join(work, dev),
                     eps=EPS, alpha=ALPHA, pgd_steps=PGD_STEPS, lr=PARITY_LR, wd=PARITY_WD))
-                del side
         (cpu, cpu_l), (card, card_l) = runs["cpu"], runs["cuda"]
+        # the card's PGD once more on the card's trained base, the ViT's attention on its
+        # plain version: how much of the card-CPU gap the attention route makes
+        with plain_path(self.vit, "attention_packed", self.ka.attention_packed_reference):
+            plain_adv, plain_l = self.counted(self.all_counters(), lambda: {
+                split: side.attack_split(*corpus[split], kind="pgd", eps=EPS, alpha=ALPHA,
+                                         steps=PGD_STEPS) for split in ("train", "test")})
+        del side
+        check(plain_l == {k: 0 for k in plain_l}, f"phase 12: the plain PGD launched {plain_l}")
 
         check(cpu_l == {k: 0 for k in cpu_l}, f"phase 12: the CPU side launched {cpu_l}")
         check(card_l == expect, f"phase 12: launches {card_l}, expected {expect}")
@@ -3594,9 +3727,21 @@ class Smoke:
             f"{v} {d} {acc:.4f}/{cpu['matrix'][v][d]:.4f}"
             for v, per in card["matrix"].items() for d, acc in per.items())
             + f" (max |d| {worst:.4f}, limit {PARITY_ACC_TOL})", flush=True)
+        mismatch = {(kind, split): float((card["adv"][kind][split] != cpu["adv"][kind][split])
+                                         .mean())
+                    for kind in tpar.ATTACKS for split in ("train", "test")}
         print("phase 12 adversarial uint8 mismatch card vs cpu: " + "; ".join(
-            f"{kind} {split} {float((card['adv'][kind][split] != cpu['adv'][kind][split]).mean()):.6f}"
-            for kind in tpar.ATTACKS for split in ("train", "test")), flush=True)
+            f"{kind} {split} {frac:.6f}" for (kind, split), frac in mismatch.items())
+            + f" (limit {PARITY_PIXEL_TOL})", flush=True)
+        check(max(mismatch.values()) < PARITY_PIXEL_TOL, f"phase 12: uint8 mismatch {mismatch}")
+        frac = lambda a, b: float((a != b).mean())  # noqa: E731
+        print("phase 12 PGD attribution, uint8 mismatch train / test: card kernel [" + variant
+              + "] vs cpu " + " / ".join(f"{mismatch[('pgd', sp)]:.6e}" for sp in ("train", "test"))
+              + "; card plain attention vs cpu " + " / ".join(
+                  f"{frac(plain_adv[sp], cpu['adv']['pgd'][sp]):.6e}" for sp in ("train", "test"))
+              + "; card kernel vs card plain " + " / ".join(
+                  f"{frac(card['adv']['pgd'][sp], plain_adv[sp]):.6e}" for sp in ("train", "test"))
+              + f" (the card's trained base in both card runs) {self.card}", flush=True)
         for dev, (res, _) in runs.items():
             print(f"phase 12 {dev} side stage walls: " + ", ".join(
                 f"{k} {v:.1f} s" for k, v in res["seconds"].items()), flush=True)
@@ -3651,6 +3796,52 @@ class Smoke:
              "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
              "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
             {"name": "attention_packed_f32_bwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
+             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+
+    def time_attention_long(self, launches: dict) -> list[dict]:
+        """Packed attention at LONG_MAIN in bf16 (its CUDA-core device code):
+        kernel against plain (forward and backward), bound, SDPA."""
+        import torch
+        import torch.nn.functional as F
+
+        ka = self.ka
+        b, n, h, hd = LONG_MAIN
+        gen = torch.Generator(self.dev).manual_seed(17)
+        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        variant = ka.kernel_variant(torch.bfloat16, n, hd)
+        (fa, fr), (ga, gr) = TOL["bfloat16"]
+        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+        e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, "long fwd")
+        got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+        want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+        e_b = max(close(g_, w_, ga, gr, f"long d{nm}") for nm, g_, w_ in zip("qkv", got, want))
+        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = do.view(b, n, h, hd).transpose(1, 2)
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                           lambda: ka.attention_packed_reference(q, k, v, h),
+                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
+                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                               retain_graph=True))
+        unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
+        bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
+        bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
+        print(f"phase 6 attention_packed {LONG_MAIN} bf16 [{variant}]: fwd max|err| {e_f:.3e}, "
+              f"dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd {kb:.4f} ms; plain fwd "
+              f"{pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd "
+              f"{bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
+        src = f"{PKG}/csrc/attention_packed.cu"
+        self.long_errs = {"attention_packed_long_fwd": e_f, "attention_packed_long_bwd": e_b}
+        return [
+            {"name": "attention_packed_long_fwd", "route": "cuda", "source": src,
+             "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
+             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+            {"name": "attention_packed_long_bwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
              "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
@@ -3776,6 +3967,7 @@ def main(argv=None) -> None:
     err_f = s.fused_mlp_vs_plain()
     err_a = s.attn_block_vs_plain()
     err_h = s.bhnd_vs_plain()
+    s.long_vs_plain()
     s.dwconv_edges()
     s.ln_mlp_seeds()
 
@@ -3790,6 +3982,7 @@ def main(argv=None) -> None:
     full_l = s.train_full(vit_entry, vit_tree, vit_norm)
     lora_l = s.train_lora(vit_entry, vit_tree, vit_norm)
     bhnd_l = s.attention_auto_entry()
+    long_l = s.vit384()
     # the other attack families on the same model and batch, labelled by its
     # own clean predictions so that every example starts correctly classified
     with torch.no_grad():
@@ -3923,6 +4116,7 @@ def main(argv=None) -> None:
     print(f"phase 11 wall {time.perf_counter() - t11:.1f} s {s.card}", flush=True)
     # 12. the parity experiment's port side at ViT-B/224 in f32: the card against this host's CPU
     kernels += s.time_attention_f32(s.parity())
+    kernels += s.time_attention_long(long_l)
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],
@@ -3931,7 +4125,7 @@ def main(argv=None) -> None:
             "fused_mlp_fwd": err_f["fwd"], "fused_mlp_bwd": err_f["bwd"],
             "attn_block_fwd": err_a["fwd"], "attn_block_bwd": err_a["bwd"],
             "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"],
-            **s.tp_errs, **s.parity_errs}
+            **s.tp_errs, **s.parity_errs, **s.long_errs}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # composition_ms: where no one PyTorch call computes the function (library_ms null),

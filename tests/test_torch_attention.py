@@ -173,9 +173,10 @@ def test_head_major_and_packed_plain_versions_agree_and_wrapper_refuses():
         tka.fused_attention_fwd(q[0], k[0], v[0])
 
 
-# --- the tile edges of the wgmma kernels (64-row tiles, 64-key blocks, N <= 256) ---
+# --- the tile edges of the wgmma kernels (64-row tiles, 64-key blocks, N <= 256),
+# and ViT-B/16's sequence at 384 px (577 = 9 x 64 + 1), which the CUDA-core code takes ---
 
-EDGES = [1, 63, 64, 65, 128, 197, 208, 256]
+EDGES = [1, 63, 64, 65, 128, 197, 208, 256, 577]
 
 
 def _edge_grads_torch(q, k, v, do, heads, dtype):
@@ -224,6 +225,27 @@ def test_plain_bf16_at_tile_edges_matches_jax(n):
     (torch.float32, 197, 64, "cuda_core"), (torch.float32, 37, 32, "cuda_core")])
 def test_kernel_variant_by_shape(dtype, n, hd, want):
     assert tka.kernel_variant(dtype, n, hd) == want
+
+
+@pytest.mark.parametrize("n", [1, 64, 197, 209, 385, 577, 1025])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_core_plan_fits_the_card_at_any_length(dtype, hd, n):
+    """The CUDA-core launchers' shared memory, forward and backward, fits a
+    block's 232,448 bytes and is the same at every N (whole heads on chip
+    would stop the f32 backward at N = 208); the CTAs along N cover every row
+    once (the backward's, once for each of its two roles)."""
+    plan = tka.kernel_plan(dtype, n, hd)
+    assert set(plan) == {"fwd", "bwd"}
+    for name, kernel in plan.items():
+        assert kernel["smem"] <= tka.MAX_SMEM == 232_448
+        assert kernel["smem"] == tka.kernel_plan(dtype, 1, hd)[name]["smem"]
+        roles = 2 if name == "bwd" else 1
+        ctas = kernel["ctas"] // roles
+        assert kernel["ctas"] == roles * ctas
+        assert ctas * kernel["rows"] >= n > (ctas - 1) * kernel["rows"]
+        warps = kernel["threads"] // 32  # each owns an equal block of the CTA's rows
+        assert kernel["threads"] == 32 * warps and kernel["rows"] % (2 * warps) == 0
 
 
 @pytest.mark.parametrize("dtype, n, hd, exc, msg", [
@@ -292,3 +314,23 @@ def test_autograd_function_saves_output_and_lse_and_launches_once_each(monkeypat
     assert torch.equal(seen["o"], out.detach()) and seen["lse"].shape == (1, 2, 9)
     for t, w in zip(ts, want):
         torch.testing.assert_close(t.grad, w, atol=1e-5, rtol=1e-4)
+
+
+def test_diagnose_script_edits_find_their_places():
+    """``tools/attention_diagnose`` times edited copies of
+    ``csrc/attention_packed.cu``; each edit must still find its place in the
+    source (it raises otherwise) and stay inside the CUDA-core variant."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import attention_diagnose
+
+    text = _build.inlined("attention_packed.cu")
+    assert '#include "' not in text and text.count("namespace cc {") == 1
+    out = attention_diagnose.variants(text)
+    assert out["kernel"] == text and len({*out.values()}) == len(out) == 14
+    assert set(attention_diagnose.EXACT) < set(out)
+    head, tail = text.split("namespace cc {")[0], text.split("}  // namespace cc")[1]
+    for label, src in out.items():  # every other route as it is
+        assert src.startswith(head) and src.endswith(tail), label
+    assert "__expf(" in out["fast exp"] and "kFwdTR = 8," in out["forward: 8 rows a thread"]
+    with pytest.raises(RuntimeError, match="found nothing"):
+        attention_diagnose.variants(text.replace("acc_nn<HD>(acc, X,", "acc_nn<HD>(acc, Xs,"))
