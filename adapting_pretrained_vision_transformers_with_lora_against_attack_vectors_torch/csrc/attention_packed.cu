@@ -23,7 +23,7 @@
 // tensor cores at a rate only wgmma reaches, and the loads have to overlap
 // them.
 //
-// Three variants, chosen by an explicit test of (dtype, N, hd) in fwd_any /
+// Four variants, chosen by an explicit test of (dtype, N, hd) in fwd_any /
 // bwd_any below (kernels/attention.py:kernel_variant is the same test; no
 // flag chooses):
 // * "wgmma": bf16, hd = 64, N <= 256, the ViT-B path. The Hopper core of
@@ -31,13 +31,25 @@
 //   behind mbarriers, the 64 x N scores of a warpgroup in its accumulators,
 //   a seven-product backward from the forward's log-sum-exp. Its header
 //   says what it does about the bound;
+// * "wgmma_stream": bf16, hd = 64, N > 256 (ViT-B/16 at 384 px: N = 577).
+//   attn_stream.cuh: the same tile format, products and backward device
+//   functions, with a CTA's 128 own rows held and the other side streamed in
+//   64-row blocks through a TMA ring, so that shared memory does not depend
+//   on N; a forward of two passes over the keys (statistics, then P
+//   normalised and rounded before P V: three products), a backward of two
+//   CTA roles in one launch after a pre-pass that writes lse2 and D. At
+//   (8, 577, 12, 64) its bound is 0.0085 ms forward (bytes) and 0.0207 ms
+//   backward (tensor-core operations); PERF.md section 6 has where it stands;
 // * "mma_sync": bf16, hd = 32, N <= 256 (no model of the package has this
 //   shape; a 64-byte row would need the 64-byte swizzle and its own tile
 //   format). namespace tc below: the core of attn_core.cuh, which
 //   attn_block.cu also uses: a warp owns 16 rows with their whole score row
 //   in registers, mma.sync m16n8k16 with ldmatrix operands;
-// * "cuda_core": f32 at every N, and bf16 with N > 256 (namespace cc below).
-//   Exact f32 arithmetic on the CUDA cores, as the f32 reference computes.
+// * "cuda_core": f32 at every N, and bf16 with hd = 32 past N = 256 (no model
+//   has that shape either; namespace cc below; apvt_attn_cc_bf16_fwd / _bwd
+//   still launch its bf16 hd-64 code, for timing the route "wgmma_stream"
+//   replaced). Exact f32 arithmetic on the CUDA cores, as the f32 reference
+//   computes.
 //   What bounds it: the f32 FMA rate. At the parity shape (B=24, N=197,
 //   H=12, hd=64, f32) the forward's two products need 0.0427 ms at 67
 //   TFLOP/s and the backward's five 0.1068 ms, against 0.0062 / 0.0109 ms
@@ -67,19 +79,21 @@
 //     thread's 8 rows, so that their shuffles and exponentials overlap;
 //   - the last block's keys past N are masked (P = 0) and skipped in 16-key
 //     steps; a warp whose rows all lie past N does no products.
-// All three: the backward in two phases or two CTA roles, query-row owners
+// All four: the backward in two phases or two CTA roles, query-row owners
 // for dQ, key-row owners for dK and dV, every sum with one owner and a fixed
 // order: no atomics, bitwise reproducible; keys >= N get P = 0, rows >= N
 // are never written. The forward writes the row log-sum-exp (B, H, N) f32;
-// the backward reads it and the forward's output in the "wgmma" and
-// "cuda_core" variants, the "mma_sync" variant ignores those pointers.
+// the backward reads it and the forward's output in the "wgmma",
+// "wgmma_stream" and "cuda_core" variants, the "mma_sync" variant ignores
+// those pointers.
 //
 // C interface (loaded with ctypes): each entry point returns the CUDA error
 // code of its launch (cudaGetLastError), 0 on success, -1 for an
-// unsupported dtype or head dim, -2 if a tensor map could not be encoded.
+// unsupported dtype or head dim, -2 if a tensor map could not be encoded, -3
+// if the "wgmma_stream" backward was given no scratch (work null).
 
 #include "attn_core.cuh"
-#include "attn_wgmma.cuh"
+#include "attn_stream.cuh"
 
 namespace {
 
@@ -127,8 +141,8 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stre
 }
 
 // ---------------------------------------------------------------------------
-// "cuda_core" variant: f32, and bf16 with N > 256 (the note at the top says
-// what bounds it). Thread (warp w, lane 16 g + c) owns rows 2 TR w + g + 2 m
+// "cuda_core" variant: f32, and bf16 hd 32 with N > 256 (the note at the top
+// says what bounds it). Thread (warp w, lane 16 g + c) owns rows 2 TR w + g + 2 m
 // (m < TR) of its CTA's block, score columns c + 16 j (j < 4) of a streamed
 // block and output columns E c + e (e < E = hd / 16). Shared tiles hold f32
 // (bf16 operands are widened as they land).
@@ -859,6 +873,8 @@ int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse, int
   const Layout lay = layout_of(layout, N, H, hd);
   if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
     return apvt::wg::launch_fwd(q, k, v, o, static_cast<float*>(lse), B, N, H, layout, scale, s);
+  if (dtype == 1 && hd == 64)
+    return apvt::wgs::launch_fwd(q, k, v, o, static_cast<float*>(lse), B, N, H, layout, scale, s);
   if (dtype == 0 && hd == 32)
     return launch_fwd<float, 32>(q, k, v, o, lse, B, N, H, lay, scale, s);
   if (dtype == 0 && hd == 64)
@@ -867,19 +883,20 @@ int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse, int
     return launch_fwd_tc<32>(q, k, v, o, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
     return launch_fwd<__nv_bfloat16, 32>(q, k, v, o, lse, B, N, H, lay, scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, B, N, H, lay, scale, s);
   return -1;
 }
 
 int bwd_any(const void* q, const void* k, const void* v, const void* dout, const void* o,
-            const void* lse, void* dq, void* dk, void* dv, int B, int N, int H, int hd, int dtype,
-            int layout, float scale, void* stream) {
+            const void* lse, void* work, void* dq, void* dk, void* dv, int B, int N, int H,
+            int hd, int dtype, int layout, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(layout, N, H, hd);
   if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
     return apvt::wg::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse), dq, dk, dv, B, N,
                                 H, layout, scale, s);
+  if (dtype == 1 && hd == 64)
+    return apvt::wgs::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse),
+                                 static_cast<float*>(work), dq, dk, dv, B, N, H, layout, scale, s);
   if (dtype == 0 && hd == 32)
     return launch_bwd<float, 32>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 0 && hd == 64)
@@ -888,9 +905,6 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, const
     return launch_bwd_tc<32>(q, k, v, dout, dq, dk, dv, B, N, H, lay, scale, s);
   if (dtype == 1 && hd == 32)
     return launch_bwd<__nv_bfloat16, 32>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay,
-                                         scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, lay,
                                          scale, s);
   return -1;
 }
@@ -901,16 +915,18 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. hd: 32 or 64. Operands (B, N, H*hd); lse
 // (B, H, N) f32, written by the forward and read (with o) by the backward in
-// the wgmma variant only.
+// every variant but "mma_sync". work: the "wgmma_stream" backward's scratch,
+// B H ceil(N / 64) 128 f32 (unread by the other variants; may be null for
+// them).
 int apvt_attn_packed_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                          int N, int H, int hd, int dtype, float scale, void* stream) {
   return fwd_any(q, k, v, o, lse, B, N, H, hd, dtype, 0, scale, stream);
 }
 
 int apvt_attn_packed_bwd(const void* q, const void* k, const void* v, const void* dout,
-                         const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
-                         int N, int H, int hd, int dtype, float scale, void* stream) {
-  return bwd_any(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, hd, dtype, 0, scale, stream);
+                         const void* o, const void* lse, void* work, void* dq, void* dk, void* dv,
+                         int B, int N, int H, int hd, int dtype, float scale, void* stream) {
+  return bwd_any(q, k, v, dout, o, lse, work, dq, dk, dv, B, N, H, hd, dtype, 0, scale, stream);
 }
 
 // The same over head-major operands (B, H, N, hd).
@@ -920,9 +936,44 @@ int apvt_attn_bhnd_fwd(const void* q, const void* k, const void* v, void* o, voi
 }
 
 int apvt_attn_bhnd_bwd(const void* q, const void* k, const void* v, const void* dout,
-                       const void* o, const void* lse, void* dq, void* dk, void* dv, int B, int N,
-                       int H, int hd, int dtype, float scale, void* stream) {
-  return bwd_any(q, k, v, dout, o, lse, dq, dk, dv, B, N, H, hd, dtype, 1, scale, stream);
+                       const void* o, const void* lse, void* work, void* dq, void* dk, void* dv,
+                       int B, int N, int H, int hd, int dtype, float scale, void* stream) {
+  return bwd_any(q, k, v, dout, o, lse, work, dq, dk, dv, B, N, H, hd, dtype, 1, scale, stream);
+}
+
+// The "wgmma_stream" launchers' plan: out[0..4] = rows a CTA owns, warpgroups
+// a CTA, threads a CTA, ring stages and dynamic shared memory in bytes of the
+// forward kernel, out[5..9] the same of the backward kernel (the same at
+// every N).
+int apvt_attn_stream_plan(int* out) {
+  using namespace apvt::wgs;
+  const int groups[2] = {kFwdWarpgroups, kBwdWarpgroups}, stages[2] = {kFwdStages, kBwdStages};
+  const size_t smem[2] = {fwd_smem(), bwd_smem()};
+  for (int i = 0; i < 2; ++i) {
+    out[5 * i] = kBlock * groups[i];
+    out[5 * i + 1] = groups[i];
+    out[5 * i + 2] = 128 * groups[i];
+    out[5 * i + 3] = stages[i];
+    out[5 * i + 4] = (int)smem[i];
+  }
+  return 0;
+}
+
+// For timing only, reachable from no model path: the "cuda_core" device code
+// on packed bf16 operands with hd = 64 at any N (the code the "wgmma_stream"
+// variant replaced past N = 256). No counter moves.
+int apvt_attn_cc_bf16_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                          int N, int H, float scale, void* stream) {
+  return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, B, N, H, layout_of(0, N, H, 64), scale,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+int apvt_attn_cc_bf16_bwd(const void* q, const void* k, const void* v, const void* dout,
+                          const void* o, const void* lse, void* dq, void* dk, void* dv, int B,
+                          int N, int H, float scale, void* stream) {
+  return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H,
+                                       layout_of(0, N, H, 64), scale,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 const char* apvt_cuda_error_string(int code) {

@@ -1,6 +1,11 @@
 // The Hopper attention core of attention_packed.cu: bf16, head dim 64,
 // N <= 256, forward and backward, every product on wgmma.mma_async with its
-// operands brought in by TMA behind mbarriers.
+// operands brought in by TMA behind mbarriers. Past N = 256 a head no longer
+// fits (the 64 x N scores of a warpgroup in its accumulators, the backward's
+// 4 N/64 tiles in shared memory): attn_stream.cuh (the "wgmma_stream"
+// variant) streams the other side through a TMA ring in 64-row blocks, with
+// this file's tile format, operand maps and backward device functions
+// (dq_block, dkv_block take a ring stage's tiles as they take a stack's).
 //
 // What bounds attention at ViT-B shapes (B=64, N=197, H=12, hd=64) on the
 // H100: a head reads 4 (forward) or 7 (backward) tiles of 197 x 64 bf16 and
@@ -238,15 +243,19 @@ struct BwdTiles {
   const float *lse2, *D;        // per query row: log2-domain log-sum-exp (+inf for rows >= N), D
 };
 
-// dQ (64 query rows at tile i) += dS K over the W keys of block j.
+// dQ (the 64 query rows of tiles Qt, dOt) += dS K over the W keys of the
+// block Kt, Vt whose first key is key0; acc = 0 starts the sum. The whole-head
+// kernels give it tiles of their stacks, the streamed route (attn_stream.cuh)
+// a ring stage.
 template <int W>
-__device__ __forceinline__ void dq_block(float (&dq)[32], const BwdTiles& s, int i, int j, int N,
+__device__ __forceinline__ void dq_block(float (&dq)[32], const bf16* Qt, const bf16* dOt,
+                                         const bf16* Kt, const bf16* Vt, int key0, int acc, int N,
                                          float scale, float scale_log2, float l0, float l1,
                                          float D0, float D1, int t) {
   float sc[W / 2], dp[W / 2];
   {
-    const uint64_t a_q = mdesc(s.Q + i * kTile), a_do = mdesc(s.dO + i * kTile);
-    const uint64_t b_k = mdesc(s.K + j * kTile), b_v = mdesc(s.V + j * kTile);
+    const uint64_t a_q = mdesc(Qt), a_do = mdesc(dOt);
+    const uint64_t b_k = mdesc(Kt), b_v = mdesc(Vt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -260,7 +269,7 @@ __device__ __forceinline__ void dq_block(float (&dq)[32], const BwdTiles& s, int
   }
 #pragma unroll
   for (int e = 0; e < W / 2; ++e) {
-    const int col = j * 64 + 8 * (e >> 2) + 2 * t + (e & 1);
+    const int col = key0 + 8 * (e >> 2) + 2 * t + (e & 1);
     sc[e] = col < N ? ex2(sc[e] * scale_log2 - ((e & 2) ? l1 : l0)) : 0.f;
   }
   wgmma_wait<0>();
@@ -274,24 +283,36 @@ __device__ __forceinline__ void dq_block(float (&dq)[32], const BwdTiles& s, int
     a[c][2] = pack_bf16(dp[8 * c + 4], dp[8 * c + 5]);
     a[c][3] = pack_bf16(dp[8 * c + 6], dp[8 * c + 7]);
   }
-  const uint64_t b_k = mdesc(s.K + j * kTile);
+  const uint64_t b_k = mdesc(Kt);
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < W / 16; ++c)
-    Wgmma<64>::template rs<1>(dq, a[c], madvance(b_k, 2048 * c), j | c);
+    Wgmma<64>::template rs<1>(dq, a[c], madvance(b_k, 2048 * c), acc | c);
   wgmma_commit();
   wgmma_wait<0>();
 }
 
-// dV, dK (64 key rows at block j) += P^T dO, dS^T Q over the W queries of tile i.
+// ... at query tile i and key block j of the stacked tiles s.
 template <int W>
-__device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], const BwdTiles& s,
-                                          int i, int j, float scale, float scale_log2,
-                                          bool valid0, bool valid1, int t) {
+__device__ __forceinline__ void dq_block(float (&dq)[32], const BwdTiles& s, int i, int j, int N,
+                                         float scale, float scale_log2, float l0, float l1,
+                                         float D0, float D1, int t) {
+  dq_block<W>(dq, s.Q + i * kTile, s.dO + i * kTile, s.K + j * kTile, s.V + j * kTile, j * 64, j,
+              N, scale, scale_log2, l0, l1, D0, D1, t);
+}
+
+// dV, dK (the 64 key rows of tiles Kt, Vt) += P^T dO, dS^T Q over the W
+// queries of the tiles Qt, dOt, whose log2-domain log-sum-exp and D start at
+// lse2 and D; acc = 0 starts the sums.
+template <int W>
+__device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], const bf16* Kt,
+                                          const bf16* Vt, const bf16* Qt, const bf16* dOt,
+                                          const float* lse2, const float* D, int acc, float scale,
+                                          float scale_log2, bool valid0, bool valid1, int t) {
   float st[W / 2], dpt[W / 2];
   {
-    const uint64_t a_k = mdesc(s.K + j * kTile), a_v = mdesc(s.V + j * kTile);
-    const uint64_t b_q = mdesc(s.Q + i * kTile), b_do = mdesc(s.dO + i * kTile);
+    const uint64_t a_k = mdesc(Kt), a_v = mdesc(Vt);
+    const uint64_t b_q = mdesc(Qt), b_do = mdesc(dOt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -305,8 +326,8 @@ __device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], cons
   }
 #pragma unroll
   for (int jt = 0; jt < W / 8; ++jt) {
-    const int col = i * 64 + 8 * jt + 2 * t;   // the query of elements 0 and 2; +1 for 1 and 3
-    const float2 lq = *reinterpret_cast<const float2*>(s.lse2 + col);
+    const int col = 8 * jt + 2 * t;   // the query of elements 0 and 2; +1 for 1 and 3
+    const float2 lq = *reinterpret_cast<const float2*>(lse2 + col);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool valid = (e & 2) ? valid1 : valid0;
@@ -316,7 +337,7 @@ __device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], cons
   wgmma_wait<0>();
 #pragma unroll
   for (int jt = 0; jt < W / 8; ++jt) {
-    const float2 Dq = *reinterpret_cast<const float2*>(s.D + i * 64 + 8 * jt + 2 * t);
+    const float2 Dq = *reinterpret_cast<const float2*>(D + 8 * jt + 2 * t);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       dpt[4 * jt + e] = st[4 * jt + e] * (dpt[4 * jt + e] - ((e & 1) ? Dq.y : Dq.x)) * scale;
@@ -330,15 +351,24 @@ __device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], cons
       sa[c][r] = pack_bf16(dpt[8 * c + 2 * r], dpt[8 * c + 2 * r + 1]);
     }
   }
-  const uint64_t b_do = mdesc(s.dO + i * kTile), b_q = mdesc(s.Q + i * kTile);
+  const uint64_t b_do = mdesc(dOt), b_q = mdesc(Qt);
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < W / 16; ++c) {
-    Wgmma<64>::template rs<1>(dv, pa[c], madvance(b_do, 2048 * c), i | c);
-    Wgmma<64>::template rs<1>(dk, sa[c], madvance(b_q, 2048 * c), i | c);
+    Wgmma<64>::template rs<1>(dv, pa[c], madvance(b_do, 2048 * c), acc | c);
+    Wgmma<64>::template rs<1>(dk, sa[c], madvance(b_q, 2048 * c), acc | c);
   }
   wgmma_commit();
   wgmma_wait<0>();
+}
+
+// ... at query tile i and key block j of the stacked tiles s.
+template <int W>
+__device__ __forceinline__ void dkv_block(float (&dk)[32], float (&dv)[32], const BwdTiles& s,
+                                          int i, int j, float scale, float scale_log2,
+                                          bool valid0, bool valid1, int t) {
+  dkv_block<W>(dk, dv, s.K + j * kTile, s.V + j * kTile, s.Q + i * kTile, s.dO + i * kTile,
+               s.lse2 + i * 64, s.D + i * 64, i, scale, scale_log2, valid0, valid1, t);
 }
 
 // A warpgroup's 64 x 64 result through its staging tile to rows row0.. of a tensor.

@@ -164,6 +164,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory,
+// both 16-byte aligned, by the bulk-copy engine; completes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
 // One box from shared memory to the tensor (elements outside it are dropped).
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2) {

@@ -25,21 +25,30 @@ differentiated by autograd; a CUDA tensor launches the kernel
 (``csrc/attention_packed.cu``) or raises. Inside the kernel library the
 shape picks the variant (:func:`kernel_variant` is the same test in Python):
 bf16 with hd = 64 and N <= 256 (the ViT path) runs on ``wgmma`` with TMA
-loads (``csrc/attn_wgmma.cuh``); bf16 with hd = 32 and N <= 256 on
-``mma.sync``; f32 at every N, and bf16 with longer sequences, on the CUDA
+loads (``csrc/attn_wgmma.cuh``); bf16 with hd = 64 and N > 256 (ViT-B/16 at
+384 px) on ``"wgmma_stream"`` (``csrc/attn_stream.cuh``: the same products,
+a CTA's own 64-row tiles held and the other side streamed through a TMA
+ring in 64-row blocks, so that its shared memory does not depend on N; its
+backward takes a scratch buffer of the rows' statistics that
+:func:`_launch_bwd` allocates); bf16 with hd = 32 and N <= 256 on
+``mma.sync``; f32 at every N, and bf16 with hd = 32 past 256, on the CUDA
 cores (``"cuda_core"``: the other side streamed in 64-row blocks past a
-CTA's block of rows, so that its shared memory does not depend on N, and
-register-tiled f32 products; :func:`kernel_plan` is its launchers' plan). The ``wgmma`` and
-``cuda_core`` forwards also return the row log-sum-exp ``(B, H, N)`` in f32,
-and their backwards take that and the forward's output, so that P needs no
-second max/sum pass and ``D = rowsum(dO * O)`` no second product
+CTA's block of rows, register-tiled f32 products). :func:`kernel_plan` is
+the ``"cuda_core"`` or ``"wgmma_stream"`` launchers' plan. The ``wgmma``,
+``wgmma_stream`` and ``cuda_core`` forwards also return the row
+log-sum-exp ``(B, H, N)`` in f32, and their backwards take that and the
+forward's output, so that P needs no second max/sum pass and
+``D = rowsum(dO * O)`` no second product
 (:func:`attention_bwd_from_saved` is that arithmetic in plain PyTorch; it
 differs from :func:`attention_bwd_reference` only by the rounding of O). The
 ``autograd.Function``s save both; a direct call of a backward wrapper without
 them runs the forward kernel first. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES``
 count the packed kernel's launches, ``BHND_FWD_LAUNCHES`` and
 ``BHND_BWD_LAUNCHES`` the head-major kernel's, so a run can show it went
-through the kernel.
+through the kernel. :func:`cc_fwd` and :func:`cc_bwd` run bf16 hd-64
+operands at any N on the ``"cuda_core"`` code that ``"wgmma_stream"``
+replaced, uncounted, for timing the two against each other; no model path
+calls them.
 """
 
 from __future__ import annotations
@@ -62,6 +71,13 @@ MAX_SMEM = 232_448  # dynamic shared memory a block may use on the H100
 CC_BLOCK = 64
 CC_ROWS = {"fwd": 64, "bwd": 128}
 CC_THREAD_ROWS = {"fwd": 4, "bwd": 8}
+# the "wgmma_stream" variant, per kernel: warpgroups a CTA (a 64-row tile each) and ring
+# stages of two 64 x 64 bf16 tiles (8192 bytes each); the backward's stages also carry
+# the dK/dV role's lse2 and D of a block
+STREAM_BLOCK = 64
+STREAM_WARPGROUPS = {"fwd": 2, "bwd": 1}
+STREAM_STAGES = {"fwd": 4, "bwd": 3}
+_TILE_BYTES = 64 * 64 * 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "attention_packed.cu"
 
@@ -146,7 +162,8 @@ def attention_packed_bwd_reference(q, k, v, do, heads: int):
 def kernel_variant(dtype: torch.dtype, n: int, hd: int) -> str:
     """Which device code of ``csrc/attention_packed.cu`` a shape takes (the
     same test as its C launcher; nothing else chooses): ``"wgmma"``,
-    ``"mma_sync"`` or ``"cuda_core"``. Raises on what no variant takes."""
+    ``"wgmma_stream"``, ``"mma_sync"`` or ``"cuda_core"``. Raises on what no
+    variant takes."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIMS})")
     if dtype not in _DTYPE_CODE:
@@ -155,20 +172,47 @@ def kernel_variant(dtype: torch.dtype, n: int, hd: int) -> str:
         raise ValueError(f"sequence length {n} unsupported by the CUDA kernel")
     if dtype == torch.bfloat16 and n <= WGMMA_MAX_N:
         return "wgmma" if hd == 64 else "mma_sync"
+    if dtype == torch.bfloat16 and hd == 64:
+        return "wgmma_stream"
     return "cuda_core"
 
 
-def kernel_plan(dtype: torch.dtype, n: int, hd: int) -> dict:
-    """The ``"cuda_core"`` launchers' plan for one (batch, head) of ``n``
-    rows at head dim ``hd`` (``apvt_attn_cc_plan`` returns the launcher's):
-    per kernel (``"fwd"``, ``"bwd"``) the rows a CTA owns, its threads, its
-    CTAs along N (the grid is that by H by B; the backward's first half takes
-    the dK, dV role, its second the dQ role) and its dynamic shared memory in
-    bytes. Shared tiles are f32 with rows of hd + 4 values:
-    the CTA's own rows (Q; Q and dO; K and V), two ring stages of the
-    streamed 64-row blocks (K and V; K and V; Q, dO and O), the warps' P / dS
-    rows of 80 values, and the row statistics; the backward holds the larger
-    role's. None of it grows with ``n``."""
+def kernel_plan(dtype: torch.dtype, n: int, hd: int, variant: str = "cuda_core") -> dict:
+    """The launchers' plan for one (batch, head) of ``n`` rows at head dim
+    ``hd``, per kernel (``"fwd"``, ``"bwd"``): the rows a CTA owns, its
+    threads, its CTAs along N (the grid is that by H by B, or for
+    ``"wgmma_stream"`` the product; the backward's first half takes the
+    dK, dV role, its second the dQ role) and its dynamic shared memory in
+    bytes. None of it but the CTAs grows with ``n``.
+
+    ``"cuda_core"`` (``apvt_attn_cc_plan`` returns the launcher's): shared
+    tiles are f32 with rows of hd + 4 values: the CTA's own rows (Q; Q and
+    dO; K and V), two ring stages of the streamed 64-row blocks (K and V; K
+    and V; Q, dO and O), the warps' P / dS rows of 80 values, and the row
+    statistics; the backward holds the larger role's.
+
+    ``"wgmma_stream"`` (bf16, hd 64; ``apvt_attn_stream_plan`` returns the
+    launcher's), also its warpgroups (two a forward CTA, one a backward CTA)
+    and ring stages: 1024 bytes of alignment slack, the own 64 x 64 bf16
+    tiles (Q of each warpgroup; K and V, or Q and dO), ``stages`` ring stages
+    of two tiles (K, V; Q, dO), the dK/dV role's lse2 and D of each stage,
+    and 8 bytes a barrier (own, and full and empty a stage)."""
+    if variant == "wgmma_stream":
+        if dtype != torch.bfloat16 or hd != 64:
+            raise ValueError(f"the wgmma_stream variant takes bf16 with hd 64, not {dtype} hd {hd}")
+        plan = {}
+        for name, roles in (("fwd", 1), ("bwd", 2)):
+            wgs, stages = STREAM_WARPGROUPS[name], STREAM_STAGES[name]
+            rows = STREAM_BLOCK * wgs
+            own = wgs if name == "fwd" else 2 * wgs  # Q; K and V, or Q and dO
+            stats = stages * 2 * STREAM_BLOCK * 4 if name == "bwd" else 0
+            plan[name] = {"rows": rows, "warpgroups": wgs, "threads": 128 * wgs,
+                          "stages": stages, "ctas": roles * -(-n // rows),
+                          "smem": (1024 + (own + 2 * stages) * _TILE_BYTES + stats
+                                   + (1 + 2 * stages) * 8)}
+        return plan
+    if variant != "cuda_core":
+        raise ValueError(f"no launcher plan for the {variant!r} variant")
     kernel_variant(dtype, n, hd)
     s, x = (hd + 4) * 4, (CC_BLOCK + 16) * 4
     fwd, bwd = CC_ROWS["fwd"], CC_ROWS["bwd"]
@@ -181,6 +225,12 @@ def kernel_plan(dtype: torch.dtype, n: int, hd: int) -> dict:
                     "smem": max(dq, dkdv)}}
 
 
+def stream_work_floats(b: int, n: int, h: int) -> int:
+    """f32 values of the ``"wgmma_stream"`` backward's scratch: each head's
+    rows padded to 64-row blocks, a block's lse2 (log2 domain) then D."""
+    return b * h * -(-n // STREAM_BLOCK) * 2 * STREAM_BLOCK
+
+
 def _lib():
     from . import _build
 
@@ -189,7 +239,7 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.apvt_attn_packed_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
         lib.apvt_attn_packed_fwd.restype = i
-        lib.apvt_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.apvt_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.apvt_attn_packed_bwd.restype = i
         lib.apvt_attn_bhnd_fwd.argtypes = lib.apvt_attn_packed_fwd.argtypes
         lib.apvt_attn_bhnd_fwd.restype = i
@@ -197,15 +247,31 @@ def _lib():
         lib.apvt_attn_bhnd_bwd.restype = i
         lib.apvt_attn_cc_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
         lib.apvt_attn_cc_plan.restype = i
+        lib.apvt_attn_stream_plan.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.apvt_attn_stream_plan.restype = i
+        lib.apvt_attn_cc_bf16_fwd.argtypes = [p, p, p, p, p, i, i, i, f, p]
+        lib.apvt_attn_cc_bf16_fwd.restype = i
+        lib.apvt_attn_cc_bf16_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, p]
+        lib.apvt_attn_cc_bf16_bwd.restype = i
         lib.apvt_cuda_error_string.argtypes = [i]
         lib.apvt_cuda_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
     return lib
 
 
-def launcher_plan(hd: int) -> dict:
-    """The ``"cuda_core"`` launchers' own plan at head dim ``hd``: per kernel
-    the rows a CTA owns, its threads and its dynamic shared memory."""
+def launcher_plan(hd: int, variant: str = "cuda_core") -> dict:
+    """The ``"cuda_core"`` (or ``"wgmma_stream"``, hd 64) launchers' own plan
+    at head dim ``hd``: per kernel the rows a CTA owns, its threads and its
+    dynamic shared memory (and for ``"wgmma_stream"`` its warpgroups and ring
+    stages)."""
+    if variant == "wgmma_stream":
+        if hd != 64:
+            raise ValueError(f"the wgmma_stream variant takes hd 64, not {hd}")
+        out = (ctypes.c_int * 10)()
+        _lib().apvt_attn_stream_plan(out)
+        keys = ("rows", "warpgroups", "threads", "stages", "smem")
+        return {name: {key: out[5 * i + j] for j, key in enumerate(keys)}
+                for i, name in enumerate(("fwd", "bwd"))}
     out = (ctypes.c_int * 6)()
     if _lib().apvt_attn_cc_plan(hd, out) != 0:
         raise ValueError(f"head dim {hd} unsupported by the CUDA kernel")
@@ -247,6 +313,8 @@ def _raise_on(code: int, lib, what: str) -> None:
         raise ValueError(f"{what}: unsupported dtype or head dim")
     if code == -2:
         raise RuntimeError(f"{what}: no tensor map could be encoded for these operands")
+    if code == -3:
+        raise RuntimeError(f"{what}: the wgmma_stream backward was given no scratch buffer")
     if code != 0:
         msg = lib.apvt_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
@@ -270,17 +338,22 @@ def _launch_fwd(q, k, v, heads: int | None):
 
 def _launch_bwd(q, k, v, do, o, lse, heads: int | None):
     """The backward kernel: ``(dq, dk, dv)``. ``o`` and ``lse`` are the
-    forward's; the ``mma_sync`` variant does not read them."""
+    forward's; the ``mma_sync`` variant does not read them. For the
+    ``wgmma_stream`` variant it allocates the scratch of the rows'
+    statistics that the launcher's pre-pass writes."""
     b, n, h, hd, code = _check(q, k, v, do, o, heads=heads)
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("the log-sum-exp must be (B, H, N) float32, contiguous")
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    work = None  # the wgmma_stream backward's lse2 and D of every row
+    if kernel_variant(q.dtype, n, hd) == "wgmma_stream":
+        work = torch.empty(stream_work_floats(b, n, h), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = lib.apvt_attn_bhnd_bwd if heads is None else lib.apvt_attn_packed_bwd
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, n, h, hd, code, hd ** -0.5, stream)
+            lse.data_ptr(), None if work is None else work.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, n, h, hd, code, hd ** -0.5, stream)
     _raise_on(rc, lib, "attention backward")
     return dq, dk, dv
 
@@ -333,6 +406,44 @@ def attention_packed(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, heads)
     return fused_attention_packed(q, k, v, heads)
+
+
+# --- the route wgmma_stream replaced, for timing ---------------------------------
+
+def _check_cc(*tensors, heads: int) -> tuple[int, int, int]:
+    b, n, h, hd, _ = _check(*tensors, heads=heads)
+    if tensors[0].dtype != torch.bfloat16 or hd != 64:
+        raise ValueError("the timing entry of the cuda_core route takes bf16 with hd 64")
+    return b, n, h
+
+
+def cc_fwd(q, k, v, heads: int):
+    """The forward on the ``"cuda_core"`` device code, packed bf16 with hd 64
+    at any N: ``(o, lse)`` (uncounted; for timing it against the
+    ``"wgmma_stream"`` code that replaced it past N = 256)."""
+    b, n, h = _check_cc(q, k, v, heads=heads)
+    lib = _lib()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    rc = lib.apvt_attn_cc_bf16_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   lse.data_ptr(), b, n, h, 64 ** -0.5,
+                                   torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, "attention forward (cuda_core timing entry)")
+    return o, lse
+
+
+def cc_bwd(q, k, v, do, heads: int, o, lse):
+    """The backward on the ``"cuda_core"`` device code from the forward's
+    ``o`` and ``lse``: ``(dq, dk, dv)`` (uncounted; for timing)."""
+    b, n, h = _check_cc(q, k, v, do, o, heads=heads)
+    lib = _lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = lib.apvt_attn_cc_bf16_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), b, n, h, 64 ** -0.5,
+                                   torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, "attention backward (cuda_core timing entry)")
+    return dq, dk, dv
 
 
 # --- head-major (B, H, N, hd) ---------------------------------------------------

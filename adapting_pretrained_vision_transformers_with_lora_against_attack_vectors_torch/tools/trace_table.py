@@ -29,8 +29,8 @@ GROUPS = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
           ("attn_block dh + LN backward (this repo)", r"dh_bwd"),
           ("window attention fwd (this repo)", r"win_fwd"),
           ("window attention bwd (this repo)", r"win_bwd"),
-          ("packed attention fwd (this repo)", r"attn_fwd"),
-          ("packed attention bwd (this repo)", r"attn_bwd"),
+          ("packed attention fwd (this repo)", r"attn_fwd|wgs::stream_fwd|cc::fwd"),
+          ("packed attention bwd (this repo)", r"attn_bwd|wgs::stream_(?:bwd|stats)|cc::bwd"),
           ("depthwise conv (cuDNN / ATen)", r"conv|cudnn|depthwise|dgrad|wgrad"),
           ("int8 GEMMs (cuBLASLt, _int_mm)", r"s8s8|i8i8|imma|[Ii]nt8|_s8|_i8"),
           ("GEMMs (cuBLAS)", r"gemm|nvjet|cutlass|cublas|xmma"),

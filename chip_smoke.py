@@ -27,8 +27,9 @@ the hand-written kernels:
 * the head-major attention kernel through its entry ``attention_auto`` (no
   model path of the package calls it);
 * ViT-B/16 at 384 px (N = 577, google/vit-base-patch16-384's sequence), bf16,
-  through PGD-2 at batch 8: the packed-attention kernel's CUDA-core device
-  code, which takes every sequence past 256, forward and backward;
+  through PGD-2 at batch 8: the packed-attention kernel's streamed
+  tensor-core device code (``"wgmma_stream"``), which takes every bf16
+  sequence past 256 at head dim 64, forward and backward;
 * ``swin`` Swin-B (all 24 blocks) with a rank-8 LoRA merged into qkv/proj,
   in bf16, through FGSM and PGD-10 at batch 64: the window-attention kernel
   (``csrc/window_attention.cu``, at every Swin-B stage its wgmma + TMA
@@ -94,9 +95,10 @@ Phases, one line each (or a few):
    parallel; per source nvcc's seconds, ptxas registers and spills and any
    wgmma serialisation warning, each wgmma kernel's and dwconv7's TMA-ring
    kernel's own line, dwconv7's plan (tile, items, CTAs, ring) at the
-   ConvNeXt-B stages and packed attention's CUDA-core plan (rows a CTA,
+   ConvNeXt-B stages, packed attention's CUDA-core plan (rows a CTA,
    threads, shared memory within a block's, the same at any N) at both
-   head dims, each launcher's held equal to its wrapper's;
+   head dims and its wgmma_stream plan (rows, warpgroups, threads, ring
+   stages, shared memory), each launcher's held equal to its wrapper's;
 3. kernels against their plain PyTorch versions on the card, forward and
    gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
    (64, 197, 12, 64), (bf16) (2, 300, 2, 64) and (bf16) the tile edges of
@@ -136,7 +138,11 @@ Phases, one line each (or a few):
    head would not fit in a block's shared memory (LONG_SHAPES: f32 at the
    wgmma edges, N = 209 and 577 in both dtypes, hd 32 at 577), both layouts,
    forward, log-sum-exp and backward against the plain versions, the
-   head-major kernel bit for bit the packed one; then dwconv7 at its TMA-ring kernel's
+   head-major kernel bit for bit the packed one; the wgmma_stream route at
+   STREAM_N (N = 257, 320, 385, 577, 1025 at (2, N, 2, 64), bf16, a
+   generator of its own) the same way, at STREAM_TOL (set from its
+   readings; TOL's bf16 limits are about a typical value there), every
+   backward twice bit for bit; then dwconv7 at its TMA-ring kernel's
    edges (DW_EDGE_SHAPES: a 1 x 1 map, tiles ragged in H, W and channels, a
    persistent schedule's ragged tail), both roles, against the plain
    version and bit for bit against the staged kernel; and the LN-fused MLP
@@ -160,7 +166,7 @@ Phases, one line each (or a few):
    filter or parameter gradient, for ViT-B with ``fuse_attn_block`` 12 x 11
    launches of the half-block and of the LN-fused MLP, forward and backward,
    no packed-attention launch and no parameter gradient; ViT-B/16 at 384 px
-   (N = 577, the packed kernel's CUDA-core code in bf16), random weights:
+   (N = 577, the packed kernel's wgmma_stream code), random weights:
    logits against the plain attention, PGD-2 at batch 8 with 12 x 2
    launches each way. Training: exact
    launch counts per step (full fine-tune: 12 parameter-gradient recomputes
@@ -308,8 +314,12 @@ Phases, one line each (or a few):
    attention route makes); each side's stage walls, the host's cores and
    threads, the phase's wall; then packed attention in f32 at the attack and
    eval shape (24, 197, 12, 64) against its plain version, timed beside
-   SDPA, and in bf16 at ViT-B/16's 384-pixel shape (8, 577, 12, 64) beside
-   SDPA.
+   SDPA, and in bf16 at ViT-B/16's 384-pixel shape (8, 577, 12, 64): the
+   wgmma_stream kernel, the CUDA-core code it replaced (reachable for timing
+   only), the plain version and SDPA in turns, best of 3, device time by
+   CUDA-graph replay (eager times beside); then ViT-B/16 at
+   384 px, PGD-10 at B=64, bf16, images/s with its attention on either
+   route, in turns.
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
@@ -333,7 +343,11 @@ off and then on; ``--profile train_swin|train_convnext`` one warm step of
 each of that backbone's TRAIN_RUNS; ``--profile patch|square`` one warm call of 20 ViT-B
 patch-training iterations (B=16) or 50 Square queries (B=64), with the
 top kernels by name; ``--profile int8`` one warm ViT-B PGD-10 call in bf16
-and one W8A8, with the top kernels. It prints no result lines.
+and one W8A8, with the top kernels. ``--mutants`` builds three copies of
+packed attention's source, each with one 64-row block of the wgmma_stream
+route skipped (``<port>/tools/attention_diagnose.planted_faults``), and
+fails unless each one fails STREAM_TOL at (2, 1025, 2, 64). These modes
+print no result lines.
 """
 
 from __future__ import annotations
@@ -368,8 +382,12 @@ SHAPES = {"float32": ((2, 37, 3, 32), MAIN),
 LONG_SHAPES = {"float32": (*((2, n, 2, 64) for n in EDGE_N), (2, 209, 2, 64), (2, 577, 2, 64),
                            (2, 577, 2, 32)),
                "bfloat16": ((2, 209, 2, 64), (2, 577, 2, 64), (2, 577, 2, 32))}
+# ... and the streamed tensor-core route (bf16, hd 64, N > 256) at its block edges and
+# past them, (2, N, 2, 64), both layouts, from a generator of their own
+STREAM_N = (257, 320, 385, 577, 1025)
 # packed attention at ViT-B/16's 384-pixel sequence (google/vit-base-patch16-384: N = 577),
-# bf16: timed beside SDPA; its launches come from VIT384_BATCH images through PGD-2
+# bf16: timed beside the CUDA-core code it replaced and SDPA; its launches come from
+# VIT384_BATCH images through PGD-2; PGD-10 at BATCH timed with either route
 LONG_MAIN, VIT384_SIZE, VIT384_BATCH, VIT384_STEPS = (8, 577, 12, 64), 384, 8, 2
 # window attention (B, nW, n, heads, mask): the four Swin-B stages at B=64
 # (window 7, hd 32) and a ragged window-4 case; then the Hopper kernel's tile
@@ -386,6 +404,12 @@ SWIN_BIAS_STD = 1.5
 # fwd (atol, rtol), grads (atol, rtol) per dtype, both kernels
 TOL = {"float32": ((1e-4, 1e-3), (1e-4, 1e-3)),
        "bfloat16": ((3e-2, 3e-2), (5e-2, 5e-2))}
+# ... and of the wgmma_stream route (bf16, hd 64, N > 256), set from its readings: past
+# N = 256 o, dq, dk and dv of unit-normal operands are ~sqrt(e / N) RMS (0.10 at N = 257,
+# 0.05 at 1025), so TOL's bf16 limits are about a typical value and a skipped 64-row block
+# could pass them. Every reading on an H100 was within one bf16 ulp of its largest values
+# (<= 3.906e-03); ``--mutants`` shows each planted skipped block failing these limits
+STREAM_TOL = ((1e-2, 1e-2), (1.5e-2, 1.5e-2))
 # dwconv7 (B, H, W, C): the four ConvNeXt-B stages at B=64 and a ragged case
 DW_SHAPES = ((64, 56, 56, 128), (64, 28, 28, 256), (64, 14, 14, 512), (64, 7, 7, 1024),
              (2, 10, 9, 8))
@@ -638,6 +662,28 @@ def plain_resize_center_crop(img, resize: int, crop: int, dev):
     return y[top:top + crop, left:left + crop].cpu().numpy()
 
 
+def cc_attention_packed(ka):
+    """``(q, k, v, heads) -> o`` with its gradient, on the ``"cuda_core"`` code
+    that ``"wgmma_stream"`` replaced (``ka.cc_fwd`` / ``ka.cc_bwd``, uncounted):
+    what a bf16 hd-64 model ran past N = 256 before it, for ``plain_path``."""
+    import torch
+
+    class CcPackedAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, heads):
+            ctx.heads = heads
+            o, lse = ka.cc_fwd(q, k, v, heads)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*ka.cc_bwd(q, k, v, do.contiguous(), ctx.heads, o, lse), None)
+
+    return CcPackedAttention.apply
+
+
 @contextlib.contextmanager
 def plain_path(module, name: str, plain):
     """Route a model module's attention through the plain version."""
@@ -736,7 +782,7 @@ class Smoke:
                                   r"(?:ILi\d+)?|3wgw7win_(?:fwd|bwd)|3wgb\d+(?:heads_fwd|"
                                   r"heads_bwd|oproj_fwd|dh_bwd)ILi\d+E(?:Li\d+E)?|"
                                   r"dwconv7_tmaILi\d+E|2cc3(?:fwd|bwd)I(?:f|13__nv_bfloat16)"
-                                  r"Li\d+E)", fn)
+                                  r"Li\d+E|3wgs\d+stream_(?:fwd|bwd|stats))", fn)
                 if short:
                     print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
                           f"spill stores {spill} bytes", flush=True)
@@ -759,6 +805,18 @@ class Smoke:
                       f"{name} {p['rows']}, {p['threads']}, {p['smem']} B"
                       for name, p in got.items()) + "; the launcher's equals the wrapper's",
                   flush=True)
+        # ... and the streamed tensor-core launchers' (bf16, hd 64, N > 256)
+        want = {name: {k: v for k, v in kernel.items() if k != "ctas"} for name, kernel in
+                self.ka.kernel_plan(torch.bfloat16, LONG_MAIN[1], 64,
+                                    variant="wgmma_stream").items()}
+        got = self.ka.launcher_plan(64, "wgmma_stream")
+        check(got == want and all(p["smem"] <= self.ka.MAX_SMEM for p in got.values()),
+              f"attention wgmma_stream: the launcher's plan {got} is not the wrapper's {want}")
+        print("phase 2 build: attention_packed.cu wgmma_stream plan (rows a CTA, warpgroups, "
+              "threads, ring stages, dynamic shared memory, the same at any N): " + "; ".join(
+                  f"{name} {p['rows']}, {p['warpgroups']}, {p['threads']}, {p['stages']}, "
+                  f"{p['smem']} B" for name, p in got.items()) + "; the launcher's equals the "
+              "wrapper's", flush=True)
         # the bf16 dwconv7 launcher's plan (tile, schedule, ring) is the wrapper's
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for shape in DW_SHAPES + DW_EDGE_SHAPES:
@@ -783,9 +841,11 @@ class Smoke:
         import torch
 
         ka, err = self.ka, {"fwd": 0.0, "bwd": 0.0}  # at the main-path shape and dtype
-        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+        for dtype_name, limits in TOL.items():
             dtype = getattr(torch, dtype_name)
             for (b, n, h, hd) in SHAPES[dtype_name]:
+                variant = ka.kernel_variant(dtype, n, hd)
+                (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
                 q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, n, h, hd)}"
@@ -806,9 +866,9 @@ class Smoke:
                 torch.cuda.synchronize()
                 if dtype == torch.bfloat16 and (b, n, h, hd) == MAIN:
                     err = {"fwd": e_f, "bwd": e_b}
-                print(f"phase 3 attention_packed vs plain {tag} "
-                      f"[{ka.kernel_variant(dtype, n, hd)}]: fwd max|err| {e_f:.3e}, "
-                      f"dq/dk/dv max|err| {e_b:.3e}, backward bitwise reproducible", flush=True)
+                print(f"phase 3 attention_packed vs plain {tag} [{variant}]: fwd max|err| "
+                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e} (limits {fa:g} / {ga:g}), "
+                      f"backward bitwise reproducible", flush=True)
         return err
 
     def window_operands(self, shape, mask_kind, dtype, gen=None):
@@ -1299,9 +1359,11 @@ class Smoke:
         import torch
 
         ka, err = self.ka, {"fwd": 0.0, "bwd": 0.0}  # at the main-path shape, bf16
-        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+        for dtype_name, limits in TOL.items():
             dtype = getattr(torch, dtype_name)
             for (b, n, h, hd) in SHAPES[dtype_name]:
+                variant = ka.kernel_variant(dtype, n, hd)
+                (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
                 q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, h, n, hd)}"
@@ -1322,25 +1384,27 @@ class Smoke:
                 torch.cuda.synchronize()
                 if dtype == torch.bfloat16 and (b, n, h, hd) == MAIN:
                     err = {"fwd": e_f, "bwd": e_b}
-                print(f"phase 3 fused_attention (B,H,N,hd) vs plain {tag}: fwd max|err| "
-                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; equal bit for bit to the packed "
-                      f"kernel on the transposed operands; backward bitwise reproducible",
-                      flush=True)
+                print(f"phase 3 fused_attention (B,H,N,hd) vs plain {tag} [{variant}]: fwd "
+                      f"max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e} (limits {fa:g} / {ga:g}); "
+                      f"equal bit for bit to the packed kernel on the transposed operands; "
+                      f"backward bitwise reproducible", flush=True)
         return err
 
     def long_vs_plain(self) -> None:
         """Packed attention at LONG_SHAPES in both layouts (the CUDA-core
-        device code but for bf16 at N = 209, the wgmma one): forward,
-        log-sum-exp and backward against the plain versions at TOL, the
-        backward bit for bit on a second run, the head-major kernel bit for
-        bit the packed one."""
+        device code but for bf16 hd 64: at N = 209 the wgmma one, at N = 577
+        the wgmma_stream one): forward,
+        log-sum-exp and backward against the plain versions at TOL (the
+        wgmma_stream shapes at STREAM_TOL), the backward bit for bit on a
+        second run, the head-major kernel bit for bit the packed one."""
         import torch
 
         ka, gen = self.ka, torch.Generator(self.dev).manual_seed(16)
-        for dtype_name, ((fa, fr), (ga, gr)) in TOL.items():
+        for dtype_name, limits in TOL.items():
             dtype = getattr(torch, dtype_name)
             for (b, n, h, hd) in LONG_SHAPES[dtype_name]:
                 variant = ka.kernel_variant(dtype, n, hd)
+                (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
                 q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, n, h, hd)}"
@@ -1363,8 +1427,104 @@ class Smoke:
                       f"head-major and packed kernels differ {tag}")
                 torch.cuda.synchronize()
                 print(f"phase 3 attention_packed vs plain {tag} [{variant}]: fwd max|err| "
-                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}, log-sum-exp within 1e-4; "
-                      f"backward bitwise reproducible; head-major equal bit for bit", flush=True)
+                      f"{e_f:.3e}, dq/dk/dv max|err| {e_b:.3e} (limits {fa:g} / {ga:g}), "
+                      f"log-sum-exp within 1e-4; backward bitwise reproducible; head-major "
+                      f"equal bit for bit", flush=True)
+
+    def stream_vs_plain(self) -> None:
+        """The streamed tensor-core route (bf16, hd 64, N > 256) at STREAM_N,
+        (2, N, 2, 64), from a generator of its own, in both layouts: forward,
+        log-sum-exp and backward against the plain versions at STREAM_TOL,
+        the backward bit for bit on a second run, the head-major kernel bit
+        for bit the packed one."""
+        import torch
+
+        ka, gen = self.ka, torch.Generator(self.dev).manual_seed(18)
+        (fa, fr), (ga, gr) = STREAM_TOL
+        edges = []
+        for n in STREAM_N:
+            b, h, hd = 2, 2, 64
+            variant = ka.kernel_variant(torch.bfloat16, n, hd)
+            check(variant == "wgmma_stream", f"bf16 hd 64 at N = {n} takes {variant}")
+            q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                           .to(torch.bfloat16) for _ in range(4))
+            tag = f"bfloat16 {(b, n, h, hd)}"
+            o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+            e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, f"fwd {tag}")
+            close(lse, ka.attention_lse_reference(ka._split(q, h), ka._split(k, h)),
+                  1e-4, 1e-4, f"lse {tag}")
+            got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+            want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+            e_b = max(close(g_, w_, ga, gr, f"d{nm} {tag}") for nm, g_, w_ in zip("qkv", got, want))
+            check(all(torch.equal(a_, b_) for a_, b_ in
+                      zip(got, ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse))),
+                  f"backward not reproducible {tag}")
+            qh, kh, vh, doh = (ka._split(t, h).contiguous() for t in (q, k, v, do))
+            oh, lse_h = ka.fused_attention_fwd(qh, kh, vh, with_lse=True)
+            check(torch.equal(ka._merge(oh), o) and torch.equal(lse_h, lse)
+                  and all(torch.equal(ka._merge(a_), b_) for a_, b_ in
+                          zip(ka.fused_attention_bwd(qh, kh, vh, doh, oh, lse_h), got)),
+                  f"head-major and packed kernels differ {tag}")
+            torch.cuda.synchronize()
+            edges.append(f"N={n} {e_f:.3e}/{e_b:.3e}")
+        print(f"phase 3 attention_packed vs plain, the wgmma_stream route at (2, N, 2, 64) bf16, "
+              f"fwd/dq-dk-dv max|err| (limits {fa:g} / {ga:g}): " + ", ".join(edges)
+              + "; log-sum-exp within 1e-4; every backward bitwise reproducible; head-major "
+              "equal bit for bit", flush=True)
+
+    def mutants(self) -> None:
+        """``--mutants``: the planted faults of
+        ``tools/attention_diagnose.planted_faults`` (one 64-row block skipped in
+        the wgmma_stream forward's second pass, its dQ role or its dK/dV role),
+        built from this checkout's source, at (2, STREAM_N[-1], 2, 64) bf16:
+        each must fail stream_vs_plain's STREAM_TOL, where the kernel passes.
+        Prints each one's max|err| and whether TOL's bf16 limits pass it. A
+        backward fault runs from the kernel's own forward."""
+        import torch
+
+        ka, bm = self.ka, self.build_mod
+        diag = importlib.import_module(f"{PKG}.tools.attention_diagnose")
+        faults = diag.planted_faults(bm.inlined("attention_packed.cu"))
+        from concurrent.futures import ThreadPoolExecutor
+
+        names = {label: f"chip_smoke_mutant_{i}.cu" for i, label in enumerate(faults)}
+        with ThreadPoolExecutor(len(faults)) as pool:
+            libs = dict(zip(faults, pool.map(lambda label: bm.load_text(names[label],
+                                                                        faults[label]), faults)))
+        b, n, h, hd = 2, STREAM_N[-1], 2, 64
+        gen = torch.Generator(self.dev).manual_seed(18)
+        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+        grads = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+        want_o = ka.attention_packed_reference(q, k, v, h)
+        want = ka.attention_packed_bwd_reference(q, k, v, do, h)
+        work = torch.empty(ka.stream_work_floats(b, n, h), dtype=torch.float32, device=self.dev)
+
+        def passes(got, ref, limits) -> bool:
+            (fa, fr), (ga, gr) = limits
+            try:
+                close(got[0], ref[0], fa, fr, "fwd")
+                for g_, w_ in zip(got[1:], ref[1:]):
+                    close(g_, w_, ga, gr, "grad")
+            except AssertionError:
+                return False
+            return True
+
+        ref = (want_o, *want)
+        tag = f"(2, {n}, 2, 64) bf16"
+        check(passes((o, *grads), ref, STREAM_TOL), f"the kernel fails STREAM_TOL at {tag}")
+        for label, lib in libs.items():
+            diag.bind(lib)
+            got_o, got_lse = diag.launch_fwd(lib, q, k, v, h)
+            got = (got_o, *diag.launch_bwd(lib, q, k, v, do, o, lse, h, work))
+            torch.cuda.synchronize()
+            err = max(float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, ref))
+            caught = not passes(got, ref, STREAM_TOL)
+            print(f"mutants {label} at {tag}: max|err| {err:.3e} against plain; fails STREAM_TOL "
+                  f"{STREAM_TOL}: {caught}; fails TOL's bf16 limits {TOL['bfloat16']}: "
+                  f"{not passes(got, ref, TOL['bfloat16'])}", flush=True)
+            check(caught, f"the planted fault {label!r} passes STREAM_TOL")
 
     # 4. model
     def model(self, name: str, module=None, attn_name: str = "", plain=None, kernel_fields=None):
@@ -2111,19 +2271,19 @@ class Smoke:
         return launches
 
     # 5. the other attack families on ViT-B/16
-    def vit384(self) -> dict:
+    def vit384(self) -> tuple:
         """ViT-B/16 at 384 px (google/vit-base-patch16-384's geometry, N = 577),
         random weights from a seed, bf16: its logits against the plain
         attention, then PGD-2 at batch VIT384_BATCH through the entry points,
-        the packed kernel's CUDA-core device code in every forward and
-        backward. Returns the launches."""
+        the packed kernel's wgmma_stream device code in every forward and
+        backward. Returns the launches and (entry, cfg, model, normalize)."""
         import numpy as np
         import torch
 
         ka, entry = self.ka, self.registry.get_model("google_vit")
         cfg = dataclasses.replace(entry.config(CLASSES), image_size=VIT384_SIZE)
         variant = ka.kernel_variant(torch.bfloat16, cfg.seq_len, cfg.head_dim)
-        check(cfg.seq_len == LONG_MAIN[1] and variant == "cuda_core",
+        check(cfg.seq_len == LONG_MAIN[1] and variant == "wgmma_stream",
               f"ViT-B/16 at {VIT384_SIZE} px: N {cfg.seq_len} [{variant}]")
         tree = self.trees.map_leaves(lambda t: t.to(self.dev, torch.bfloat16),
                                      entry.init(cfg, torch.Generator().manual_seed(16)))
@@ -2154,7 +2314,53 @@ class Smoke:
         print(f"phase 5 attack: google_vit at {VIT384_SIZE} px (N = {cfg.seq_len}) bf16 "
               f"[{variant}], logits kernel vs plain max|err| {e:.3e}; PGD-{VIT384_STEPS} "
               f"B={VIT384_BATCH}: packed attention launches {launches}", flush=True)
-        return launches
+        return launches, (entry, cfg, model, normalize)
+
+    def time_vit384_pgd(self, entry, cfg, model, normalize) -> dict:
+        """ViT-B/16 at 384 px, PGD-10 at BATCH, bf16, images/s with the packed
+        attention on the wgmma_stream route (the model's own path) and on the
+        CUDA-core code it replaced (:func:`cc_attention_packed` through
+        ``plain_path``), in turns, best of 2 each."""
+        import numpy as np
+        import torch
+
+        ka = self.ka
+        rng = np.random.default_rng(384)
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, VIT384_SIZE, VIT384_SIZE, 3),
+                                          dtype=np.uint8)).to(self.dev)
+        y = torch.from_numpy(rng.integers(0, CLASSES, BATCH)).to(self.dev)
+        pgd = self.make_pgd(entry, cfg, normalize)
+
+        def run():
+            return pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
+
+        cc_attention = cc_attention_packed(ka)
+
+        def replaced():
+            with plain_path(self.vit, "attention_packed", cc_attention):
+                return run()
+
+        adv, launches = self.counted({"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
+                                     run)
+        calls = cfg.depth * PGD_STEPS
+        check(launches == {"fwd": calls, "bwd": calls},
+              f"ViT-B/16 384 px PGD-10 launches {launches}")
+        adv_cc, cc_launches = self.counted(
+            {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")}, replaced)
+        check(cc_launches == {"fwd": 0, "bwd": 0},
+              f"the replaced route moved a count {cc_launches}")
+        clean = self.common.to_unit_floats(x)
+        for a in (adv, adv_cc):
+            check(bool(torch.isfinite(a).all()) and float((a - clean).abs().max()) <= EPS + 1e-6,
+                  "ViT-B/16 384 px PGD-10 outside the eps-ball or not finite")
+        ms = rivals({"wgmma_stream": run, "cuda_core (replaced)": replaced}, iters=2, rounds=2)
+        print(f"phase 6 PGD-{PGD_STEPS} google_vit at {VIT384_SIZE} px (N = {cfg.seq_len}) bf16 "
+              f"B={BATCH}, in turns, best of 2: " + "; ".join(
+                  f"attention on {name} {t:.2f} ms/batch, {BATCH * 1000 / t:.2f} images/s"
+                  for name, t in ms.items())
+              + f"; launches {launches} (the replaced route's run: none counted) {self.card}",
+              flush=True)
+        return ms
 
     def counting_apply(self, entry):
         """``entry.apply`` that counts its calls: every call is one forward
@@ -3800,8 +4006,15 @@ class Smoke:
              "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
 
     def time_attention_long(self, launches: dict) -> list[dict]:
-        """Packed attention at LONG_MAIN in bf16 (its CUDA-core device code):
-        kernel against plain (forward and backward), bound, SDPA."""
+        """Packed attention at LONG_MAIN in bf16 (its wgmma_stream device code):
+        kernel against plain (forward and backward) at STREAM_TOL, the CUDA-core
+        code it replaced (``kernels/attention.cc_fwd`` / ``cc_bwd``, uncounted)
+        too; then the kernel, the replaced code, the plain version and SDPA in
+        turns, best of 3, device time by :func:`graph_ms` (an eager call's host
+        work is about the kernel's time here). SDPA's backward is its forward
+        and ``torch.autograd.grad`` in one graph less its forward with grad on;
+        the eager times (host included) of the kernel and SDPA are printed
+        beside; bound."""
         import torch
         import torch.nn.functional as F
 
@@ -3811,39 +4024,75 @@ class Smoke:
         q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(4))
         variant = ka.kernel_variant(torch.bfloat16, n, hd)
-        (fa, fr), (ga, gr) = TOL["bfloat16"]
+        check(variant == "wgmma_stream", f"{LONG_MAIN} bf16 takes {variant}")
+        (fa, fr), (ga, gr) = STREAM_TOL
         o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
         e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, "long fwd")
         got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
         want = ka.attention_packed_bwd_reference(q, k, v, do, h)
         e_b = max(close(g_, w_, ga, gr, f"long d{nm}") for nm, g_, w_ in zip("qkv", got, want))
-        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
+        # the replaced code, on the same inputs: within the same limits of plain
+        o_cc, lse_cc = ka.cc_fwd(q, k, v, h)
+        e_cf = close(o_cc, ka.attention_packed_reference(q, k, v, h), fa, fr,
+                     "long fwd, cuda_core")
+        e_cb = max(close(g_, w_, ga, gr, f"long d{nm}, cuda_core")
+                   for nm, g_, w_ in zip("qkv", ka.cc_bwd(q, k, v, do, h, o_cc, lse_cc), want))
+        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v))
         doh = do.view(b, n, h, hd).transpose(1, 2)
-        out = F.scaled_dot_product_attention(qh, kh, vh)
-        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                           lambda: ka.attention_packed_reference(q, k, v, h),
-                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
-                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
-                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                               retain_graph=True))
+
+        def leaves():  # new in every call, so that a captured call's autograd nodes are its own
+            return tuple(t.detach().requires_grad_(True) for t in (qh, kh, vh))
+
+        def sdpa_step():
+            qkv = leaves()
+            return torch.autograd.grad(F.scaled_dot_product_attention(*qkv), qkv, doh)
+
+        qe = leaves()  # the eager backward's, from one forward
+        out = F.scaled_dot_product_attention(*qe)
+
+        fwd = rivals({"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                      "replaced": lambda: ka.cc_fwd(q, k, v, h),
+                      "plain": lambda: ka.attention_packed_reference(q, k, v, h),
+                      "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                      "sdpa_grad_on": lambda: F.scaled_dot_product_attention(*leaves())},
+                     timer=graph_ms)
+        bwd = rivals({"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                      "replaced": lambda: ka.cc_bwd(q, k, v, do, h, o_cc, lse_cc),
+                      "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
+                      "sdpa_step": sdpa_step}, timer=graph_ms)
+        bwd["sdpa"] = bwd["sdpa_step"] - fwd["sdpa_grad_on"]
+        eager_f = rivals({"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+                          "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+        eager_b = rivals({"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                          "sdpa": lambda: torch.autograd.grad(out, qe, doh,
+                                                              retain_graph=True)})
         unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
-        print(f"phase 6 attention_packed {LONG_MAIN} bf16 [{variant}]: fwd max|err| {e_f:.3e}, "
-              f"dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd {kb:.4f} ms; plain fwd "
-              f"{pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd "
-              f"{bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
-        src = f"{PKG}/csrc/attention_packed.cu"
-        self.long_errs = {"attention_packed_long_fwd": e_f, "attention_packed_long_bwd": e_b}
+        print(f"phase 6 attention_packed {LONG_MAIN} bf16 [{variant}], in turns, best of 3, "
+              f"device time (CUDA-graph replay): fwd max|err| {e_f:.3e}, dq/dk/dv max|err| "
+              f"{e_b:.3e} (the replaced code {e_cf:.3e} / {e_cb:.3e}; limits {fa:g} / {ga:g}); "
+              f"kernel fwd {fwd['kernel']:.4f} ms bwd {bwd['kernel']:.4f} ms; the replaced "
+              f"cuda_core code fwd {fwd['replaced']:.4f} ms bwd {bwd['replaced']:.4f} ms "
+              f"({fwd['replaced'] / fwd['kernel']:.2f}x / {bwd['replaced'] / bwd['kernel']:.2f}x);"
+              f" plain fwd {fwd['plain']:.4f} ms bwd {bwd['plain']:.4f} ms; SDPA fwd "
+              f"{fwd['sdpa']:.4f} ms bwd {bwd['sdpa']:.4f} ms (forward and backward "
+              f"{bwd['sdpa_step']:.4f} less the forward with grad on {fwd['sdpa_grad_on']:.4f}); "
+              f"eager, host included: kernel fwd {eager_f['kernel']:.4f} ms bwd "
+              f"{eager_b['kernel']:.4f} ms, SDPA fwd {eager_f['sdpa']:.4f} ms bwd (autograd.grad) "
+              f"{eager_b['sdpa']:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms "
+              f"({bb_by}) {self.card}", flush=True)
+        src = f"{PKG}/csrc/attn_stream.cuh"
+        self.long_errs = {"attention_packed_stream_fwd": e_f, "attention_packed_stream_bwd": e_b}
         return [
-            {"name": "attention_packed_long_fwd", "route": "cuda", "source": src,
+            {"name": "attention_packed_stream_fwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
-            {"name": "attention_packed_long_bwd", "route": "cuda", "source": src,
+             "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound_ms": bf, "bound_by": bf_by,
+             "library_ms": fwd["sdpa"]},
+            {"name": "attention_packed_stream_bwd", "route": "cuda", "source": src,
              "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
-             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+             "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound_ms": bb, "bound_by": bb_by,
+             "library_ms": bwd["sdpa"]}]
 
     def profile(self, name: str) -> None:
         """One warm PGD-10 call of ``name`` under ``torch.profiler``: device
@@ -3951,6 +4200,10 @@ def main(argv=None) -> None:
                          "step, fields off and on; or one warm step of each Swin-B or ConvNeXt-B "
                          "training run; or ViT-B patch training or Square queries; or ViT-B PGD-10 "
                          "in bf16 and W8A8) instead of the smoke run")
+    ap.add_argument("--mutants", action="store_true",
+                    help="hold planted faults of the wgmma_stream route (a 64-row block skipped) "
+                         "against its phase-3 limits, each of which must fail them, instead of "
+                         "the smoke run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3960,6 +4213,9 @@ def main(argv=None) -> None:
     if args.profile:
         s.profile(args.profile)
         return
+    if args.mutants:
+        s.mutants()
+        return
     err_p = s.packed_vs_plain()
     err_w = s.window_vs_plain()
     err_d = s.dwconv_vs_plain()
@@ -3968,6 +4224,7 @@ def main(argv=None) -> None:
     err_a = s.attn_block_vs_plain()
     err_h = s.bhnd_vs_plain()
     s.long_vs_plain()
+    s.stream_vs_plain()
     s.dwconv_edges()
     s.ln_mlp_seeds()
 
@@ -3982,7 +4239,7 @@ def main(argv=None) -> None:
     full_l = s.train_full(vit_entry, vit_tree, vit_norm)
     lora_l = s.train_lora(vit_entry, vit_tree, vit_norm)
     bhnd_l = s.attention_auto_entry()
-    long_l = s.vit384()
+    long_l, vit384_run = s.vit384()
     # the other attack families on the same model and batch, labelled by its
     # own clean predictions so that every example starts correctly classified
     with torch.no_grad():
@@ -4117,6 +4374,7 @@ def main(argv=None) -> None:
     # 12. the parity experiment's port side at ViT-B/224 in f32: the card against this host's CPU
     kernels += s.time_attention_f32(s.parity())
     kernels += s.time_attention_long(long_l)
+    s.time_vit384_pgd(*vit384_run)
 
     errs = {"attention_packed_fwd": err_p["fwd"], "attention_packed_bwd": err_p["bwd"],
             "window_attention_fwd": err_w["fwd"], "window_attention_bwd": err_w["bwd"],

@@ -173,10 +173,12 @@ def test_head_major_and_packed_plain_versions_agree_and_wrapper_refuses():
         tka.fused_attention_fwd(q[0], k[0], v[0])
 
 
-# --- the tile edges of the wgmma kernels (64-row tiles, 64-key blocks, N <= 256),
-# and ViT-B/16's sequence at 384 px (577 = 9 x 64 + 1), which the CUDA-core code takes ---
+# --- the tile edges of the wgmma kernels (64-row tiles, 64-key blocks, N <= 256), the
+# streamed route's first block edges past 256 (257 = 4 x 64 + 1; 385 = 6 x 64 + 1, three
+# 128-row CTAs, the last with one busy warpgroup), and ViT-B/16's sequence at 384 px
+# (577 = 9 x 64 + 1) ---
 
-EDGES = [1, 63, 64, 65, 128, 197, 208, 256, 577]
+EDGES = [1, 63, 64, 65, 128, 197, 208, 256, 257, 385, 577]
 
 
 def _edge_grads_torch(q, k, v, do, heads, dtype):
@@ -220,9 +222,12 @@ def test_plain_bf16_at_tile_edges_matches_jax(n):
 
 @pytest.mark.parametrize("dtype, n, hd, want", [
     (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 1, 64, "wgmma"),
-    (torch.bfloat16, 256, 64, "wgmma"), (torch.bfloat16, 257, 64, "cuda_core"),
+    (torch.bfloat16, 256, 64, "wgmma"), (torch.bfloat16, 257, 64, "wgmma_stream"),
+    (torch.bfloat16, 320, 64, "wgmma_stream"), (torch.bfloat16, 577, 64, "wgmma_stream"),
+    (torch.bfloat16, 1025, 64, "wgmma_stream"), (torch.bfloat16, 577, 32, "cuda_core"),
     (torch.bfloat16, 37, 32, "mma_sync"), (torch.bfloat16, 300, 32, "cuda_core"),
-    (torch.float32, 197, 64, "cuda_core"), (torch.float32, 37, 32, "cuda_core")])
+    (torch.float32, 197, 64, "cuda_core"), (torch.float32, 37, 32, "cuda_core"),
+    (torch.float32, 577, 64, "cuda_core"), (torch.float32, 1025, 32, "cuda_core")])
 def test_kernel_variant_by_shape(dtype, n, hd, want):
     assert tka.kernel_variant(dtype, n, hd) == want
 
@@ -246,6 +251,70 @@ def test_cuda_core_plan_fits_the_card_at_any_length(dtype, hd, n):
         assert ctas * kernel["rows"] >= n > (ctas - 1) * kernel["rows"]
         warps = kernel["threads"] // 32  # each owns an equal block of the CTA's rows
         assert kernel["threads"] == 32 * warps and kernel["rows"] % (2 * warps) == 0
+
+
+@pytest.mark.parametrize("n", [257, 320, 385, 577, 1025, 4097])
+def test_stream_plan_fits_the_card_at_any_length(n):
+    """The streamed route's shared memory, forward and backward, fits a block's
+    232,448 bytes and is the same at every N > 256; two forward CTAs and three
+    backward CTAs fit an SM's 228 KB; the CTAs along N cover every row once
+    (the backward's, once for each of its two roles), a warpgroup of 128
+    threads a 64-row tile."""
+    plan = tka.kernel_plan(torch.bfloat16, n, 64, variant="wgmma_stream")
+    first = tka.kernel_plan(torch.bfloat16, 257, 64, variant="wgmma_stream")
+    assert set(plan) == {"fwd", "bwd"}
+    for name, kernel in plan.items():
+        assert kernel["smem"] <= tka.MAX_SMEM == 232_448
+        assert {k: v for k, v in kernel.items() if k != "ctas"} == \
+            {k: v for k, v in first[name].items() if k != "ctas"}
+        roles = 2 if name == "bwd" else 1
+        ctas = kernel["ctas"] // roles
+        assert kernel["ctas"] == roles * ctas
+        assert ctas * kernel["rows"] >= n > (ctas - 1) * kernel["rows"]
+        assert kernel["rows"] == 64 * kernel["warpgroups"]
+        assert kernel["threads"] == 128 * kernel["warpgroups"] and kernel["stages"] >= 2
+    assert 2 * plan["fwd"]["smem"] <= 228 * 1024 and 3 * plan["bwd"]["smem"] <= 228 * 1024
+    # the backward's scratch: lse2 and D of every row, padded to 64-row blocks
+    assert tka.stream_work_floats(8, n, 12) == 8 * 12 * -(-n // 64) * 128
+    with pytest.raises(ValueError, match="bf16 with hd 64"):
+        tka.kernel_plan(torch.float32, n, 64, variant="wgmma_stream")
+    with pytest.raises(ValueError, match="no launcher plan"):
+        tka.kernel_plan(torch.bfloat16, n, 64, variant="wgmma")
+
+
+@pytest.mark.parametrize("n", [257, 385])
+def test_plain_bf16_at_stream_edges_matches_jax_pallas_kernel_interpret(n):
+    """bf16 (1, N, 2, 64) at the streamed route's block edges: the port's plain
+    forward and backward against the JAX package's Pallas kernel in interpret
+    mode, at the bf16 limits (3e-2 forward, 5e-2 gradients)."""
+    q, k, v, do = _inputs(1, n, 2, 64, seed=90 + n)
+    o_t, g_t = _edge_grads_torch(q, k, v, do, 2, torch.bfloat16)
+    args = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        o_j, vjp = jax.vjp(lambda q, k, v: jka.fused_attention_packed(q, k, v, 2), *args)
+        g_j = vjp(jnp.asarray(do).astype(jnp.bfloat16))
+    np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j.astype(jnp.float32)),
+                               atol=3e-2, rtol=3e-2)
+    for a, bb in zip(g_t, g_j):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(bb.astype(jnp.float32)),
+                                   atol=5e-2, rtol=5e-2)
+
+
+def test_backward_from_saved_matches_autograd_at_577_bf16():
+    """The streamed route's arithmetic in plain PyTorch (P from the saved
+    log-sum-exp, D from dO * O, P and dS rounded to bf16) against autograd
+    through the plain forward at ViT-B/16's 384-px length, bf16, (2, 2, 577,
+    64), within the bf16 gradient limit 5e-2."""
+    rng = np.random.default_rng(577)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 2, 577, 64)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = tka.attention_reference(*leaves)
+    want = torch.autograd.grad(o, leaves, do)
+    got = tka.attention_bwd_from_saved(q, k, v, do, o.detach(), tka.attention_lse_reference(q, k))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.parametrize("dtype, n, hd, exc, msg", [
@@ -319,18 +388,98 @@ def test_autograd_function_saves_output_and_lse_and_launches_once_each(monkeypat
 def test_diagnose_script_edits_find_their_places():
     """``tools/attention_diagnose`` times edited copies of
     ``csrc/attention_packed.cu``; each edit must still find its place in the
-    source (it raises otherwise) and stay inside the CUDA-core variant."""
+    source (it raises otherwise) and stay inside the variant it edits: the
+    CUDA-core code (namespace ``cc``) or the streamed tensor-core code
+    (namespace ``wgs``, ``csrc/attn_stream.cuh``)."""
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import attention_diagnose
 
     text = _build.inlined("attention_packed.cu")
     assert '#include "' not in text and text.count("namespace cc {") == 1
+    assert text.count("namespace wgs {") == 1
     out = attention_diagnose.variants(text)
-    assert out["kernel"] == text and len({*out.values()}) == len(out) == 14
+    assert out["kernel"] == text and len({*out.values()}) == len(out) == 22
     assert set(attention_diagnose.EXACT) < set(out)
-    head, tail = text.split("namespace cc {")[0], text.split("}  // namespace cc")[1]
     for label, src in out.items():  # every other route as it is
+        ns = "wgs" if label.startswith("stream:") else "cc"
+        head = text.split(f"namespace {ns} {{")[0]
+        tail = text.split(f"}}  // namespace {ns}")[1]
         assert src.startswith(head) and src.endswith(tail), label
     assert "__expf(" in out["fast exp"] and "kFwdTR = 8," in out["forward: 8 rows a thread"]
+    assert "kFwdStages = 2;" in out["stream: forward 2 ring stages"]
+    assert "kBwdWarpgroups = 2;" in out["stream: backward 2 warpgroups a CTA"]
+    lane0 = out["stream: lane-0 release"]
+    assert lane0.count("if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);") == 4
+    assert lane0.count("mbar_init(&empty[s], 4 * nwg);") == 2
+    assert "if (!kv) return;" in out["stream: dK/dV role alone"]
+    shapes = {s[:4]: s[4] for s in attention_diagnose.SHAPES}
+    assert shapes[(8, 577, 12, 64)] == "bfloat16"  # the streamed route's shape, and its dtype
+    assert tka.kernel_variant(torch.bfloat16, 577, 64) == "wgmma_stream"
     with pytest.raises(RuntimeError, match="found nothing"):
         attention_diagnose.variants(text.replace("acc_nn<HD>(acc, X,", "acc_nn<HD>(acc, Xs,"))
+    with pytest.raises(RuntimeError, match="found nothing"):
+        attention_diagnose.variants(text.replace("constexpr int kBwdStages = 3;",
+                                                 "constexpr int kBwdStages = 5;"))
+
+
+def test_diagnose_times_each_edit_at_its_own_variants_shapes():
+    """A shape of ``attention_diagnose.SHAPES`` is timed with the kernel and
+    the edits of the variant it takes: no ``cc`` edit at the bf16 streamed
+    shape, no ``wgs`` edit at the f32 shapes, and every edit at some shape."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import attention_diagnose
+
+    labels = list(attention_diagnose.variants(_build.inlined("attention_packed.cu")))
+    timed = {}
+    for b, n, h, hd, dtype_name in attention_diagnose.SHAPES:
+        variant = tka.kernel_variant(getattr(torch, dtype_name), n, hd)
+        timed[variant] = attention_diagnose.edits_at(labels, variant)
+    assert set(timed) == {"cuda_core", "wgmma_stream"}
+    assert timed["wgmma_stream"][0] == timed["cuda_core"][0] == "kernel"
+    assert all(label.startswith("stream:") for label in timed["wgmma_stream"][1:])
+    assert not any(label.startswith("stream:") for label in timed["cuda_core"])
+    assert set(timed["wgmma_stream"]) | set(timed["cuda_core"]) == set(labels)
+    assert len(timed["wgmma_stream"]) == 9 and len(timed["cuda_core"]) == 14
+
+
+def test_planted_faults_skip_one_block_of_the_streamed_route():
+    """``chip_smoke.py --mutants`` builds ``attention_diagnose.planted_faults``:
+    each changes one line inside the streamed route (namespace ``wgs``),
+    skipping its fourth 64-row block in the forward's second pass, the dQ
+    role or the dK/dV role, and keeps every barrier arrive (the forward's
+    skipped stage is still released), so that no copy hangs."""
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
+    from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import attention_diagnose
+
+    text = _build.inlined("attention_packed.cu")
+    out = attention_diagnose.planted_faults(text)
+    assert len(out) == 3 and len({*out.values()}) == 3
+    head = text.split("namespace wgs {")[0]
+    tail = text.split("}  // namespace wgs")[1]
+    lines = text.splitlines()
+    for label, src in out.items():
+        assert src.startswith(head) and src.endswith(tail), label
+        new = src.splitlines()
+        assert len(new) == len(lines)
+        changed = [(a, b) for a, b in zip(lines, new) if a != b]
+        assert len(changed) == 1, label
+        assert src.count("mbar_arrive(") == text.count("mbar_arrive("), label
+    fwd, dq, dkv = out.values()
+    assert "if (j == 3) release(); else by_width(j, NB, NL" in fwd
+    assert "if (j != 3) by_width(j, NB, NL, [&](auto w) {\n        wg::dq_block" in dq
+    assert "if (i != 3) by_width(i, NB, NL, [&](auto w) {\n        wg::dkv_block" in dkv
+    with pytest.raises(RuntimeError, match="found nothing"):
+        attention_diagnose.planted_faults(text.replace("wg::dq_block<", "wg::dq_blk<"))
+
+
+def test_streamed_backward_without_its_scratch_is_a_named_error():
+    """The streamed backward's launcher returns -3 (``kNoScratch``) before any
+    launch when it is given no scratch, and the wrapper names that, where a
+    null ``work`` would otherwise reach the kernels as an illegal address."""
+    src = open(os.path.join(REPO, "adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch",
+                            "csrc", "attn_stream.cuh")).read()
+    launcher = src[src.index("inline int launch_bwd("):]
+    assert launcher.index("if (work == nullptr) return kNoScratch;") < launcher.index("<<<")
+    assert "constexpr int kNoScratch = -3;" in src
+    with pytest.raises(RuntimeError, match="no scratch buffer"):
+        tka._raise_on(-3, None, "attention backward")
