@@ -24,21 +24,25 @@
 // them.
 //
 // Four variants, chosen by an explicit test of (dtype, N, hd) in fwd_any /
-// bwd_any below (kernels/attention.py:kernel_variant is the same test; no
-// flag chooses):
-// * "wgmma": bf16, hd = 64, N <= 256, the ViT-B path. The Hopper core of
-//   attn_wgmma.cuh: wgmma.mma_async from TMA-loaded, 128-byte-swizzled tiles
-//   behind mbarriers, the 64 x N scores of a warpgroup in its accumulators,
-//   a seven-product backward from the forward's log-sum-exp. Its header
-//   says what it does about the bound;
-// * "wgmma_stream": bf16, hd = 64, N > 256 (ViT-B/16 at 384 px: N = 577).
-//   attn_stream.cuh: the same tile format, products and backward device
-//   functions, with a CTA's 128 own rows held and the other side streamed in
-//   64-row blocks through a TMA ring, so that shared memory does not depend
-//   on N; a forward of two passes over the keys (statistics, then P
-//   normalised and rounded before P V: three products), a backward of two
-//   CTA roles in one launch after a pre-pass that writes lse2 and D. At
-//   (8, 577, 12, 64) its bound is 0.0085 ms forward (bytes) and 0.0207 ms
+// bwd_any below, the direction deciding for bf16 with hd = 64
+// (kernels/attention.py:kernel_variant is the same test; no flag chooses):
+// * "wgmma": the forward of bf16, hd = 64, N <= 256, the ViT-B path. The
+//   Hopper core of attn_wgmma.cuh: wgmma.mma_async from TMA-loaded,
+//   128-byte-swizzled tiles behind mbarriers, the 64 x N scores of a
+//   warpgroup in its accumulators; it also writes the row log-sum-exp that
+//   the backward reads. Its whole-head backward (one CTA of two warpgroups a
+//   head, every tile of the head in shared memory: one CTA an SM at N = 197)
+//   stays for timing only, behind apvt_attn_wg_bwd;
+// * "wgmma_stream": the backward of bf16, hd = 64 at every N, and the
+//   forward past N = 256 (ViT-B/16 at 384 px: N = 577). attn_stream.cuh:
+//   the same tile format, products and backward device functions, with a
+//   CTA's own rows held and the other side streamed in 64-row blocks through
+//   a TMA ring, so that shared memory does not depend on N; a forward of two
+//   passes over the keys (statistics, then P normalised and rounded before
+//   P V: three products), a backward of dK/dV and dQ CTA roles of one
+//   warpgroup (three CTAs an SM) in one launch after a pre-pass that writes
+//   lse2 and D. At (64, 197, 12, 64) the backward's bound is 0.0405 ms
+//   (bytes), at (8, 577, 12, 64) 0.0085 ms forward (bytes) and 0.0207 ms
 //   backward (tensor-core operations); PERF.md section 6 has where it stands;
 // * "mma_sync": bf16, hd = 32, N <= 256 (no model of the package has this
 //   shape; a 64-byte row would need the 64-byte swizzle and its own tile
@@ -83,9 +87,8 @@
 // for dQ, key-row owners for dK and dV, every sum with one owner and a fixed
 // order: no atomics, bitwise reproducible; keys >= N get P = 0, rows >= N
 // are never written. The forward writes the row log-sum-exp (B, H, N) f32;
-// the backward reads it and the forward's output in the "wgmma",
-// "wgmma_stream" and "cuda_core" variants, the "mma_sync" variant ignores
-// those pointers.
+// the backward reads it and the forward's output in the "wgmma_stream" and
+// "cuda_core" variants, the "mma_sync" variant ignores those pointers.
 //
 // C interface (loaded with ctypes): each entry point returns the CUDA error
 // code of its launch (cudaGetLastError), 0 on success, -1 for an
@@ -891,9 +894,6 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, const
             int hd, int dtype, int layout, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(layout, N, H, hd);
-  if (dtype == 1 && hd == 64 && N <= apvt::wg::kMaxN)
-    return apvt::wg::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse), dq, dk, dv, B, N,
-                                H, layout, scale, s);
   if (dtype == 1 && hd == 64)
     return apvt::wgs::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse),
                                  static_cast<float*>(work), dq, dk, dv, B, N, H, layout, scale, s);
@@ -915,9 +915,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. hd: 32 or 64. Operands (B, N, H*hd); lse
 // (B, H, N) f32, written by the forward and read (with o) by the backward in
-// every variant but "mma_sync". work: the "wgmma_stream" backward's scratch,
-// B H ceil(N / 64) 128 f32 (unread by the other variants; may be null for
-// them).
+// every variant but "mma_sync". work: the "wgmma_stream" backward's scratch
+// (bf16 with hd 64 at every N), B H ceil(N / 64) 128 f32 (unread by the
+// other variants; may be null for them).
 int apvt_attn_packed_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                          int N, int H, int hd, int dtype, float scale, void* stream) {
   return fwd_any(q, k, v, o, lse, B, N, H, hd, dtype, 0, scale, stream);
@@ -943,8 +943,8 @@ int apvt_attn_bhnd_bwd(const void* q, const void* k, const void* v, const void* 
 
 // The "wgmma_stream" launchers' plan: out[0..4] = rows a CTA owns, warpgroups
 // a CTA, threads a CTA, ring stages and dynamic shared memory in bytes of the
-// forward kernel, out[5..9] the same of the backward kernel (the same at
-// every N).
+// forward kernel (N > 256), out[5..9] the same of the backward kernel (every
+// N); the same at every N.
 int apvt_attn_stream_plan(int* out) {
   using namespace apvt::wgs;
   const int groups[2] = {kFwdWarpgroups, kBwdWarpgroups}, stages[2] = {kFwdStages, kBwdStages};
@@ -974,6 +974,17 @@ int apvt_attn_cc_bf16_bwd(const void* q, const void* k, const void* v, const voi
   return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, o, lse, dq, dk, dv, B, N, H,
                                        layout_of(0, N, H, 64), scale,
                                        static_cast<cudaStream_t>(stream));
+}
+
+// For timing only, reachable from no model path: the whole-head backward of
+// attn_wgmma.cuh (bf16, hd = 64, N <= 256; layout 0 packed, 1 head-major), the
+// code the "wgmma_stream" backward replaced there. No counter moves.
+int apvt_attn_wg_bwd(const void* q, const void* k, const void* v, const void* dout,
+                     const void* o, const void* lse, void* dq, void* dk, void* dv, int B, int N,
+                     int H, int layout, float scale, void* stream) {
+  if (N < 1 || N > apvt::wg::kMaxN) return -1;
+  return apvt::wg::launch_bwd(q, k, v, dout, o, static_cast<const float*>(lse), dq, dk, dv, B, N,
+                              H, layout, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* apvt_cuda_error_string(int code) {

@@ -1,7 +1,7 @@
-// The long-sequence Hopper route of attention_packed.cu ("wgmma_stream"):
-// bf16, head dim 64, N > 256, forward and backward, every product on
-// wgmma.mma_async, every operand brought in by TMA, shared memory the same
-// at every N.
+// The streamed Hopper route of attention_packed.cu ("wgmma_stream"): bf16,
+// head dim 64, the backward at every N and the forward past N = 256, every
+// product on wgmma.mma_async, every operand brought in by TMA, shared memory
+// the same at every N.
 //
 // What bounds it on the H100: at ViT-B/16 at 384 px (B=8, N=577, H=12,
 // hd=64) a head reads 4 (forward) or 7 (backward) tiles of 577 x 64 bf16
@@ -10,8 +10,10 @@
 // forward (bytes) and 0.0207 ms backward (tensor-core operations at 989
 // TFLOP/s), so the products have to run on wgmma. The whole-head core of
 // attn_wgmma.cuh keeps a 64 x N score row of a warpgroup in its
-// accumulators and every tile of a head in shared memory, so it stops at
-// N = 256 (its backward's 4 N/64 tiles pass 227 KB at N = 448).
+// accumulators and every tile of a head in shared memory, so its forward
+// stops at N = 256. Its whole-head backward also held one CTA an SM at
+// ViT-B's N = 197 (150,592 bytes, 8 warps), where the backward's roles
+// below fit three (12 warps); they run the backward at every N.
 //
 // What this design does about it:
 // * a CTA owns 64-row tiles of one (batch, head), a warpgroup each: two in
@@ -324,39 +326,72 @@ stream_fwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
 
 // lse2 and D of one 64-row block of one (batch, head) into
 // work[((b H + h) NB + i) 128 ...]: lse2 = lse log2e (+inf past N), then
-// D = rowsum(dO * O) (0 past N; a lane per 2 channels and a fixed shuffle
-// tree, as the whole-head backward forms it).
-__global__ void __launch_bounds__(256)
+// D = rowsum(dO * O) (0 past N). Eight lanes a row, 16 bytes of dO and of O
+// a lane, every load of a thread's four rows issued before its first sum:
+// the first design (a warp a row, 4 bytes a lane, each row's loads awaited
+// in turn) took 0.023 ms at (64, 197, 12, 64) on an H100, this one 0.015,
+// where its 40 MB take 0.012 at 3.35 TB/s. D is summed as the whole-head backward sums it, by a tree over
+// the row's 32 channel-pair products (lane l of a warp holding pair l, then
+// xor shuffles 16, 8, 4, 2, 1): here a lane holds pairs 4 m .. 4 m + 3 (m
+// its lane among the row's eight), so the tree's first three levels are
+// shuffles between the row's lanes (xor 4, 2, 1) and its last two are sums
+// inside the lane, the same operands in the same order: the same bits.
+constexpr int kStatThreads = 128;
+constexpr int kStatRows = kStatThreads / 8;  // rows a pass; kBlock / kStatRows passes
+
+__global__ void __launch_bounds__(kStatThreads)
 stream_stats(const bf16* __restrict__ dout, const bf16* __restrict__ out,
              const float* __restrict__ lse, float* __restrict__ work, Strides st, int N, int H) {
+  constexpr int kPasses = kBlock / kStatRows;
   const int NB = (N + kBlock - 1) / kBlock;
   const int bh = blockIdx.x / NB, i = blockIdx.x % NB, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = threadIdx.x >> 3, m = threadIdx.x & 7;
   float* w = work + (size_t)blockIdx.x * 2 * kBlock;
   const size_t hb = (size_t)b * st.batch + (size_t)h * st.head;
-  for (int r = warp; r < kBlock; r += 8) {
-    const int row = i * kBlock + r;
-    float d = 0.f, l2 = INFINITY;
-    if (row < N) {
-      const size_t off = hb + (size_t)row * st.row + 2 * lane;
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off));
-      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + off));
-      d = x.x * y.x + x.y * y.y;
+  uint4 x[kPasses], y[kPasses];
+  float l[kPasses];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      l2 = lse[(size_t)bh * N + row] * kLog2e;
+  for (int u = 0; u < kPasses; ++u) {
+    const int row = i * kBlock + grp + kStatRows * u;
+    x[u] = y[u] = make_uint4(0u, 0u, 0u, 0u);  // rows >= N: D = 0
+    l[u] = INFINITY;
+    if (row < N) {
+      const size_t off = hb + (size_t)row * st.row + 8 * m;
+      x[u] = __ldg(reinterpret_cast<const uint4*>(dout + off));
+      y[u] = __ldg(reinterpret_cast<const uint4*>(out + off));
+      if (m == 0) l[u] = lse[(size_t)bh * N + row];
     }
-    if (lane == 0) {
-      w[r] = l2;
-      w[kBlock + r] = d;
+  }
+#pragma unroll
+  for (int u = 0; u < kPasses; ++u) {
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x[u]);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y[u]);
+    float p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(xp[j]), c = __bfloat1622float2(yp[j]);
+      p[j] = a.x * c.x + a.y * c.y;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
+    if (m == 0) {
+      const int r = grp + kStatRows * u;
+      w[r] = l[u] * kLog2e;
+      w[kBlock + r] = (p[0] + p[2]) + (p[1] + p[3]);
     }
   }
 }
 
-// The first B H ceil(NB / kBwdWarpgroups) CTAs take the dK/dV role (key
-// tiles kBwdWarpgroups z, ... of a head; the ring carries Q_i, dO_i and block
-// i's statistics), the others the dQ role (query tiles kBwdWarpgroups z, ...;
-// the ring carries K_j, V_j).
+// A head's 2 ZS CTAs (ZS = ceil(NB / kBwdWarpgroups)) are neighbours in the
+// grid: the first ZS take the dK/dV role (key tiles kBwdWarpgroups z, ...;
+// the ring carries Q_i, dO_i and block i's statistics), the next ZS the dQ
+// role (query tiles kBwdWarpgroups z, ...; the ring carries K_j, V_j). So
+// both roles of a head run in the same wave and read its tiles while they
+// are in L2; with every dK/dV CTA first, a head's tiles came from device
+// memory once for each role (the inputs outgrow the 50 MB L2 at ViT-B's
+// (64, 197, 12, 64)).
 __global__ void __launch_bounds__(128 * kBwdWarpgroups, 1)
 stream_bwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
            const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
@@ -373,10 +408,9 @@ stream_bwd(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   uint64_t* empty = full + kBwdStages;
 
   const int NB = (N + kBlock - 1) / kBlock, ZS = (NB + kBwdWarpgroups - 1) / kBwdWarpgroups;
-  const int per = gridDim.x / 2;
-  const bool kv = (int)blockIdx.x < per;
-  const int x = kv ? blockIdx.x : blockIdx.x - per;
-  const int bh = x / ZS, z = x % ZS;
+  const int bh = blockIdx.x / (2 * ZS), r = blockIdx.x % (2 * ZS);
+  const bool kv = r < ZS;
+  const int z = kv ? r : r - ZS;
   const int c0 = head_major ? 0 : (bh % H) * 64, c2 = head_major ? bh : bh / H;
   const int t0 = kBwdWarpgroups * z, nwg = min(kBwdWarpgroups, NB - t0);
   const int wgi = threadIdx.x >> 7;
@@ -499,8 +533,8 @@ inline int launch_bwd(const void* q, const void* k, const void* v, const void* d
   const Strides st = head_major ? Strides{(long long)H * N * 64, (long long)N * 64, 64}
                                 : Strides{(long long)N * H * 64, 64, H * 64};
   const int nb = (N + kBlock - 1) / kBlock, zs = (nb + kBwdWarpgroups - 1) / kBwdWarpgroups;
-  stream_stats<<<B * H * nb, 256, 0, stream>>>(static_cast<const bf16*>(dout),
-                                              static_cast<const bf16*>(out), lse, work, st, N, H);
+  stream_stats<<<B * H * nb, kStatThreads, 0, stream>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), lse, work, st, N, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = bwd_smem();

@@ -1,11 +1,15 @@
 // The Hopper attention core of attention_packed.cu: bf16, head dim 64,
-// N <= 256, forward and backward, every product on wgmma.mma_async with its
-// operands brought in by TMA behind mbarriers. Past N = 256 a head no longer
-// fits (the 64 x N scores of a warpgroup in its accumulators, the backward's
-// 4 N/64 tiles in shared memory): attn_stream.cuh (the "wgmma_stream"
-// variant) streams the other side through a TMA ring in 64-row blocks, with
-// this file's tile format, operand maps and backward device functions
-// (dq_block, dkv_block take a ring stage's tiles as they take a stack's).
+// N <= 256, every product on wgmma.mma_async with its operands brought in by
+// TMA behind mbarriers. Its forward (attn_fwd) is the packed kernel's
+// forward at N <= 256. Its whole-head backward (attn_bwd) is no longer on any
+// model path: attn_stream.cuh (the "wgmma_stream" variant) runs the backward
+// at every N with this file's tile format, operand maps and backward device
+// functions (dq_block, dkv_block take a ring stage's tiles as they take a
+// stack's) on CTA roles of one warpgroup that stream the other side through
+// a TMA ring in 64-row blocks; attn_bwd stays for timing against it
+// (apvt_attn_wg_bwd). Past N = 256 a head no longer fits here (the 64 x N
+// scores of a warpgroup in its accumulators, the backward's 4 N/64 tiles in
+// shared memory), so the forward streams there too.
 //
 // What bounds attention at ViT-B shapes (B=64, N=197, H=12, hd=64) on the
 // H100: a head reads 4 (forward) or 7 (backward) tiles of 197 x 64 bf16 and
@@ -39,9 +43,11 @@
 //   warpgroup and takes two of the head's query tiles; two or three CTAs
 //   share an SM, so one's exp2 runs under another's wgmma and loads. The
 //   forward also writes the row log-sum-exp (B, H, N) in f32;
-// * backward: with the log-sum-exp and D = rowsum(dO * O) known before the
-//   first product (D is formed in the prologue), every (query tile, key
-//   block) pair is independent. Phase A, a warpgroup per query tile: S and
+// * backward (attn_bwd, for timing only since the streamed roles replaced
+//   it; dq_block and dkv_block are what those roles run): with the
+//   log-sum-exp and D = rowsum(dO * O) known before the first product (D is
+//   formed in the prologue), every (query tile, key block) pair is
+//   independent. Phase A, a warpgroup per query tile: S and
 //   dP of a 64-key block (the last block only as wide as N needs), P and dS
 //   in registers, dQ += dS K with dS as the register A operand. Phase B, a
 //   warpgroup per 64-key block: S^T = K Q^T and dP^T = V dO^T, so P^T and

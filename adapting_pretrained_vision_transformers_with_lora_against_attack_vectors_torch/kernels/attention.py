@@ -23,21 +23,23 @@ stored scores to bf16 first, so the two differ by about one bf16 ulp in P.
 Dispatch (:func:`attention_packed`): a CPU tensor takes the plain forward,
 differentiated by autograd; a CUDA tensor launches the kernel
 (``csrc/attention_packed.cu``) or raises. Inside the kernel library the
-shape picks the variant (:func:`kernel_variant` is the same test in Python):
-bf16 with hd = 64 and N <= 256 (the ViT path) runs on ``wgmma`` with TMA
-loads (``csrc/attn_wgmma.cuh``); bf16 with hd = 64 and N > 256 (ViT-B/16 at
-384 px) on ``"wgmma_stream"`` (``csrc/attn_stream.cuh``: the same products,
-a CTA's own 64-row tiles held and the other side streamed through a TMA
-ring in 64-row blocks, so that its shared memory does not depend on N; its
-backward takes a scratch buffer of the rows' statistics that
-:func:`_launch_bwd` allocates); bf16 with hd = 32 and N <= 256 on
-``mma.sync``; f32 at every N, and bf16 with hd = 32 past 256, on the CUDA
-cores (``"cuda_core"``: the other side streamed in 64-row blocks past a
-CTA's block of rows, register-tiled f32 products). :func:`kernel_plan` is
-the ``"cuda_core"`` or ``"wgmma_stream"`` launchers' plan. The ``wgmma``,
-``wgmma_stream`` and ``cuda_core`` forwards also return the row
-log-sum-exp ``(B, H, N)`` in f32, and their backwards take that and the
-forward's output, so that P needs no second max/sum pass and
+shape and the direction pick the variant (:func:`kernel_variant` is the same
+test in Python). bf16 with hd = 64: the forward at N <= 256 (the ViT path)
+runs on ``"wgmma"`` with TMA loads (``csrc/attn_wgmma.cuh``: a warpgroup's
+whole score row in its accumulators); the backward at every N, and the
+forward past N = 256 (ViT-B/16 at 384 px), on ``"wgmma_stream"``
+(``csrc/attn_stream.cuh``: the same products, a CTA's own 64-row tiles held
+and the other side streamed through a TMA ring in 64-row blocks, so that its
+shared memory does not depend on N; its backward, CTA roles of one
+warpgroup, takes a scratch buffer of the rows' statistics that
+:func:`_launch_bwd` allocates). bf16 with hd = 32 and N <= 256 runs on
+``mma.sync``, both directions; f32 at every N, and bf16 with hd = 32 past
+256, on the CUDA cores (``"cuda_core"``: the other side streamed in 64-row
+blocks past a CTA's block of rows, register-tiled f32 products).
+:func:`kernel_plan` is the ``"cuda_core"`` or ``"wgmma_stream"`` launchers'
+plan. The ``wgmma``, ``wgmma_stream`` and ``cuda_core`` forwards also
+return the row log-sum-exp ``(B, H, N)`` in f32, and their backwards take
+that and the forward's output, so that P needs no second max/sum pass and
 ``D = rowsum(dO * O)`` no second product
 (:func:`attention_bwd_from_saved` is that arithmetic in plain PyTorch; it
 differs from :func:`attention_bwd_reference` only by the rounding of O). The
@@ -45,10 +47,11 @@ differs from :func:`attention_bwd_reference` only by the rounding of O). The
 them runs the forward kernel first. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES``
 count the packed kernel's launches, ``BHND_FWD_LAUNCHES`` and
 ``BHND_BWD_LAUNCHES`` the head-major kernel's, so a run can show it went
-through the kernel. :func:`cc_fwd` and :func:`cc_bwd` run bf16 hd-64
-operands at any N on the ``"cuda_core"`` code that ``"wgmma_stream"``
-replaced, uncounted, for timing the two against each other; no model path
-calls them.
+through the kernel. Two uncounted entries, for timing a route against the
+code it replaced, which no model path calls: :func:`cc_fwd` and
+:func:`cc_bwd` run bf16 hd-64 operands at any N on the ``"cuda_core"`` code
+(replaced past N = 256), :func:`wg_bwd` the whole-head ``"wgmma"``
+backward at N <= 256 in either layout (replaced by the streamed roles).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ BHND_FWD_LAUNCHES = 0
 BHND_BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64)
+DIRECTIONS = ("fwd", "bwd")
 WGMMA_MAX_N = 256  # the wgmma and mma.sync variants hold a whole score row in registers
 MAX_SMEM = 232_448  # dynamic shared memory a block may use on the H100
 # the "cuda_core" variant: rows of a streamed block; rows a CTA owns and rows a thread
@@ -159,21 +163,25 @@ def attention_packed_bwd_reference(q, k, v, do, heads: int):
 
 # --- the CUDA kernel ----------------------------------------------------------
 
-def kernel_variant(dtype: torch.dtype, n: int, hd: int) -> str:
-    """Which device code of ``csrc/attention_packed.cu`` a shape takes (the
-    same test as its C launcher; nothing else chooses): ``"wgmma"``,
-    ``"wgmma_stream"``, ``"mma_sync"`` or ``"cuda_core"``. Raises on what no
-    variant takes."""
+def kernel_variant(dtype: torch.dtype, n: int, hd: int, direction: str = "fwd") -> str:
+    """Which device code of ``csrc/attention_packed.cu`` a shape takes in
+    ``direction`` (``"fwd"`` or ``"bwd"``; the same test as its C launchers,
+    ``fwd_any`` and ``bwd_any``; nothing else chooses): ``"wgmma"``,
+    ``"wgmma_stream"``, ``"mma_sync"`` or ``"cuda_core"``. bf16 with hd 64
+    takes ``"wgmma"`` forward at N <= 256 and ``"wgmma_stream"`` otherwise
+    (the backward at every N). Raises on what no variant takes."""
+    if direction not in DIRECTIONS:
+        raise ValueError(f"direction {direction!r} is not one of {DIRECTIONS}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} unsupported by the CUDA kernel (takes {HEAD_DIMS})")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {dtype} unsupported by the CUDA kernel")
     if n < 1:
         raise ValueError(f"sequence length {n} unsupported by the CUDA kernel")
-    if dtype == torch.bfloat16 and n <= WGMMA_MAX_N:
-        return "wgmma" if hd == 64 else "mma_sync"
     if dtype == torch.bfloat16 and hd == 64:
-        return "wgmma_stream"
+        return "wgmma" if direction == "fwd" and n <= WGMMA_MAX_N else "wgmma_stream"
+    if dtype == torch.bfloat16 and n <= WGMMA_MAX_N:
+        return "mma_sync"
     return "cuda_core"
 
 
@@ -196,12 +204,16 @@ def kernel_plan(dtype: torch.dtype, n: int, hd: int, variant: str = "cuda_core")
     and ring stages: 1024 bytes of alignment slack, the own 64 x 64 bf16
     tiles (Q of each warpgroup; K and V, or Q and dO), ``stages`` ring stages
     of two tiles (K, V; Q, dO), the dK/dV role's lse2 and D of each stage,
-    and 8 bytes a barrier (own, and full and empty a stage)."""
+    and 8 bytes a barrier (own, and full and empty a stage). Only the
+    kernels that take ``n`` on this variant: the backward at every N, the
+    forward past N = 256."""
     if variant == "wgmma_stream":
         if dtype != torch.bfloat16 or hd != 64:
             raise ValueError(f"the wgmma_stream variant takes bf16 with hd 64, not {dtype} hd {hd}")
         plan = {}
         for name, roles in (("fwd", 1), ("bwd", 2)):
+            if kernel_variant(dtype, n, hd, name) != variant:
+                continue
             wgs, stages = STREAM_WARPGROUPS[name], STREAM_STAGES[name]
             rows = STREAM_BLOCK * wgs
             own = wgs if name == "fwd" else 2 * wgs  # Q; K and V, or Q and dO
@@ -253,6 +265,8 @@ def _lib():
         lib.apvt_attn_cc_bf16_fwd.restype = i
         lib.apvt_attn_cc_bf16_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, p]
         lib.apvt_attn_cc_bf16_bwd.restype = i
+        lib.apvt_attn_wg_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.apvt_attn_wg_bwd.restype = i
         lib.apvt_cuda_error_string.argtypes = [i]
         lib.apvt_cuda_error_string.restype = ctypes.c_char_p
         lib._apvt_typed = True
@@ -263,7 +277,7 @@ def launcher_plan(hd: int, variant: str = "cuda_core") -> dict:
     """The ``"cuda_core"`` (or ``"wgmma_stream"``, hd 64) launchers' own plan
     at head dim ``hd``: per kernel the rows a CTA owns, its threads and its
     dynamic shared memory (and for ``"wgmma_stream"`` its warpgroups and ring
-    stages)."""
+    stages; its forward kernel takes N > 256, its backward kernel every N)."""
     if variant == "wgmma_stream":
         if hd != 64:
             raise ValueError(f"the wgmma_stream variant takes hd 64, not {hd}")
@@ -320,6 +334,11 @@ def _raise_on(code: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def _check_lse(lse: torch.Tensor, b: int, h: int, n: int) -> None:
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("the log-sum-exp must be (B, H, N) float32, contiguous")
+
+
 def _launch_fwd(q, k, v, heads: int | None):
     """The forward kernel over packed (``heads`` given) or head-major operands:
     ``(o, lse)``; ``lse`` ``(B, H, N)`` f32 is written by the ``wgmma`` and
@@ -339,15 +358,14 @@ def _launch_fwd(q, k, v, heads: int | None):
 def _launch_bwd(q, k, v, do, o, lse, heads: int | None):
     """The backward kernel: ``(dq, dk, dv)``. ``o`` and ``lse`` are the
     forward's; the ``mma_sync`` variant does not read them. For the
-    ``wgmma_stream`` variant it allocates the scratch of the rows'
-    statistics that the launcher's pre-pass writes."""
+    ``wgmma_stream`` variant (bf16 with hd 64, at every N) it allocates the
+    scratch of the rows' statistics that the launcher's pre-pass writes."""
     b, n, h, hd, code = _check(q, k, v, do, o, heads=heads)
-    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("the log-sum-exp must be (B, H, N) float32, contiguous")
+    _check_lse(lse, b, h, n)
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     work = None  # the wgmma_stream backward's lse2 and D of every row
-    if kernel_variant(q.dtype, n, hd) == "wgmma_stream":
+    if kernel_variant(q.dtype, n, hd, "bwd") == "wgmma_stream":
         work = torch.empty(stream_work_floats(b, n, h), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = lib.apvt_attn_bhnd_bwd if heads is None else lib.apvt_attn_packed_bwd
@@ -443,6 +461,28 @@ def cc_bwd(q, k, v, do, heads: int, o, lse):
                                    dv.data_ptr(), b, n, h, 64 ** -0.5,
                                    torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, lib, "attention backward (cuda_core timing entry)")
+    return dq, dk, dv
+
+
+# --- the whole-head backward the streamed roles replaced, for timing ----------
+
+def wg_bwd(q, k, v, do, o, lse, heads: int | None):
+    """The backward on the whole-head ``"wgmma"`` device code
+    (``csrc/attn_wgmma.cuh:attn_bwd``: one CTA of two warpgroups a head) from
+    the forward's ``o`` and ``lse``, packed (``heads`` given) or head-major
+    bf16 operands with hd 64 and N <= 256: ``(dq, dk, dv)`` (uncounted; for
+    timing it against the ``"wgmma_stream"`` roles that replaced it)."""
+    b, n, h, hd, _ = _check(q, k, v, do, o, heads=heads)
+    if q.dtype != torch.bfloat16 or hd != 64 or n > WGMMA_MAX_N:
+        raise ValueError("the whole-head backward takes bf16 with hd 64 and N <= 256")
+    _check_lse(lse, b, h, n)
+    lib = _lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = lib.apvt_attn_wg_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                              o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), b, n, h, int(heads is None), 64 ** -0.5,
+                              torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, "attention backward (whole-head timing entry)")
     return dq, dk, dv
 
 

@@ -1,7 +1,7 @@
 """What limits packed attention's streamed device codes on the card: the
 ``"cuda_core"`` variant (f32, and bf16 hd 32 past N = 256) and the
-``"wgmma_stream"`` variant (bf16 hd 64 past N = 256). Time each beside
-edited copies of itself.
+``"wgmma_stream"`` variant (bf16 hd 64: the backward at every N, the forward
+past N = 256). Time each beside edited copies of itself.
 
 Builds ``csrc/attention_packed.cu`` and edited copies of it. Of the
 CUDA-core code (namespace ``cc``):
@@ -42,14 +42,27 @@ Of the streamed tensor-core code (``csrc/attn_stream.cuh``, namespace
   wgmma, warning C7520);
 * ``stream: dQ role alone`` and ``stream: dK/dV role alone``: the backward
   with the CTAs of the other role returning at once (wrong values for their
-  gradients).
+  gradients);
+* ``stream: backward without its pre-pass``: the launcher without the
+  ``stream_stats`` launch (its lse2 and D read from a buffer it never
+  wrote: wrong values; what the pre-pass costs);
+* ``stream: backward roles in two halves``: the backward's grid with every
+  dK/dV CTA before every dQ CTA (a head's two roles half a launch apart)
+  in place of a head's CTAs of both roles side by side (the same values);
+* ``stream: backward first pre-pass``: ``stream_stats`` as it was first
+  written, a warp a row and 4 bytes of dO and of O a lane, each row's
+  loads awaited in turn (the same values);
+* ``stream: backward as first built``: the two above at once, the
+  backward as the N > 256 route first ran it (the same values).
 
-A shape is timed with the kernel and the edits of the variant it takes
-(:func:`edits_at`): the ``cc`` edits at the f32 shapes, the ``wgs`` edits
-at the bf16 one. The exact copies among them (the other tile heights, ring
-depths, CTA shapes and barrier counts) are held bit for bit against the
-kernel at the first shape of each dtype. Then the builds take turns (device
-time by CUDA-graph replay of 20 calls, best of 3), one line a shape and pass
+A shape is timed, in each direction, with the kernel and the edits of the
+variant that direction takes (:func:`edits_at`): the ``cc`` edits at the
+f32 shapes, the ``wgs`` edits at the bf16 ones (at N = 197 the backward
+only: the forward there is the whole-head ``"wgmma"`` code, which no edit
+changes). The exact copies among them (the other tile heights, ring
+depths, CTA shapes, barrier counts and CTA order) are held bit for bit
+against the kernel at every shape. Then the builds take turns (device time
+by CUDA-graph replay of 20 calls, best of 3), one line a shape and pass
 with each time's share of the bound (f32: the FMA rate; bf16: the larger of
 the tensor-core rate and the bytes).
 
@@ -59,7 +72,9 @@ dK/dV role): ``chip_smoke.py --mutants`` shows that its limits for the
 route fail each one.
 
 Run on a machine with a CUDA card, from the repository root:
-``python3 -m apvt_lora_torch.tools.attention_diagnose``.
+``python3 -m apvt_lora_torch.tools.attention_diagnose`` (``--variant
+wgmma_stream`` or ``--variant cuda_core``: that variant's edits and shapes
+alone).
 """
 
 from __future__ import annotations
@@ -68,10 +83,10 @@ import ctypes
 import re
 
 # (B, N, H, hd, dtype): phase 12's parity shape (ViT-B/224, 24 images) and ViT-B/16 at
-# 384 px (N = 577) in f32 (the CUDA-core code), then ViT-B/16 at 384 px in bf16 (the
-# streamed tensor-core code)
+# 384 px (N = 577) in f32 (the CUDA-core code), then ViT-B/16 at 384 px and at 224 px
+# (the main path: B = 64, N = 197) in bf16 (the streamed tensor-core code)
 SHAPES = ((24, 197, 12, 64, "float32"), (8, 577, 12, 64, "float32"),
-          (8, 577, 12, 64, "bfloat16"))
+          (8, 577, 12, 64, "bfloat16"), (64, 197, 12, 64, "bfloat16"))
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 _CC = re.compile(r"namespace cc \{.*?\}  // namespace cc\n", re.S)
@@ -98,7 +113,45 @@ _EMPTY = "mbar_init(&empty[s], 128 * nwg);"
 _FWD_RELEASE = "auto release = [&] { mbar_arrive(&empty[s]); };"
 _BWD_RELEASE = "      mbar_arrive(&empty[s]);\n    }\n"
 _LANE0 = "if ((threadIdx.x & 31) == 0) "
-_ROLE = "  const bool kv = (int)blockIdx.x < per;\n"
+_ROLE = "  const bool kv = r < ZS;\n"
+_STATS = "  stream_stats<<<B * H * nb, kStatThreads, 0, stream>>>("
+_ORDER = ("  const int bh = blockIdx.x / (2 * ZS), r = blockIdx.x % (2 * ZS);\n"
+          "  const bool kv = r < ZS;\n"
+          "  const int z = kv ? r : r - ZS;\n")
+_NEW_STATS = re.compile(r"constexpr int kStatThreads = 128;\n.*?\n}\n", re.S)
+_FIRST_STATS = """constexpr int kStatThreads = 256;
+
+__global__ void __launch_bounds__(kStatThreads)
+stream_stats(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+             const float* __restrict__ lse, float* __restrict__ work, Strides st, int N, int H) {
+  const int NB = (N + kBlock - 1) / kBlock;
+  const int bh = blockIdx.x / NB, i = blockIdx.x % NB, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* w = work + (size_t)blockIdx.x * 2 * kBlock;
+  const size_t hb = (size_t)b * st.batch + (size_t)h * st.head;
+  for (int r = warp; r < kBlock; r += 8) {
+    const int row = i * kBlock + r;
+    float d = 0.f, l2 = INFINITY;
+    if (row < N) {
+      const size_t off = hb + (size_t)row * st.row + 2 * lane;
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + off));
+      d = x.x * y.x + x.y * y.y;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      l2 = lse[(size_t)bh * N + row] * kLog2e;
+    }
+    if (lane == 0) {
+      w[r] = l2;
+      w[kBlock + r] = d;
+    }
+  }
+}
+"""
+_HALVES = ("  const int per = gridDim.x / 2;\n"
+           "  const bool kv = (int)blockIdx.x < per;\n"
+           "  const int x = kv ? blockIdx.x : blockIdx.x - per;\n"
+           "  const int bh = x / ZS, z = x % ZS;\n")
 
 
 def _replace(text: str, old: str, new: str, label: str, count: int = 1) -> str:
@@ -133,6 +186,17 @@ def _edit_wgs(text: str, label: str, edits) -> str:
     for old, new, *count in edits:
         text = _in_wgs(text, old, new, label, *count)
     return text
+
+
+def _first_stats(text: str, label: str) -> str:
+    """The pre-pass ``stream_stats`` as first written, in place of its
+    16-byte-load form."""
+    m = _WGS.search(text)
+    found = _NEW_STATS.findall(m.group(0)) if m else []
+    if len(found) != 1 or "stream_stats(" not in found[0]:
+        raise RuntimeError(f"attention_packed.cu changed: the edit for {label!r} found nothing "
+                           f"to replace")
+    return _in_wgs(text, found[0], _FIRST_STATS, label)
 
 
 def variants(text: str) -> dict[str, str]:
@@ -187,6 +251,15 @@ def variants(text: str) -> dict[str, str]:
                                          "stream: dQ role alone"),
         "stream: dK/dV role alone": _in_wgs(text, _ROLE, _ROLE + "  if (!kv) return;\n",
                                             "stream: dK/dV role alone"),
+        "stream: backward without its pre-pass": _in_wgs(
+            text, _STATS, "  if (false) stream_stats<<<B * H * nb, kStatThreads, 0, stream>>>(",
+            "stream: backward without its pre-pass"),
+        "stream: backward roles in two halves": _in_wgs(
+            text, _ORDER, _HALVES, "stream: backward roles in two halves"),
+        "stream: backward first pre-pass": _first_stats(text, "stream: backward first pre-pass"),
+        "stream: backward as first built": _in_wgs(
+            _first_stats(text, "stream: backward as first built"), _ORDER, _HALVES,
+            "stream: backward as first built"),
     }
 
 
@@ -274,20 +347,31 @@ def launch_bwd(lib, q, k, v, do, o, lse, h: int, work):
 EXACT = ("kernel", "forward: 8 rows a thread", "backward: 4 rows a thread",
          "stream: forward 2 ring stages", "stream: backward 2 ring stages",
          "stream: forward 1 warpgroup a CTA", "stream: backward 2 warpgroups a CTA",
-         "stream: forward 3 CTAs an SM", "stream: lane-0 release")
+         "stream: forward 3 CTAs an SM", "stream: lane-0 release",
+         "stream: backward roles in two halves", "stream: backward first pre-pass",
+         "stream: backward as first built")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
     import torch
 
     from ..kernels import _build
     from ..kernels import attention as ka
     from .timing import card_line, graph_ms
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", choices=tuple(NAMESPACE), default=None,
+                    help="build and time only this variant's edits, at the shapes where a "
+                         "direction takes it (default: both variants)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_diagnose: this needs a CUDA card")
     card = card_line()
     sources = variants(_build.inlined("attention_packed.cu"))
+    if args.variant:
+        sources = {label: sources[label] for label in edits_at(sources, args.variant)}
     names = {label: f"attention_diagnose_{i}.cu" for i, label in enumerate(sources)}
     from concurrent.futures import ThreadPoolExecutor
 
@@ -302,34 +386,36 @@ def main() -> None:
         print(f"{label}: registers {min(regs, default=0)}-{max(regs, default=0)} over "
               f"{len(regs)} kernels, spill stores {spills} bytes", flush=True)
 
-    checked = set()
     for shape in SHAPES:
         b, n, h, hd, dtype_name = shape
         dtype = getattr(torch, dtype_name)
-        variant = ka.kernel_variant(dtype, n, hd)
-        timed = edits_at(libs, variant)
+        variants_ = {what: ka.kernel_variant(dtype, n, hd, what) for what in ka.DIRECTIONS}
+        timed = {what: edits_at(libs, v) for what, v in variants_.items() if v in NAMESPACE
+                 and args.variant in (None, v)}
+        if not timed:
+            continue
         gen = torch.Generator("cuda").manual_seed(16)
         q, k, v, do = (torch.randn(b, n, h * hd, device="cuda", generator=gen).to(dtype)
                        for _ in range(4))
         work = torch.empty(ka.stream_work_floats(b, n, h), dtype=torch.float32, device="cuda")
         o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
         grads = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
-        if dtype_name not in checked:
-            checked.add(dtype_name)
-            for label in (label for label in EXACT if label in timed):
-                got = launch_fwd(libs[label], q, k, v, h)
-                again = launch_bwd(libs[label], q, k, v, do, o, lse, h, work)
-                if not (torch.equal(got[0], o) and torch.equal(got[1], lse)
-                        and all(torch.equal(a, w) for a, w in zip(again, grads))):
-                    raise RuntimeError(f"{label} is not the kernel bit for bit at {shape}")
+        for label in (label for label in EXACT if any(label in t for t in timed.values())):
+            got = launch_fwd(libs[label], q, k, v, h)
+            again = launch_bwd(libs[label], q, k, v, do, o, lse, h, work)
+            if not (torch.equal(got[0], o) and torch.equal(got[1], lse)
+                    and all(torch.equal(a, w) for a, w in zip(again, grads))):
+                raise RuntimeError(f"{label} is not the kernel bit for bit at {shape}")
         unit, tensor = b * h * n * n * hd, b * n * h * hd * q.element_size()
         for what, flop, nbytes, call in (
                 ("fwd", 4 * unit, 4 * tensor, lambda lib: launch_fwd(lib, q, k, v, h)),
                 ("bwd", 10 * unit, 7 * tensor,
                  lambda lib: launch_bwd(lib, q, k, v, do, o, lse, h, work))):
+            if what not in timed:  # the whole-head forward at N <= 256: no edit changes it
+                continue
             best = {}
             for _ in range(3):
-                for label in timed:
+                for label in timed[what]:
                     ms = graph_ms(lambda: call(libs[label]), 20)
                     best[label] = min(best.get(label, ms), ms)
             if dtype == torch.float32:
@@ -337,11 +423,10 @@ def main() -> None:
             else:
                 bound = max(flop / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
                 by = "the bf16 bound"
-            print(f"attention_diagnose {shape[:4]} {dtype_name} [{variant}] {what} (device ms, "
-                  f"share of {by} {bound:.4f} ms): "
+            print(f"attention_diagnose {shape[:4]} {dtype_name} [{variants_[what]}] {what} "
+                  f"(device ms, share of {by} {bound:.4f} ms): "
                   + "; ".join(f"{label} {ms:.4f} ({bound / ms:.1%})" for label, ms in best.items())
                   + f" [{card}]", flush=True)
-
 
 if __name__ == "__main__":
     main()

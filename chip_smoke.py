@@ -6,8 +6,9 @@ the hand-written kernels:
 
 * ``google_vit`` ViT-B/16 with a rank-8 LoRA merged into q/k/v/o, in bf16,
   through FGSM and PGD-10 at batch 64: the packed-attention kernel
-  (``csrc/attention_packed.cu``, at this shape the wgmma core of
-  ``csrc/attn_wgmma.cuh``), forward and backward; then the same with
+  (``csrc/attention_packed.cu``; at this shape its forward is the wgmma
+  core of ``csrc/attn_wgmma.cuh``, its backward the streamed dK/dV and dQ
+  roles of ``csrc/attn_stream.cuh``), forward and backward; then the same with
   ``fuse_attn_block`` on (the fused attention half-block,
   ``csrc/attn_block.cu``: its wgmma + TMA per-head and row-block kernels,
   and the LN-fused MLP on a ViT path) and with
@@ -98,7 +99,8 @@ Phases, one line each (or a few):
    ConvNeXt-B stages, packed attention's CUDA-core plan (rows a CTA,
    threads, shared memory within a block's, the same at any N) at both
    head dims and its wgmma_stream plan (rows, warpgroups, threads, ring
-   stages, shared memory), each launcher's held equal to its wrapper's;
+   stages, shared memory; both kernels at N = 577, the backward alone at
+   N = 197), each launcher's held equal to its wrapper's;
 3. kernels against their plain PyTorch versions on the card, forward and
    gradients: packed attention at (B, N, H, hd) = (2, 37, 3, 32),
    (64, 197, 12, 64), (bf16) (2, 300, 2, 64) and (bf16) the tile edges of
@@ -142,7 +144,12 @@ Phases, one line each (or a few):
    STREAM_N (N = 257, 320, 385, 577, 1025 at (2, N, 2, 64), bf16, a
    generator of its own) the same way, at STREAM_TOL (set from its
    readings; TOL's bf16 limits are about a typical value there), every
-   backward twice bit for bit; then dwconv7 at its TMA-ring kernel's
+   backward twice bit for bit; the wgmma_stream backward at N <= 256
+   (SHORT_STREAM_N: N = 1, 17, 63, 64, 65, 128, 197, 208, 256 at (2, N, 2,
+   64), bf16, a generator of its own), where it replaced the whole-head
+   wgmma backward: bit for bit that backward (``kernels/attention.wg_bwd``,
+   uncounted) in both layouts, within TOL's bf16 limits of the plain
+   version, twice bit for bit; then dwconv7 at its TMA-ring kernel's
    edges (DW_EDGE_SHAPES: a 1 x 1 map, tiles ragged in H, W and channels, a
    persistent schedule's ragged tail), both roles, against the plain
    version and bit for bit against the staged kernel; and the LN-fused MLP
@@ -206,7 +213,11 @@ Phases, one line each (or a few):
    APGD-CE iteration (B=64), Square queries/s (B=64, 200 queries), the
    AutoAttack suite's wall and images/s (phase 5's run, the kernels already
    built), kernel
-   vs plain times, each kernel's bound (the larger of its FLOP over the
+   vs plain times (every attention row by CUDA-graph replay, device time,
+   in turns, best of 3: at ViT-B's (64, 197, 12, 64) with the whole-head
+   backward that the streamed roles replaced; ViT-B PGD-10 at B=64, fields
+   off, with its backward on either route in turns, the same images bit
+   for bit), each kernel's bound (the larger of its FLOP over the
    card's published peak and its bytes over 3.35 TB/s) and the time of the
    one PyTorch call, or library composition, that computes the same
    function (measured here only; the port never calls it in place of a
@@ -323,7 +334,9 @@ Phases, one line each (or a few):
 
 The line before the last is a JSON object describing every kernel (with
 ``composition_ms``, the library composition's time, for the kernels whose
-function no one PyTorch call computes and whose ``library_ms`` is null; window
+function no one PyTorch call computes and whose ``library_ms`` is null; with
+``variant``, the device code ``kernel_variant`` names for an attention row in
+its direction (null for the other kernels); window
 attention's ``ms`` at the Swin-B stage-3 shape with its shift mask, which
 18 of the 24 blocks run; the ConvNeXt kernels' at the stage-3 shape, which
 27 of the 36 blocks run); the last line is ``{"ok": true, "device": {...}}``.
@@ -346,8 +359,9 @@ top kernels by name; ``--profile int8`` one warm ViT-B PGD-10 call in bf16
 and one W8A8, with the top kernels. ``--mutants`` builds three copies of
 packed attention's source, each with one 64-row block of the wgmma_stream
 route skipped (``<port>/tools/attention_diagnose.planted_faults``), and
-fails unless each one fails STREAM_TOL at (2, 1025, 2, 64). These modes
-print no result lines.
+fails unless each one fails STREAM_TOL at (2, 1025, 2, 64) and each
+backward one TOL's bf16 limits at (2, 197, 2, 64) (its fourth block the
+ragged last one). These modes print no result lines.
 """
 
 from __future__ import annotations
@@ -378,13 +392,19 @@ SHAPES = {"float32": ((2, 37, 3, 32), MAIN),
 # ... and the CUDA-core device code at lengths whose whole head would not fit in a block's
 # shared memory (f32 backward N > 208, bf16 backward N > 384, f32 forward N > 417), both
 # layouts, from a generator of its own: f32 at the wgmma edges, N = 209 and 577 (ViT-B/16 at
-# 384 px: 9 x 64 + 1) in both dtypes (bf16 at 209: the wgmma code), and hd 32 at N = 577
+# 384 px: 9 x 64 + 1) in both dtypes (bf16 at 209: the wgmma forward, the wgmma_stream
+# backward), and hd 32 at N = 577
 LONG_SHAPES = {"float32": (*((2, n, 2, 64) for n in EDGE_N), (2, 209, 2, 64), (2, 577, 2, 64),
                            (2, 577, 2, 32)),
                "bfloat16": ((2, 209, 2, 64), (2, 577, 2, 64), (2, 577, 2, 32))}
 # ... and the streamed tensor-core route (bf16, hd 64, N > 256) at its block edges and
 # past them, (2, N, 2, 64), both layouts, from a generator of their own
 STREAM_N = (257, 320, 385, 577, 1025)
+# ... and its backward at N <= 256, where it replaced the whole-head wgmma backward
+# (bf16, hd 64 at every N): one block (N <= 64, a 3-stage ring fed once), ragged last
+# blocks of 1-63 rows (ViT-B's 197 = 3 x 64 + 5), the 64-row edges; (2, N, 2, 64), both
+# layouts, a generator of its own; bit for bit the whole-head backward
+SHORT_STREAM_N = (1, 17, 63, 64, 65, 128, 197, 208, 256)
 # packed attention at ViT-B/16's 384-pixel sequence (google/vit-base-patch16-384: N = 577),
 # bf16: timed beside the CUDA-core code it replaced and SDPA; its launches come from
 # VIT384_BATCH images through PGD-2; PGD-10 at BATCH timed with either route
@@ -610,6 +630,31 @@ def rivals(fns: dict, iters: int = 20, rounds: int = 3, timer=None) -> dict:
     return best
 
 
+def graph_turns(fwd: dict, bwd: dict, qh, kh, vh, doh) -> tuple[dict, dict]:
+    """Forward and backward ``{name: ms}`` of attention callables, device time
+    by CUDA-graph replay (:func:`graph_ms`), in turns, best of 3, with SDPA
+    beside them on head-major views ``qh, kh, vh`` (cotangent ``doh``):
+    ``"sdpa"`` forward; its backward is its forward and
+    ``torch.autograd.grad`` in one graph less its forward with grad on (an
+    eager backward alone carries host time)."""
+    import torch
+    import torch.nn.functional as F
+
+    def leaves():  # new in every call, so that a captured call's autograd nodes are its own
+        return tuple(t.detach().requires_grad_(True) for t in (qh, kh, vh))
+
+    def sdpa_step():
+        qkv = leaves()
+        return torch.autograd.grad(F.scaled_dot_product_attention(*qkv), qkv, doh)
+
+    f = rivals({**fwd, "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                "sdpa_grad_on": lambda: F.scaled_dot_product_attention(*leaves())},
+               timer=graph_ms)
+    b = rivals({**bwd, "sdpa_step": sdpa_step}, timer=graph_ms)
+    b["sdpa"] = b["sdpa_step"] - f["sdpa_grad_on"]
+    return f, b
+
+
 def footprint(eot, size: int, p: int):
     """(B, S, S) bool: pixels whose inverse-mapped patch coordinate (computed
     here in f64, apart from the package's composite) lies within a margin of
@@ -682,6 +727,30 @@ def cc_attention_packed(ka):
             return (*ka.cc_bwd(q, k, v, do.contiguous(), ctx.heads, o, lse), None)
 
     return CcPackedAttention.apply
+
+
+def wg_attention_packed(ka):
+    """``(q, k, v, heads) -> o`` with its gradient on the whole-head
+    ``"wgmma"`` backward that the streamed roles replaced at N <= 256
+    (``ka.wg_bwd``, uncounted), the forward the model's own kernel launched
+    uncounted: what a bf16 hd-64 ViT ran at 224 px before, for
+    ``plain_path``."""
+    import torch
+
+    class WgPackedAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, heads):
+            ctx.heads = heads
+            o, lse = ka._launch_fwd(q, k, v, heads)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*ka.wg_bwd(q, k, v, do.contiguous(), o, lse, ctx.heads), None)
+
+    return WgPackedAttention.apply
 
 
 @contextlib.contextmanager
@@ -805,18 +874,24 @@ class Smoke:
                       f"{name} {p['rows']}, {p['threads']}, {p['smem']} B"
                       for name, p in got.items()) + "; the launcher's equals the wrapper's",
                   flush=True)
-        # ... and the streamed tensor-core launchers' (bf16, hd 64, N > 256)
-        want = {name: {k: v for k, v in kernel.items() if k != "ctas"} for name, kernel in
-                self.ka.kernel_plan(torch.bfloat16, LONG_MAIN[1], 64,
-                                    variant="wgmma_stream").items()}
+        # ... and the streamed tensor-core launchers' (bf16, hd 64: both kernels past
+        # N = 256; the backward alone at ViT-B's N = 197, where it is the backward's variant)
         got = self.ka.launcher_plan(64, "wgmma_stream")
-        check(got == want and all(p["smem"] <= self.ka.MAX_SMEM for p in got.values()),
-              f"attention wgmma_stream: the launcher's plan {got} is not the wrapper's {want}")
+        for n in (LONG_MAIN[1], MAIN[1]):
+            want = {name: {k: v for k, v in kernel.items() if k != "ctas"} for name, kernel in
+                    self.ka.kernel_plan(torch.bfloat16, n, 64, variant="wgmma_stream").items()}
+            check(set(want) == ({"fwd", "bwd"} if n > self.ka.WGMMA_MAX_N else {"bwd"})
+                  and self.ka.kernel_variant(torch.bfloat16, n, 64, "bwd") == "wgmma_stream"
+                  and all(got[name] == want[name] and want[name]["smem"] <= self.ka.MAX_SMEM
+                          for name in want),
+                  f"attention wgmma_stream at N = {n}: the launcher's plan {got} is not the "
+                  f"wrapper's {want}")
         print("phase 2 build: attention_packed.cu wgmma_stream plan (rows a CTA, warpgroups, "
               "threads, ring stages, dynamic shared memory, the same at any N): " + "; ".join(
                   f"{name} {p['rows']}, {p['warpgroups']}, {p['threads']}, {p['stages']}, "
-                  f"{p['smem']} B" for name, p in got.items()) + "; the launcher's equals the "
-              "wrapper's", flush=True)
+                  f"{p['smem']} B" for name, p in got.items()) + f"; the launcher's equals the "
+              f"wrapper's at N = {LONG_MAIN[1]} (both kernels) and N = {MAIN[1]} (the backward: "
+              f"bf16 hd 64 takes it at every N)", flush=True)
         # the bf16 dwconv7 launcher's plan (tile, schedule, ring) is the wrapper's
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for shape in DW_SHAPES + DW_EDGE_SHAPES:
@@ -846,6 +921,8 @@ class Smoke:
             for (b, n, h, hd) in SHAPES[dtype_name]:
                 variant = ka.kernel_variant(dtype, n, hd)
                 (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
+                variant = "/".join(dict.fromkeys(ka.kernel_variant(dtype, n, hd, what)
+                                                 for what in ka.DIRECTIONS))
                 q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, n, h, hd)}"
@@ -1364,6 +1441,8 @@ class Smoke:
             for (b, n, h, hd) in SHAPES[dtype_name]:
                 variant = ka.kernel_variant(dtype, n, hd)
                 (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
+                variant = "/".join(dict.fromkeys(ka.kernel_variant(dtype, n, hd, what)
+                                                 for what in ka.DIRECTIONS))
                 q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, h, n, hd)}"
@@ -1392,8 +1471,8 @@ class Smoke:
 
     def long_vs_plain(self) -> None:
         """Packed attention at LONG_SHAPES in both layouts (the CUDA-core
-        device code but for bf16 hd 64: at N = 209 the wgmma one, at N = 577
-        the wgmma_stream one): forward,
+        device code but for bf16 hd 64: at N = 209 the wgmma forward and the
+        wgmma_stream backward, at N = 577 the wgmma_stream code): forward,
         log-sum-exp and backward against the plain versions at TOL (the
         wgmma_stream shapes at STREAM_TOL), the backward bit for bit on a
         second run, the head-major kernel bit for bit the packed one."""
@@ -1405,6 +1484,8 @@ class Smoke:
             for (b, n, h, hd) in LONG_SHAPES[dtype_name]:
                 variant = ka.kernel_variant(dtype, n, hd)
                 (fa, fr), (ga, gr) = STREAM_TOL if variant == "wgmma_stream" else limits
+                variant = "/".join(dict.fromkeys(ka.kernel_variant(dtype, n, hd, what)
+                                                 for what in ka.DIRECTIONS))
                 q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
                                .to(dtype) for _ in range(4))
                 tag = f"{dtype_name} {(b, n, h, hd)}"
@@ -1472,14 +1553,66 @@ class Smoke:
               + "; log-sum-exp within 1e-4; every backward bitwise reproducible; head-major "
               "equal bit for bit", flush=True)
 
+    def short_stream_vs_wg(self) -> None:
+        """The streamed backward at N <= 256 (SHORT_STREAM_N, (2, N, 2, 64),
+        bf16), where it replaced the whole-head backward, from a generator of
+        its own, in both layouts: bit for bit the whole-head backward
+        (``ka.wg_bwd``, uncounted) on the same forward's output and
+        log-sum-exp, within TOL's bf16 limits of the plain version, bit for
+        bit itself on a second run, the head-major kernel bit for bit the
+        packed one."""
+        import torch
+
+        ka, gen = self.ka, torch.Generator(self.dev).manual_seed(19)
+        _, (ga, gr) = TOL["bfloat16"]
+        edges = []
+        for n in SHORT_STREAM_N:
+            b, h, hd = 2, 2, 64
+            variants = [ka.kernel_variant(torch.bfloat16, n, hd, what) for what in ka.DIRECTIONS]
+            check(variants == ["wgmma", "wgmma_stream"], f"bf16 hd 64 at N = {n} takes {variants}")
+            q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                           .to(torch.bfloat16) for _ in range(4))
+            tag = f"bfloat16 {(b, n, h, hd)}"
+            o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+            got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+            e_b = max(close(g_, w_, ga, gr, f"d{nm} {tag}") for nm, g_, w_ in
+                      zip("qkv", got, ka.attention_packed_bwd_reference(q, k, v, do, h)))
+            check(all(torch.equal(a_, b_) for a_, b_ in
+                      zip(got, ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse))),
+                  f"backward not reproducible {tag}")
+            old = ka.wg_bwd(q, k, v, do, o, lse, h)
+            diff = {nm: float((a_.float() - b_.float()).abs().max())
+                    for nm, a_, b_ in zip("qkv", got, old)}
+            check(all(d == 0.0 for d in diff.values()) and all(
+                torch.equal(a_, b_) for a_, b_ in zip(got, old)),
+                  f"the streamed backward is not the whole-head one bit for bit {tag}: {diff}")
+            qh, kh, vh, doh = (ka._split(t, h).contiguous() for t in (q, k, v, do))
+            oh, lse_h = ka.fused_attention_fwd(qh, kh, vh, with_lse=True)
+            got_h = ka.fused_attention_bwd(qh, kh, vh, doh, oh, lse_h)
+            check(all(torch.equal(ka._merge(a_), b_) for a_, b_ in zip(got_h, got))
+                  and all(torch.equal(a_, b_) for a_, b_ in
+                          zip(got_h, ka.wg_bwd(qh, kh, vh, doh, oh, lse_h, None))),
+                  f"head-major: not the packed kernel, or not the whole-head backward {tag}")
+            torch.cuda.synchronize()
+            edges.append(f"N={n} {e_b:.3e}")
+        print(f"phase 3 attention_packed backward at N <= 256, the wgmma_stream roles at (2, N, 2, "
+              f"64) bf16, dq/dk/dv max|err| against plain (limit {ga:g}): " + ", ".join(edges)
+              + "; equal bit for bit to the whole-head wgmma backward it replaced, in both "
+              "layouts; every backward bitwise reproducible; head-major equal bit for bit",
+              flush=True)
+
     def mutants(self) -> None:
         """``--mutants``: the planted faults of
         ``tools/attention_diagnose.planted_faults`` (one 64-row block skipped in
         the wgmma_stream forward's second pass, its dQ role or its dK/dV role),
-        built from this checkout's source, at (2, STREAM_N[-1], 2, 64) bf16:
-        each must fail stream_vs_plain's STREAM_TOL, where the kernel passes.
-        Prints each one's max|err| and whether TOL's bf16 limits pass it. A
-        backward fault runs from the kernel's own forward."""
+        built from this checkout's source: at (2, STREAM_N[-1], 2, 64) bf16
+        each must fail stream_vs_plain's STREAM_TOL, and at (2, MAIN[1], 2, 64)
+        bf16 (ViT-B's N, whose fourth block is its ragged last one of 5 rows)
+        each backward fault must fail TOL's bf16 limits, the route's limits
+        there (the forward at that N is the whole-head code, which no fault
+        touches); the kernel passes both. Prints each one's max|err| and, past
+        N = 256, whether TOL's bf16 limits pass it. A backward fault runs from
+        the kernel's own forward."""
         import torch
 
         ka, bm = self.ka, self.build_mod
@@ -1491,15 +1624,8 @@ class Smoke:
         with ThreadPoolExecutor(len(faults)) as pool:
             libs = dict(zip(faults, pool.map(lambda label: bm.load_text(names[label],
                                                                         faults[label]), faults)))
-        b, n, h, hd = 2, STREAM_N[-1], 2, 64
-        gen = torch.Generator(self.dev).manual_seed(18)
-        q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
-                       .to(torch.bfloat16) for _ in range(4))
-        o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
-        grads = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
-        want_o = ka.attention_packed_reference(q, k, v, h)
-        want = ka.attention_packed_bwd_reference(q, k, v, do, h)
-        work = torch.empty(ka.stream_work_floats(b, n, h), dtype=torch.float32, device=self.dev)
+        for lib in libs.values():
+            diag.bind(lib)
 
         def passes(got, ref, limits) -> bool:
             (fa, fr), (ga, gr) = limits
@@ -1511,20 +1637,34 @@ class Smoke:
                 return False
             return True
 
-        ref = (want_o, *want)
-        tag = f"(2, {n}, 2, 64) bf16"
-        check(passes((o, *grads), ref, STREAM_TOL), f"the kernel fails STREAM_TOL at {tag}")
-        for label, lib in libs.items():
-            diag.bind(lib)
-            got_o, got_lse = diag.launch_fwd(lib, q, k, v, h)
-            got = (got_o, *diag.launch_bwd(lib, q, k, v, do, o, lse, h, work))
-            torch.cuda.synchronize()
-            err = max(float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, ref))
-            caught = not passes(got, ref, STREAM_TOL)
-            print(f"mutants {label} at {tag}: max|err| {err:.3e} against plain; fails STREAM_TOL "
-                  f"{STREAM_TOL}: {caught}; fails TOL's bf16 limits {TOL['bfloat16']}: "
-                  f"{not passes(got, ref, TOL['bfloat16'])}", flush=True)
-            check(caught, f"the planted fault {label!r} passes STREAM_TOL")
+        for n, limits in ((STREAM_N[-1], STREAM_TOL), (MAIN[1], TOL["bfloat16"])):
+            b, h, hd = 2, 2, 64
+            gen = torch.Generator(self.dev).manual_seed(18)
+            q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
+                           .to(torch.bfloat16) for _ in range(4))
+            o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
+            grads = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+            ref = (ka.attention_packed_reference(q, k, v, h),
+                   *ka.attention_packed_bwd_reference(q, k, v, do, h))
+            work = torch.empty(ka.stream_work_floats(b, n, h), dtype=torch.float32,
+                               device=self.dev)
+            tag = f"(2, {n}, 2, 64) bf16"
+            check(passes((o, *grads), ref, limits), f"the kernel fails {limits} at {tag}")
+            streamed_fwd = ka.kernel_variant(torch.bfloat16, n, hd) == "wgmma_stream"
+            for label, lib in libs.items():
+                if label.startswith("forward") and not streamed_fwd:
+                    continue
+                got_o, _ = diag.launch_fwd(lib, q, k, v, h)
+                got = (got_o, *diag.launch_bwd(lib, q, k, v, do, o, lse, h, work))
+                torch.cuda.synchronize()
+                err = max(float((g_.float() - w_.float()).abs().max())
+                          for g_, w_ in zip(got, ref))
+                caught = not passes(got, ref, limits)
+                also = (f"; fails TOL's bf16 limits {TOL['bfloat16']}: "
+                        f"{not passes(got, ref, TOL['bfloat16'])}" if streamed_fwd else "")
+                print(f"mutants {label} at {tag}: max|err| {err:.3e} against plain; fails the "
+                      f"route's limits {limits}: {caught}{also}", flush=True)
+                check(caught, f"the planted fault {label!r} passes {limits} at {tag}")
 
     # 4. model
     def model(self, name: str, module=None, attn_name: str = "", plain=None, kernel_fields=None):
@@ -2592,44 +2732,56 @@ class Smoke:
 
     # 6. timing
     def time_attention(self, vit_l) -> list[dict]:
-        """Packed attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
+        """Packed attention at the ViT-B/16 shape, bf16, device time by
+        CUDA-graph replay, in turns, best of 3 (:func:`graph_turns`): the
+        kernel (forward: the whole-head wgmma code; backward: the streamed
+        wgmma_stream roles), the whole-head backward they replaced
+        (``ka.wg_bwd``, uncounted), the plain version and SDPA; the eager
+        backward times (host included) beside; the bound."""
         import torch
-        import torch.nn.functional as F
 
         ka = self.ka
         b, n, h, hd = MAIN
         q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=self.gen)
                        .to(torch.bfloat16) for _ in range(4))
-        # the one library call: SDPA on (B, H, N, hd) views of the packed operands
-        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        doh = do.view(b, n, h, hd).transpose(1, 2)
-        out = F.scaled_dot_product_attention(qh, kh, vh)
+        variants = [ka.kernel_variant(torch.bfloat16, n, hd, what) for what in ka.DIRECTIONS]
+        check(variants == ["wgmma", "wgmma_stream"], f"{MAIN} bf16 takes {variants}")
+        qh, kh, vh, doh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v, do))
         # the backward as autograd calls it: with the forward's output and log-sum-exp
         o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
-        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                           lambda: ka.attention_packed_reference(q, k, v, h),
-                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
-                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
-                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                               retain_graph=True))
+        fwd, bwd = graph_turns(
+            {"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+             "plain": lambda: ka.attention_packed_reference(q, k, v, h)},
+            {"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+             "replaced": lambda: ka.wg_bwd(q, k, v, do, o, lse, h),
+             "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h)},
+            qh, kh, vh, doh)
+        eager = rivals({"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+                        "replaced": lambda: ka.wg_bwd(q, k, v, do, o, lse, h)})
         unit = b * h * n * n * hd
         tensor = b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
-        print(f"phase 6 attention_packed {MAIN} bf16: kernel fwd {kf:.4f} ms bwd {kb:.4f} ms; "
-              f"plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA (in turns with the kernel, best of "
-              f"3) fwd {lf:.4f} ms bwd {lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} "
-              f"ms ({bb_by}) {self.card}", flush=True)
-        src = f"{PKG}/csrc/attention_packed.cu"
+        print(f"phase 6 attention_packed {MAIN} bf16 [{'/'.join(variants)}], in turns, best of 3, "
+              f"device time (CUDA-graph replay): kernel fwd {fwd['kernel']:.4f} ms bwd "
+              f"{bwd['kernel']:.4f} ms; the whole-head wgmma backward it replaced "
+              f"{bwd['replaced']:.4f} ms ({bwd['replaced'] / bwd['kernel']:.2f}x); plain fwd "
+              f"{fwd['plain']:.4f} ms bwd {bwd['plain']:.4f} ms; SDPA fwd {fwd['sdpa']:.4f} ms bwd "
+              f"{bwd['sdpa']:.4f} ms (forward and backward {bwd['sdpa_step']:.4f} less the "
+              f"forward with grad on {fwd['sdpa_grad_on']:.4f}); eager, host included: kernel bwd "
+              f"{eager['kernel']:.4f} ms, whole-head bwd {eager['replaced']:.4f} ms; bound fwd "
+              f"{bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
         return [
-            {"name": "attention_packed_fwd", "route": "cuda", "source": src,
+            {"name": "attention_packed_fwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_wgmma.cuh", "variant": variants[0],
              "replaces": f"{JAX_SRC}/attention.py:230", "launches": vit_l["fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
-            {"name": "attention_packed_bwd", "route": "cuda", "source": src,
+             "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound_ms": bf, "bound_by": bf_by,
+             "library_ms": fwd["sdpa"]},
+            {"name": "attention_packed_bwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_stream.cuh", "variant": variants[1],
              "replaces": f"{JAX_SRC}/attention.py:238", "launches": vit_l["bwd"],
-             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+             "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound_ms": bb, "bound_by": bb_by,
+             "library_ms": bwd["sdpa"]}]
 
     def time_window(self, swin_l) -> list[dict]:
         """Window attention at Swin-B stages 1 and 3 under three masks: the
@@ -2902,39 +3054,40 @@ class Smoke:
              "library_ms": None, "composition_ms": tb["composition"]}]
 
     def time_bhnd(self, launches) -> list[dict]:
-        """Head-major attention at the ViT-B/16 shape: kernel, plain, bound, SDPA."""
+        """Head-major attention at the ViT-B/16 shape: kernel, plain and SDPA
+        by CUDA-graph replay in turns, best of 3 (:func:`graph_turns`); bound."""
         import torch
-        import torch.nn.functional as F
 
         ka = self.ka
         b, n, h, hd = MAIN
         q, k, v, do = (torch.randn(b, h, n, hd, device=self.dev, generator=self.gen)
                        .to(torch.bfloat16) for _ in range(4))
-        qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qh, kh, vh)
+        variants = [ka.kernel_variant(torch.bfloat16, n, hd, what) for what in ka.DIRECTIONS]
         o, lse = ka.fused_attention_fwd(q, k, v, with_lse=True)
-        kf, pf, lf = turns(lambda: ka.fused_attention_fwd(q, k, v),
-                           lambda: ka.attention_reference(q, k, v),
-                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        kb_, pb, lb = turns(lambda: ka.fused_attention_bwd(q, k, v, do, o, lse),
-                            lambda: ka.attention_bwd_reference(q, k, v, do),
-                            library=lambda: torch.autograd.grad(out, (qh, kh, vh), do,
-                                                                retain_graph=True))
+        fwd, bwd = graph_turns({"kernel": lambda: ka.fused_attention_fwd(q, k, v),
+                                "plain": lambda: ka.attention_reference(q, k, v)},
+                               {"kernel": lambda: ka.fused_attention_bwd(q, k, v, do, o, lse),
+                                "plain": lambda: ka.attention_bwd_reference(q, k, v, do)},
+                               q, k, v, do)
         unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
-        print(f"phase 6 fused_attention (B,H,N,hd) {(b, h, n, hd)} bf16: kernel fwd {kf:.4f} ms "
-              f"bwd {kb_:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
-              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
-              f"{self.card}", flush=True)
-        src = f"{PKG}/csrc/attention_packed.cu"
+        print(f"phase 6 fused_attention (B,H,N,hd) {(b, h, n, hd)} bf16 [{'/'.join(variants)}], "
+              f"device time (CUDA-graph replay), best of 3: kernel fwd {fwd['kernel']:.4f} ms bwd "
+              f"{bwd['kernel']:.4f} ms; plain fwd {fwd['plain']:.4f} ms bwd {bwd['plain']:.4f} "
+              f"ms; SDPA fwd {fwd['sdpa']:.4f} ms bwd {bwd['sdpa']:.4f} ms; bound fwd {bf:.4f} "
+              f"ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
         return [
-            {"name": "fused_attention_fwd", "route": "cuda", "source": src,
+            {"name": "fused_attention_fwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_wgmma.cuh", "variant": variants[0],
              "replaces": f"{JAX_SRC}/attention.py:85", "launches": launches["fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
-            {"name": "fused_attention_bwd", "route": "cuda", "source": src,
+             "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound_ms": bf, "bound_by": bf_by,
+             "library_ms": fwd["sdpa"]},
+            {"name": "fused_attention_bwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_stream.cuh", "variant": variants[1],
              "replaces": f"{JAX_SRC}/attention.py:95", "launches": launches["bwd"],
-             "ms": kb_, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+             "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound_ms": bb, "bound_by": bb_by,
+             "library_ms": bwd["sdpa"]}]
 
     def time_vit_pgd(self, entry, cfg, model_tree, normalize, x, y) -> dict:
         """ViT-B PGD-10 images/s with each kernel field and none: two turns
@@ -2954,6 +3107,43 @@ class Smoke:
             print(f"phase 6 PGD-{PGD_STEPS} google_vit+LoRA bf16 B={BATCH}, {label}: {ms:.2f} "
                   f"ms/batch, {BATCH * 1000 / ms:.2f} images/s {self.card}", flush=True)
         return best
+
+    def time_vit_pgd_bwd_routes(self, entry, cfg, model, normalize, x, y) -> dict:
+        """ViT-B/16 PGD-10 at BATCH, bf16, fields off, images/s with the packed
+        attention's backward on the wgmma_stream roles (the model's own path)
+        and on the whole-head wgmma backward they replaced
+        (:func:`wg_attention_packed` through ``plain_path``: its launches are
+        not counted), in turns, best of 3 each."""
+        import torch
+
+        ka = self.ka
+        pgd = self.make_pgd(entry, cfg, normalize)
+
+        def run():
+            return pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
+
+        wg_attention = wg_attention_packed(ka)
+
+        def replaced():
+            with plain_path(self.vit, "attention_packed", wg_attention):
+                return run()
+
+        counters = {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")}
+        adv, launches = self.counted(counters, run)
+        calls = cfg.depth * PGD_STEPS
+        check(launches == {"fwd": calls, "bwd": calls}, f"ViT-B/16 PGD-10 launches {launches}")
+        adv_wg, wg_launches = self.counted(counters, replaced)
+        check(wg_launches == {"fwd": 0, "bwd": 0}, f"the replaced route moved a count {wg_launches}")
+        check(torch.equal(adv, adv_wg), "PGD-10 on the replaced backward is not the same images")
+        ms = rivals({"wgmma_stream": run, "whole-head wgmma (replaced)": replaced}, iters=2,
+                    rounds=3)
+        print(f"phase 6 PGD-{PGD_STEPS} google_vit+LoRA bf16 B={BATCH}, fields off, the packed "
+              f"attention's backward in turns, best of 3: " + "; ".join(
+                  f"on {name} {t:.2f} ms/batch, {BATCH * 1000 / t:.2f} images/s"
+                  for name, t in ms.items())
+              + f"; the same images bit for bit; launches {launches} (the replaced route's run: "
+              f"none counted) {self.card}", flush=True)
+        return ms
 
     def train_callables(self, entry, tree, normalize, kind: str) -> dict:
         """``{label: one training step}`` for ``kind`` = "train" (full
@@ -3689,50 +3879,51 @@ class Smoke:
     def time_attention_tp(self, launches: dict) -> list[dict]:
         """Packed attention at the tensor-parallel shape of phase 10 (b): each
         rank's 6 of ViT-B's 12 heads on its TP_BATCH/2 rows, (8, 197, 6, 64):
-        kernel against plain (forward and backward), bound, SDPA."""
+        kernel against plain (forward and backward); kernel, plain and SDPA by
+        CUDA-graph replay in turns, best of 3 (:func:`graph_turns`); bound."""
         import torch
-        import torch.nn.functional as F
 
         ka = self.ka
         b, n, h, hd = TP_BATCH // TP_MESH[0], 197, 12 // TP_MESH[1], 64
         gen = torch.Generator(self.dev).manual_seed(11)
         q, k, v, do = (torch.randn(b, n, h * hd, device=self.dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(4))
-        check(ka.kernel_variant(torch.bfloat16, n, hd) == "wgmma", "TP shape not on wgmma")
+        variants = [ka.kernel_variant(torch.bfloat16, n, hd, what) for what in ka.DIRECTIONS]
+        check(variants == ["wgmma", "wgmma_stream"], f"TP shape takes {variants}")
         (fa, fr), (ga, gr) = TOL["bfloat16"]
         o, lse = ka.fused_attention_packed_fwd(q, k, v, h, with_lse=True)
         e_f = close(o, ka.attention_packed_reference(q, k, v, h), fa, fr, "tp fwd")
         got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
         want = ka.attention_packed_bwd_reference(q, k, v, do, h)
         e_b = max(close(g_, w_, ga, gr, f"tp d{nm}") for nm, g_, w_ in zip("qkv", got, want))
-        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        doh = do.view(b, n, h, hd).transpose(1, 2)
-        out = F.scaled_dot_product_attention(qh, kh, vh)
-        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                           lambda: ka.attention_packed_reference(q, k, v, h),
-                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
-                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
-                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                               retain_graph=True))
+        qh, kh, vh, doh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v, do))
+        fwd, bwd = graph_turns(
+            {"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+             "plain": lambda: ka.attention_packed_reference(q, k, v, h)},
+            {"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+             "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h)},
+            qh, kh, vh, doh)
         unit, tensor = b * h * n * n * hd, b * n * h * hd * 2
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_BF16)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_BF16)
-        print(f"phase 10 attention_packed at the TP shape {(b, n, h, hd)} bf16 [wgmma]: fwd "
-              f"max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd "
-              f"{kb:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
-              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
-              f"{self.card}", flush=True)
-        src = f"{PKG}/csrc/attention_packed.cu"
+        print(f"phase 10 attention_packed at the TP shape {(b, n, h, hd)} bf16 "
+              f"[{'/'.join(variants)}]: fwd max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; "
+              f"device time (CUDA-graph replay), best of 3: kernel fwd {fwd['kernel']:.4f} ms bwd "
+              f"{bwd['kernel']:.4f} ms; plain fwd {fwd['plain']:.4f} ms bwd {bwd['plain']:.4f} "
+              f"ms; SDPA fwd {fwd['sdpa']:.4f} ms bwd {bwd['sdpa']:.4f} ms; bound fwd {bf:.4f} "
+              f"ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
         self.tp_errs = {"attention_packed_tp_fwd": e_f, "attention_packed_tp_bwd": e_b}
         return [
-            {"name": "attention_packed_tp_fwd", "route": "cuda", "source": src,
+            {"name": "attention_packed_tp_fwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_wgmma.cuh", "variant": variants[0],
              "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
-            {"name": "attention_packed_tp_bwd", "route": "cuda", "source": src,
+             "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound_ms": bf, "bound_by": bf_by,
+             "library_ms": fwd["sdpa"]},
+            {"name": "attention_packed_tp_bwd", "route": "cuda",
+             "source": f"{PKG}/csrc/attn_stream.cuh", "variant": variants[1],
              "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
-             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+             "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound_ms": bb, "bound_by": bb_by,
+             "library_ms": bwd["sdpa"]}]
 
     def bench_expect(self, variant: str, calls: int) -> dict:
         """Each of ``bench_torch.COUNTERS`` that ``calls`` ViT-B PGD-10 calls of
@@ -3960,9 +4151,9 @@ class Smoke:
     def time_attention_f32(self, launches: dict) -> list[dict]:
         """Packed attention in f32 (its CUDA-core device code) at phase 12's
         attack and eval shape, (24, 197, 12, 64): kernel against plain
-        (forward and backward), bound, SDPA."""
+        (forward and backward); kernel, plain and SDPA by CUDA-graph replay in
+        turns, best of 3 (:func:`graph_turns`); bound."""
         import torch
-        import torch.nn.functional as F
 
         ka = self.ka
         b, n, h, hd = PARITY_COUNTS[2] * 12, 197, 12, 64
@@ -3976,34 +4167,33 @@ class Smoke:
         got = ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
         want = ka.attention_packed_bwd_reference(q, k, v, do, h)
         e_b = max(close(g_, w_, ga, gr, f"f32 d{nm}") for nm, g_, w_ in zip("qkv", got, want))
-        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        doh = do.view(b, n, h, hd).transpose(1, 2)
-        out = F.scaled_dot_product_attention(qh, kh, vh)
-        kf, pf, lf = turns(lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                           lambda: ka.attention_packed_reference(q, k, v, h),
-                           library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        kb, pb, lb = turns(lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
-                           lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
-                           library=lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                               retain_graph=True))
+        qh, kh, vh, doh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v, do))
+        fwd, bwd = graph_turns(
+            {"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+             "plain": lambda: ka.attention_packed_reference(q, k, v, h)},
+            {"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+             "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h)},
+            qh, kh, vh, doh)
         unit, tensor = b * h * n * n * hd, b * n * h * hd * 4
         bf, bf_by = bound_ms(4 * unit, 4 * tensor, PEAK_F32)
         bb, bb_by = bound_ms(10 * unit, 7 * tensor, PEAK_F32)
         print(f"phase 12 attention_packed at the parity shape {(b, n, h, hd)} f32 [{variant}]: "
-              f"fwd max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; kernel fwd {kf:.4f} ms bwd "
-              f"{kb:.4f} ms; plain fwd {pf:.4f} ms bwd {pb:.4f} ms; SDPA fwd {lf:.4f} ms bwd "
-              f"{lb:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) bwd {bb:.4f} ms ({bb_by}) "
-              f"{self.card}", flush=True)
+              f"fwd max|err| {e_f:.3e}, dq/dk/dv max|err| {e_b:.3e}; device time (CUDA-graph "
+              f"replay), best of 3: kernel fwd {fwd['kernel']:.4f} ms bwd {bwd['kernel']:.4f} ms; "
+              f"plain fwd {fwd['plain']:.4f} ms bwd {bwd['plain']:.4f} ms; SDPA fwd "
+              f"{fwd['sdpa']:.4f} ms bwd {bwd['sdpa']:.4f} ms; bound fwd {bf:.4f} ms ({bf_by}) "
+              f"bwd {bb:.4f} ms ({bb_by}) {self.card}", flush=True)
         src = f"{PKG}/csrc/attention_packed.cu"
         self.parity_errs = {"attention_packed_f32_fwd": e_f, "attention_packed_f32_bwd": e_b}
         return [
             {"name": "attention_packed_f32_fwd", "route": "cuda", "source": src,
-             "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
-             "ms": kf, "plain_ms": pf, "bound_ms": bf, "bound_by": bf_by, "library_ms": lf},
+             "variant": variant, "replaces": f"{JAX_SRC}/attention.py:230",
+             "launches": launches["fwd"], "ms": fwd["kernel"], "plain_ms": fwd["plain"],
+             "bound_ms": bf, "bound_by": bf_by, "library_ms": fwd["sdpa"]},
             {"name": "attention_packed_f32_bwd", "route": "cuda", "source": src,
-             "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
-             "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": lb}]
+             "variant": variant, "replaces": f"{JAX_SRC}/attention.py:238",
+             "launches": launches["bwd"], "ms": bwd["kernel"], "plain_ms": bwd["plain"],
+             "bound_ms": bb, "bound_by": bb_by, "library_ms": bwd["sdpa"]}]
 
     def time_attention_long(self, launches: dict) -> list[dict]:
         """Packed attention at LONG_MAIN in bf16 (its wgmma_stream device code):
@@ -4037,30 +4227,18 @@ class Smoke:
                      "long fwd, cuda_core")
         e_cb = max(close(g_, w_, ga, gr, f"long d{nm}, cuda_core")
                    for nm, g_, w_ in zip("qkv", ka.cc_bwd(q, k, v, do, h, o_cc, lse_cc), want))
-        qh, kh, vh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v))
-        doh = do.view(b, n, h, hd).transpose(1, 2)
-
-        def leaves():  # new in every call, so that a captured call's autograd nodes are its own
-            return tuple(t.detach().requires_grad_(True) for t in (qh, kh, vh))
-
-        def sdpa_step():
-            qkv = leaves()
-            return torch.autograd.grad(F.scaled_dot_product_attention(*qkv), qkv, doh)
-
-        qe = leaves()  # the eager backward's, from one forward
+        qh, kh, vh, doh = (t.view(b, n, h, hd).transpose(1, 2) for t in (q, k, v, do))
+        qe = tuple(t.detach().requires_grad_(True) for t in (qh, kh, vh))  # the eager backward's
         out = F.scaled_dot_product_attention(*qe)
 
-        fwd = rivals({"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
-                      "replaced": lambda: ka.cc_fwd(q, k, v, h),
-                      "plain": lambda: ka.attention_packed_reference(q, k, v, h),
-                      "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                      "sdpa_grad_on": lambda: F.scaled_dot_product_attention(*leaves())},
-                     timer=graph_ms)
-        bwd = rivals({"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
-                      "replaced": lambda: ka.cc_bwd(q, k, v, do, h, o_cc, lse_cc),
-                      "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h),
-                      "sdpa_step": sdpa_step}, timer=graph_ms)
-        bwd["sdpa"] = bwd["sdpa_step"] - fwd["sdpa_grad_on"]
+        fwd, bwd = graph_turns(
+            {"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
+             "replaced": lambda: ka.cc_fwd(q, k, v, h),
+             "plain": lambda: ka.attention_packed_reference(q, k, v, h)},
+            {"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
+             "replaced": lambda: ka.cc_bwd(q, k, v, do, h, o_cc, lse_cc),
+             "plain": lambda: ka.attention_packed_bwd_reference(q, k, v, do, h)},
+            qh, kh, vh, doh)
         eager_f = rivals({"kernel": lambda: ka.fused_attention_packed_fwd(q, k, v, h),
                           "sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
         eager_b = rivals({"kernel": lambda: ka.fused_attention_packed_bwd(q, k, v, do, h, o, lse),
@@ -4086,11 +4264,13 @@ class Smoke:
         self.long_errs = {"attention_packed_stream_fwd": e_f, "attention_packed_stream_bwd": e_b}
         return [
             {"name": "attention_packed_stream_fwd", "route": "cuda", "source": src,
-             "replaces": f"{JAX_SRC}/attention.py:230", "launches": launches["fwd"],
+             "variant": variant, "replaces": f"{JAX_SRC}/attention.py:230",
+             "launches": launches["fwd"],
              "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound_ms": bf, "bound_by": bf_by,
              "library_ms": fwd["sdpa"]},
             {"name": "attention_packed_stream_bwd", "route": "cuda", "source": src,
-             "replaces": f"{JAX_SRC}/attention.py:238", "launches": launches["bwd"],
+             "variant": variant, "replaces": f"{JAX_SRC}/attention.py:238",
+             "launches": launches["bwd"],
              "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound_ms": bb, "bound_by": bb_by,
              "library_ms": bwd["sdpa"]}]
 
@@ -4225,6 +4405,7 @@ def main(argv=None) -> None:
     err_h = s.bhnd_vs_plain()
     s.long_vs_plain()
     s.stream_vs_plain()
+    s.short_stream_vs_wg()
     s.dwconv_edges()
     s.ln_mlp_seeds()
 
@@ -4322,6 +4503,7 @@ def main(argv=None) -> None:
           f"ms/batch, {BATCH * 1000 / pgd_ms:.2f} images/s {s.card}", flush=True)
     del swin_model, swin_pgd, swin_fused, f_pgd, f_model
     vit_ms = s.time_vit_pgd(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_x, vit_y)
+    s.time_vit_pgd_bwd_routes(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, vit_y)
     s.time_families(vit_entry, vit_cfg, vit_model, vit_norm, vit_x, own, patch_ms, aa_out)
     s.time_convnext_pgd(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x, cnx_y)
     s.time_training(vit_entry, vit_tree, vit_norm)
@@ -4388,8 +4570,11 @@ def main(argv=None) -> None:
             "bound_ms", "bound_by", "library_ms")
     # composition_ms: where no one PyTorch call computes the function (library_ms null),
     # the time of the library calls composed to compute it; null for the other kernels
-    rows = [{"composition_ms": None, **k, "max_abs_err": errs[k["name"]]} for k in kernels]
-    print(json.dumps({"kernels": [{key: row[key] for key in (*keys, "composition_ms")}
+    # variant: the device code of packed and head-major attention's rows (kernel_variant in
+    # that direction); null for the other kernels
+    rows = [{"composition_ms": None, "variant": None, **k, "max_abs_err": errs[k["name"]]}
+            for k in kernels]
+    print(json.dumps({"kernels": [{key: row[key] for key in (*keys, "composition_ms", "variant")}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -220,16 +220,27 @@ def test_plain_bf16_at_tile_edges_matches_jax(n):
                                    atol=5e-2, rtol=5e-2)
 
 
-@pytest.mark.parametrize("dtype, n, hd, want", [
-    (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 1, 64, "wgmma"),
-    (torch.bfloat16, 256, 64, "wgmma"), (torch.bfloat16, 257, 64, "wgmma_stream"),
-    (torch.bfloat16, 320, 64, "wgmma_stream"), (torch.bfloat16, 577, 64, "wgmma_stream"),
-    (torch.bfloat16, 1025, 64, "wgmma_stream"), (torch.bfloat16, 577, 32, "cuda_core"),
-    (torch.bfloat16, 37, 32, "mma_sync"), (torch.bfloat16, 300, 32, "cuda_core"),
-    (torch.float32, 197, 64, "cuda_core"), (torch.float32, 37, 32, "cuda_core"),
-    (torch.float32, 577, 64, "cuda_core"), (torch.float32, 1025, 32, "cuda_core")])
-def test_kernel_variant_by_shape(dtype, n, hd, want):
-    assert tka.kernel_variant(dtype, n, hd) == want
+@pytest.mark.parametrize("dtype, n, hd, direction, want", [
+    (torch.bfloat16, 197, 64, "fwd", "wgmma"), (torch.bfloat16, 1, 64, "fwd", "wgmma"),
+    (torch.bfloat16, 256, 64, "fwd", "wgmma"), (torch.bfloat16, 257, 64, "fwd", "wgmma_stream"),
+    (torch.bfloat16, 320, 64, "fwd", "wgmma_stream"),
+    (torch.bfloat16, 577, 64, "fwd", "wgmma_stream"),
+    (torch.bfloat16, 1025, 64, "fwd", "wgmma_stream"),
+    (torch.bfloat16, 577, 32, "fwd", "cuda_core"), (torch.bfloat16, 37, 32, "fwd", "mma_sync"),
+    (torch.bfloat16, 300, 32, "fwd", "cuda_core"), (torch.float32, 197, 64, "fwd", "cuda_core"),
+    (torch.float32, 37, 32, "fwd", "cuda_core"), (torch.float32, 577, 64, "fwd", "cuda_core"),
+    (torch.float32, 1025, 32, "fwd", "cuda_core"),
+    # the backward: bf16 with hd 64 takes the streamed roles at every N
+    (torch.bfloat16, 1, 64, "bwd", "wgmma_stream"), (torch.bfloat16, 64, 64, "bwd", "wgmma_stream"),
+    (torch.bfloat16, 197, 64, "bwd", "wgmma_stream"),
+    (torch.bfloat16, 256, 64, "bwd", "wgmma_stream"),
+    (torch.bfloat16, 257, 64, "bwd", "wgmma_stream"),
+    (torch.bfloat16, 577, 64, "bwd", "wgmma_stream"), (torch.bfloat16, 37, 32, "bwd", "mma_sync"),
+    (torch.bfloat16, 577, 32, "bwd", "cuda_core"), (torch.float32, 197, 64, "bwd", "cuda_core")])
+def test_kernel_variant_by_shape(dtype, n, hd, direction, want):
+    assert tka.kernel_variant(dtype, n, hd, direction) == want
+    if direction == "fwd":  # the forward is the default direction
+        assert tka.kernel_variant(dtype, n, hd) == want
 
 
 @pytest.mark.parametrize("n", [1, 64, 197, 209, 385, 577, 1025])
@@ -253,16 +264,19 @@ def test_cuda_core_plan_fits_the_card_at_any_length(dtype, hd, n):
         assert kernel["threads"] == 32 * warps and kernel["rows"] % (2 * warps) == 0
 
 
-@pytest.mark.parametrize("n", [257, 320, 385, 577, 1025, 4097])
+@pytest.mark.parametrize("n", [257, 320, 385, 577, 1025, 4097, 1, 63, 64, 65, 197, 256])
 def test_stream_plan_fits_the_card_at_any_length(n):
-    """The streamed route's shared memory, forward and backward, fits a block's
-    232,448 bytes and is the same at every N > 256; two forward CTAs and three
-    backward CTAs fit an SM's 228 KB; the CTAs along N cover every row once
-    (the backward's, once for each of its two roles), a warpgroup of 128
-    threads a 64-row tile."""
+    """The streamed route's shared memory, forward (N > 256) and backward
+    (every N), fits a block's 232,448 bytes and is the same at every N; two
+    forward CTAs and three backward CTAs fit an SM's 228 KB; the CTAs along
+    N cover every row once (the backward's, once for each of its two roles),
+    a warpgroup of 128 threads a 64-row tile. At N <= 256 the plan has the
+    backward alone: the forward there is the whole-head ``"wgmma"`` code."""
     plan = tka.kernel_plan(torch.bfloat16, n, 64, variant="wgmma_stream")
     first = tka.kernel_plan(torch.bfloat16, 257, 64, variant="wgmma_stream")
-    assert set(plan) == {"fwd", "bwd"}
+    assert set(plan) == ({"fwd", "bwd"} if n > 256 else {"bwd"})
+    assert set(plan) == {d for d in tka.DIRECTIONS
+                         if tka.kernel_variant(torch.bfloat16, n, 64, d) == "wgmma_stream"}
     for name, kernel in plan.items():
         assert kernel["smem"] <= tka.MAX_SMEM == 232_448
         assert {k: v for k, v in kernel.items() if k != "ctas"} == \
@@ -273,7 +287,7 @@ def test_stream_plan_fits_the_card_at_any_length(n):
         assert ctas * kernel["rows"] >= n > (ctas - 1) * kernel["rows"]
         assert kernel["rows"] == 64 * kernel["warpgroups"]
         assert kernel["threads"] == 128 * kernel["warpgroups"] and kernel["stages"] >= 2
-    assert 2 * plan["fwd"]["smem"] <= 228 * 1024 and 3 * plan["bwd"]["smem"] <= 228 * 1024
+    assert 2 * first["fwd"]["smem"] <= 228 * 1024 and 3 * plan["bwd"]["smem"] <= 228 * 1024
     # the backward's scratch: lse2 and D of every row, padded to 64-row blocks
     assert tka.stream_work_floats(8, n, 12) == 8 * 12 * -(-n // 64) * 128
     with pytest.raises(ValueError, match="bf16 with hd 64"):
@@ -398,7 +412,7 @@ def test_diagnose_script_edits_find_their_places():
     assert '#include "' not in text and text.count("namespace cc {") == 1
     assert text.count("namespace wgs {") == 1
     out = attention_diagnose.variants(text)
-    assert out["kernel"] == text and len({*out.values()}) == len(out) == 22
+    assert out["kernel"] == text and len({*out.values()}) == len(out) == 26
     assert set(attention_diagnose.EXACT) < set(out)
     for label, src in out.items():  # every other route as it is
         ns = "wgs" if label.startswith("stream:") else "cc"
@@ -412,9 +426,19 @@ def test_diagnose_script_edits_find_their_places():
     assert lane0.count("if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);") == 4
     assert lane0.count("mbar_init(&empty[s], 4 * nwg);") == 2
     assert "if (!kv) return;" in out["stream: dK/dV role alone"]
+    assert "if (false) stream_stats<<<" in out["stream: backward without its pre-pass"]
+    halves = out["stream: backward roles in two halves"]
+    assert "const bool kv = (int)blockIdx.x < per;" in halves and "r < ZS" not in halves
+    first = out["stream: backward first pre-pass"]
+    assert "constexpr int kStatThreads = 256;" in first and "uint4 x[kPasses]" not in first
+    built = out["stream: backward as first built"]
+    assert "kStatThreads = 256;" in built
+    assert "const bool kv = (int)blockIdx.x < per;" in built
     shapes = {s[:4]: s[4] for s in attention_diagnose.SHAPES}
     assert shapes[(8, 577, 12, 64)] == "bfloat16"  # the streamed route's shape, and its dtype
+    assert shapes[(64, 197, 12, 64)] == "bfloat16"  # the main path's: the streamed backward
     assert tka.kernel_variant(torch.bfloat16, 577, 64) == "wgmma_stream"
+    assert tka.kernel_variant(torch.bfloat16, 197, 64, "bwd") == "wgmma_stream"
     with pytest.raises(RuntimeError, match="found nothing"):
         attention_diagnose.variants(text.replace("acc_nn<HD>(acc, X,", "acc_nn<HD>(acc, Xs,"))
     with pytest.raises(RuntimeError, match="found nothing"):
@@ -423,23 +447,30 @@ def test_diagnose_script_edits_find_their_places():
 
 
 def test_diagnose_times_each_edit_at_its_own_variants_shapes():
-    """A shape of ``attention_diagnose.SHAPES`` is timed with the kernel and
-    the edits of the variant it takes: no ``cc`` edit at the bf16 streamed
-    shape, no ``wgs`` edit at the f32 shapes, and every edit at some shape."""
+    """A shape of ``attention_diagnose.SHAPES`` is timed, in each direction,
+    with the kernel and the edits of the variant that direction takes: no
+    ``cc`` edit at the bf16 streamed shapes, no ``wgs`` edit at the f32
+    shapes, nothing for the whole-head forward at N = 197 (no edit changes
+    it), and every edit at some shape."""
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import _build
     from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import attention_diagnose
 
     labels = list(attention_diagnose.variants(_build.inlined("attention_packed.cu")))
-    timed = {}
+    timed, skipped = {}, []
     for b, n, h, hd, dtype_name in attention_diagnose.SHAPES:
-        variant = tka.kernel_variant(getattr(torch, dtype_name), n, hd)
-        timed[variant] = attention_diagnose.edits_at(labels, variant)
+        for direction in tka.DIRECTIONS:
+            variant = tka.kernel_variant(getattr(torch, dtype_name), n, hd, direction)
+            if variant not in attention_diagnose.NAMESPACE:
+                skipped.append((n, dtype_name, direction, variant))
+                continue
+            timed[variant] = attention_diagnose.edits_at(labels, variant)
+    assert skipped == [(197, "bfloat16", "fwd", "wgmma")]
     assert set(timed) == {"cuda_core", "wgmma_stream"}
     assert timed["wgmma_stream"][0] == timed["cuda_core"][0] == "kernel"
     assert all(label.startswith("stream:") for label in timed["wgmma_stream"][1:])
     assert not any(label.startswith("stream:") for label in timed["cuda_core"])
     assert set(timed["wgmma_stream"]) | set(timed["cuda_core"]) == set(labels)
-    assert len(timed["wgmma_stream"]) == 9 and len(timed["cuda_core"]) == 14
+    assert len(timed["wgmma_stream"]) == 13 and len(timed["cuda_core"]) == 14
 
 
 def test_planted_faults_skip_one_block_of_the_streamed_route():
@@ -470,6 +501,61 @@ def test_planted_faults_skip_one_block_of_the_streamed_route():
     assert "if (i != 3) by_width(i, NB, NL, [&](auto w) {\n        wg::dkv_block" in dkv
     with pytest.raises(RuntimeError, match="found nothing"):
         attention_diagnose.planted_faults(text.replace("wg::dq_block<", "wg::dq_blk<"))
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+@pytest.mark.parametrize("dtype, n, streamed", [
+    (torch.bfloat16, 197, True), (torch.bfloat16, 1, True), (torch.bfloat16, 577, True),
+    (torch.bfloat16, 37, False), (torch.float32, 197, False)])
+def test_launch_bwd_gives_the_streamed_roles_their_scratch(monkeypatch, layout, dtype, n,
+                                                           streamed):
+    """``_launch_bwd`` with the library replaced by a recorder (no card here):
+    wherever the backward's variant is ``"wgmma_stream"`` (bf16, hd 64, at
+    ViT-B's N = 197 as past 256) the C entry gets a scratch of
+    ``stream_work_floats(b, n, h)`` f32 as its 7th pointer, elsewhere a null
+    one; the launch count moves once a call."""
+    b, h, hd = 2, 3, 64 if dtype == torch.bfloat16 and n != 37 else 32
+    seen, scratch = {}, []
+
+    class Lib:
+        def record(self, *args):
+            seen["args"] = args
+            return 0
+
+        apvt_attn_packed_bwd = apvt_attn_bhnd_bwd = record
+
+    real_empty = torch.empty
+
+    def empty(*size, **kw):
+        t = real_empty(*size, **kw)
+        if kw.get("dtype") == torch.float32:
+            scratch.append(t)
+        return t
+
+    monkeypatch.setattr(tka, "_lib", Lib)
+    monkeypatch.setattr(tka, "_check", lambda *ts, heads: (b, n, h, hd, tka._DTYPE_CODE[dtype]))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch, "empty", empty)
+    shape = (b, n, h * hd) if layout == "packed" else (b, h, n, hd)
+    q, k, v, do, o = (real_empty(shape, dtype=dtype) for _ in range(5))
+    lse = real_empty((b, h, n), dtype=torch.float32)
+    names = ("BWD_LAUNCHES",) if layout == "packed" else ("BHND_BWD_LAUNCHES",)
+    before = getattr(tka, names[0])
+    if layout == "packed":
+        grads = tka.fused_attention_packed_bwd(q, k, v, do, h, o, lse)
+    else:
+        grads = tka.fused_attention_bwd(q, k, v, do, o, lse)
+    assert getattr(tka, names[0]) == before + 1
+    assert [g.shape for g in grads] == [shape] * 3
+    assert tka.kernel_variant(dtype, n, hd, "bwd") == ("wgmma_stream" if streamed else
+                                                      tka.kernel_variant(dtype, n, hd))
+    work = seen["args"][6]
+    if streamed:
+        assert len(scratch) == 1 and work == scratch[0].data_ptr()
+        assert scratch[0].numel() == tka.stream_work_floats(b, n, h) == b * h * -(-n // 64) * 128
+    else:
+        assert scratch == [] and work is None
 
 
 def test_streamed_backward_without_its_scratch_is_a_named_error():
