@@ -21,6 +21,12 @@ mesh (``parallel.mesh``) it is the draw over the global batch, of which this
 rank keeps its rows, so a sharded run is the single-process run. A caller
 that holds the draw itself (another framework's, in a parity test) passes it
 as ``noise`` instead.
+
+While a profiler records, each stage opens its span
+(``utils.observability.span``): PGD's random start (``attack.start``), each
+iteration (``attack.step``), within it the model's forward and loss
+(``attack.forward``, FGSM's too), the input gradient (``attack.backward``)
+and the signed step with its projection (``attack.update``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, Optional
 import torch
 
 from ..parallel import mesh as pmesh
+from ..utils.observability import span
 from .common import IMAGENET, Normalizer, frozen, linf_project, sum_cross_entropy, to_unit_floats
 
 
@@ -38,8 +45,10 @@ def _loss_grad(apply_fn: Callable, normalize: Normalizer):
     def grad(x: torch.Tensor, params, labels: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
-            loss = sum_cross_entropy(apply_fn(params, normalize(x)), labels)
-            (g,) = torch.autograd.grad(loss, x)
+            with span("attack.forward"):
+                loss = sum_cross_entropy(apply_fn(params, normalize(x)), labels)
+            with span("attack.backward"):
+                (g,) = torch.autograd.grad(loss, x)
         return g
 
     return grad
@@ -65,16 +74,19 @@ def pgd(apply_fn: Callable, params, images: torch.Tensor, labels: torch.Tensor, 
     grad_fn = _loss_grad(apply_fn, normalize)
     x = images
     if random_start:
-        if noise is None:
-            if generator is None:
-                generator = torch.Generator(images.device).manual_seed(0)
-            total, rows = pmesh.data_rows(pmesh.mesh_of(params), images.shape[0])
-            noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
-                -eps, eps, generator=generator)[rows]
-        x = linf_project(images + noise, images, eps)
+        with span("attack.start"):
+            if noise is None:
+                if generator is None:
+                    generator = torch.Generator(images.device).manual_seed(0)
+                total, rows = pmesh.data_rows(pmesh.mesh_of(params), images.shape[0])
+                noise = torch.empty((total, *images.shape[1:]), device=images.device).uniform_(
+                    -eps, eps, generator=generator)[rows]
+            x = linf_project(images + noise, images, eps)
     for _ in range(steps):
-        g = grad_fn(x, params, labels)
-        x = linf_project(x + alpha * torch.sign(g), images, eps)
+        with span("attack.step"):
+            g = grad_fn(x, params, labels)
+            with span("attack.update"):
+                x = linf_project(x + alpha * torch.sign(g), images, eps)
     return x
 
 

@@ -6,7 +6,9 @@ the backbone's bf16 params, ``--iters`` chained forward passes at
 ``--batch``): prints the chained wall on the host clock and its images/s,
 then one warm loop inside ``utils.observability.profile_trace`` (the trace
 file under ``--out``) and ``tools/trace_table.py``'s table, so device time
-per image can be read against the wall; ``--table_json`` writes the table.
+per image can be read against the wall (the eval step opens no span of its
+own: its idle gaps fall outside the program's spans); ``--table_json``
+writes the table.
 
 Usage: python -m <port>.tools.profile_eval [--backbone google_vit] [--batch 256]
        [--iters 8] [--top 25] [--out DIR] [--table_json T.json] [--device cuda|cpu]

@@ -5,8 +5,9 @@ Traces exactly the program ``tools/bench_zoo.py`` times (``bench_zoo.build``:
 the backbone's bf16 params, PGD-``--steps`` at ``--batch``), one warm call
 inside ``utils.observability.profile_trace`` (the trace file under
 ``--out``), and prints ``tools/trace_table.py``'s table: device ms per kernel
-group, the top kernels, the device's busy time and the idle share against
-the unprofiled wall. ``--table_json`` writes the table. The port has no
+group, the top kernels, the device's busy time, the idle share against
+the unprofiled wall, and the idle gaps by the attack's span (its start,
+each step's forward, backward and update) that was open when each began. ``--table_json`` writes the table. The port has no
 scanned encoder, so ``--scan`` is refused.
 
 Usage: python -m <port>.tools.profile_pgd [--backbone google_vit] [--batch 64]

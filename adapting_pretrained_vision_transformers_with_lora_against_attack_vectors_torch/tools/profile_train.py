@@ -4,8 +4,9 @@ the port's counterpart of ``tools/profile_train.py``.
 Traces exactly the step ``tools/bench_train.py`` times
 (``bench_train.build_step``: ViT-B/16, batch ``--batch``, ``--mode`` full or
 LoRA), one warm step inside ``utils.observability.profile_trace`` (the trace
-file under ``--out``), and prints ``tools/trace_table.py``'s table;
-``--table_json`` writes it.
+file under ``--out``), and prints ``tools/trace_table.py``'s table, the idle
+gaps by the step's span (input, forward, backward, optimizer, metrics)
+among it; ``--table_json`` writes it.
 
 Usage: python -m <port>.tools.profile_train [--mode lora] [--batch 64]
        [--top 25] [--out DIR] [--table_json T.json] [--no-augment]

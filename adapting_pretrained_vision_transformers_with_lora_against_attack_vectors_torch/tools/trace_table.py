@@ -6,9 +6,13 @@ lanes by fusion). :func:`summarize` reads the profiler's CUDA kernel events
 and gives device ms and calls per group (:data:`GROUPS`, one per device
 function of this repo, then the library's), the top kernels by name (the
 ``ops`` rows, with the JAX table's keys), the union of the kernel intervals
-(the device's busy time) and, against the unprofiled wall of one call, the
-idle share. A trace without CUDA events (a CPU run) has no device numbers:
-they are None, never a CPU time under a device name.
+(the device's busy time), against the unprofiled wall of one call, the
+idle share, and the idle gaps between kernels by the program's span
+(``utils.observability.span``) that was innermost when each gap began:
+which phase of the step kept the card waiting. The profiler's device-side
+mirrors of host ranges are not kernels and are left out. A trace without
+CUDA events (a CPU run) has no device numbers: they are None, never a CPU
+time under a device name.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ import json
 import os
 import re
 from typing import Optional
+
+from ..utils.observability import SPAN_PREFIX
+
+OUTSIDE = "outside the program's spans"
 
 # device time by kernel group, first match wins (one group per device function
 # of this repo, then the library's)
@@ -45,16 +53,36 @@ GROUPS = (("dwconv7 (this repo)", r"dwconv7_tma|dwconv7_kernel"),
           ("other elementwise, fills, reductions", r".*"))
 
 
+def _merged(intervals: list) -> list:
+    """(start, end) intervals merged where they touch or overlap, in order."""
+    out: list = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def _union_ms(spans: list) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
-    spans = sorted(spans)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo, hi = busy + (hi - lo), a, b
-        else:
-            hi = max(hi, b)
-    return (busy + hi - lo) / 1e3
+    return sum(b - a for a, b in _merged(spans)) / 1e3
+
+
+def idle_by_span(kernels: list, spans: list) -> list:
+    """``[{"span", "idle_ms", "gaps"}]``, most idle first: each gap between
+    the merged (start, end) microsecond ``kernels`` goes to the innermost of
+    the ``spans`` (name, start, end) open when it begins (the latest opened,
+    of two opened together the first to close), or to :data:`OUTSIDE`."""
+    merged = _merged(kernels)
+    total: dict = {}
+    for (_, end), (start, _) in zip(merged, merged[1:]):
+        open_ = [s for s in spans if s[1] <= end < s[2]]
+        label = max(open_, key=lambda s: (s[1], -s[2]))[0] if open_ else OUTSIDE
+        ms, gaps = total.get(label, (0.0, 0))
+        total[label] = (ms + (start - end) / 1e3, gaps + 1)
+    return [{"span": k, "idle_ms": ms, "gaps": n}
+            for k, (ms, n) in sorted(total.items(), key=lambda kv: -kv[1][0])]
 
 
 def summarize(prof, *, wall_ms: Optional[float] = None, top: int = 25,
@@ -64,16 +92,21 @@ def summarize(prof, *, wall_ms: Optional[float] = None, top: int = 25,
     kernels by name: ``op``, ``total_ms``, ``count``, ``pct``), ``groups``
     (every group with a kernel: ``group``, ``total_ms``, ``count``, ``pct``),
     ``intervals`` and ``busy_ms`` (the union of the kernel intervals),
-    ``wall_ms`` (the caller's unprofiled ms for the region) and
-    ``idle_share`` (1 - busy / wall, None without a wall)."""
+    ``wall_ms`` (the caller's unprofiled ms for the region), ``idle_share``
+    (1 - busy / wall, None without a wall) and ``idle_by_span``
+    (:func:`idle_by_span` over the program's spans, None without kernels)."""
     import torch
 
     groups = {g: [0.0, 0] for g, _ in GROUPS}
     by_name: dict = {}
-    spans = []
+    spans, program = [], []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name.startswith(SPAN_PREFIX):
+                program.append((ev.name, ev.time_range.start, ev.time_range.end))
             continue
+        if getattr(ev, "is_user_annotation", False) or ev.name.startswith(SPAN_PREFIX):
+            continue  # a host range mirrored onto the device's timeline, not a kernel
         dur = (ev.time_range.end - ev.time_range.start) / 1e3  # ms
         group = next(g for g, pat in GROUPS if re.search(pat, ev.name))
         groups[group][0] += dur
@@ -100,12 +133,14 @@ def summarize(prof, *, wall_ms: Optional[float] = None, top: int = 25,
         "wall_ms": wall_ms,
         "idle_share": (max(0.0, 1.0 - busy / wall_ms)
                        if busy is not None and wall_ms else None),
+        "idle_by_span": idle_by_span(spans, program) if spans else None,
     }
 
 
 def lines(table: dict, head: str, what: str, card: str = "", *, top: int = 0) -> list[str]:
-    """The printed form: a summary line, one line per group, and with ``top``
-    > 0 that many kernels by name."""
+    """The printed form: a summary line, one line per group, one per span
+    that the idle gaps went to, and with ``top`` > 0 that many kernels by
+    name."""
     if table["busy_ms"] is None:
         return [f"{head} {what} {card}: no device activity in the trace (a CPU run has no "
                 f"device time)"]
@@ -117,6 +152,8 @@ def lines(table: dict, head: str, what: str, card: str = "", *, top: int = 0) ->
            + (f"{idle:.1%}" if idle is not None else "not measured")]
     out += [f"{head}:   {g['group']:40s} {g['total_ms']:9.2f} ms {g['pct'] / 100:6.1%}  "
             f"{g['count']} calls" for g in table["groups"]]
+    out += [f"{head}:   idle in {i['span']:38s} {i['idle_ms']:9.2f} ms  {i['gaps']} gaps"
+            for i in table.get("idle_by_span") or ()]
     out += [f"{head}:     top kernel {op['total_ms']:9.2f} ms  {op['op'][:120]}"
             for op in table["ops"][:top]]
     return out

@@ -26,6 +26,12 @@ group no gradient is reduced again: a split leaf keeps its own slice's
 gradient, and a whole leaf already gets the same gradient on every rank
 (``parallel.tp``). The augmentation's draws are the draws over the global
 batch, of which each rank keeps its rows.
+
+While a profiler records, a train step opens its span (``train.step``,
+``utils.observability.span``) and within it one span a phase: ``train.input``
+(unit floats, augmentation, normalization), ``train.forward`` (the forward
+and the loss), ``train.backward`` (the gradients, summed over ``"data"``),
+``train.optimizer`` (the lr and the update) and ``train.metrics``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 
 from ..attacks.common import IMAGENET, Normalizer, to_unit_floats
 from ..parallel import mesh as pmesh
+from ..utils.observability import span
 
 
 @dataclasses.dataclass
@@ -104,35 +111,40 @@ def make_train_step(forward: Callable[[Any, torch.Tensor], torch.Tensor], model,
     mesh = pmesh.mesh_of(model)
 
     def train_step(state: TrainState, images, labels, valid):
-        x = to_unit_floats(images)
-        if augment is not None:
-            x = (augment(x, generator) if mesh is None
-                 else augment(x, generator, rows=pmesh.data_rows(mesh, x.shape[0])))
-        if normalize is not None:
-            x = normalize(x)
-        labels, valid = labels.long(), valid.float()
-        logits = forward(model, x).float()
-        ce = F.cross_entropy(logits, labels, reduction="none")
-        count = pmesh.all_reduce(valid.sum(), mesh, pmesh.DATA_AXIS)
-        loss = (ce * valid).sum() / count.clamp_min(1.0)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in state.trainable.values() if p.grad is not None]
-        for dtype in {g.dtype for g in grads}:
-            _sum_over_data([g for g in grads if g.dtype == dtype], mesh)
-        if state.schedule is not None:
-            lr = state.schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        with torch.no_grad():
-            correct = ((logits.argmax(dim=-1) == labels).float() * valid).sum()
-            sharded = pmesh.axis_size(mesh, pmesh.DATA_AXIS) > 1
-            local = (ce * valid).sum() if sharded else None
-            _sum_over_data([correct, *([local] if local is not None else [])], mesh)
-            loss_sum = local if sharded else loss.detach() * count
-            metrics = {"loss_sum": loss_sum, "correct": correct, "count": count}
+        with span("train.step"):
+            with span("train.input"):
+                x = to_unit_floats(images)
+                if augment is not None:
+                    x = (augment(x, generator) if mesh is None
+                         else augment(x, generator, rows=pmesh.data_rows(mesh, x.shape[0])))
+                if normalize is not None:
+                    x = normalize(x)
+            with span("train.forward"):
+                labels, valid = labels.long(), valid.float()
+                logits = forward(model, x).float()
+                ce = F.cross_entropy(logits, labels, reduction="none")
+                count = pmesh.all_reduce(valid.sum(), mesh, pmesh.DATA_AXIS)
+                loss = (ce * valid).sum() / count.clamp_min(1.0)
+            with span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                grads = [p.grad for p in state.trainable.values() if p.grad is not None]
+                for dtype in {g.dtype for g in grads}:
+                    _sum_over_data([g for g in grads if g.dtype == dtype], mesh)
+            with span("train.optimizer"):
+                if state.schedule is not None:
+                    lr = state.schedule(state.step)
+                    for group in state.optimizer.param_groups:
+                        group["lr"] = lr
+                state.optimizer.step()
+                state.step += 1
+            with span("train.metrics"), torch.no_grad():
+                correct = ((logits.argmax(dim=-1) == labels).float() * valid).sum()
+                sharded = pmesh.axis_size(mesh, pmesh.DATA_AXIS) > 1
+                local = (ce * valid).sum() if sharded else None
+                _sum_over_data([correct, *([local] if local is not None else [])], mesh)
+                loss_sum = local if sharded else loss.detach() * count
+                metrics = {"loss_sum": loss_sum, "correct": correct, "count": count}
         return state, metrics
 
     return train_step

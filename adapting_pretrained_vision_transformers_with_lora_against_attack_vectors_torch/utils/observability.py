@@ -1,18 +1,21 @@
-"""Observability: structured JSONL metrics, step timing, a profiler scope
-and a NaN guard.
+"""Observability: structured JSONL metrics, the program's trace spans, a
+profiler scope and a NaN guard.
 
 Counterpart of the JAX package's ``utils/observability.py``:
 
 * :class:`MetricsLogger`: append-only JSONL event stream (one object per
   line: ts, step, event, payload) next to the run's artifacts, with the same
   keys as the JAX class writes;
-* :class:`StepTimer`: EMA step timing and images/s on the host clock (the
-  caller synchronizes where it needs device time);
+* :func:`span`: a named range of the program (``apvt.<name>``) on the
+  profiler's timeline, opened only while a profiler records;
 * :func:`profile_trace`: a ``torch.profiler`` scope that records host and,
   where there is a card, CUDA activity, and writes a TensorBoard-loadable
   trace under its directory;
 * :func:`assert_finite`: NaN/Inf guard for dict trees at stage boundaries (a
   debug tool; it copies every leaf to the host).
+
+Host step timing is the callers' own (``tools/timing``, the benchmark's
+clock); the JAX package's ``StepTimer`` has no counterpart here.
 """
 
 from __future__ import annotations
@@ -61,30 +64,22 @@ class MetricsLogger:
         self.close()
 
 
-class StepTimer:
-    """EMA step timing; call :meth:`tick` once per step on the host."""
+SPAN_PREFIX = "apvt."  # the program's spans on the profiler's timeline
+_CLOSED = contextlib.nullcontext()  # what a span is while no profiler records
 
-    def __init__(self, *, ema: float = 0.9):
-        self._ema = ema
-        self._avg: Optional[float] = None
-        self._last: Optional[float] = None
 
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            self._avg = dt if self._avg is None else (
-                self._ema * self._avg + (1 - self._ema) * dt)
-        self._last = now
-        return dt
-
-    @property
-    def seconds_per_step(self) -> Optional[float]:
-        return self._avg
-
-    def images_per_second(self, batch_size: int) -> Optional[float]:
-        return batch_size / self._avg if self._avg else None
+def span(name: str):
+    """The program's range ``apvt.<name>`` on the profiler's timeline: a
+    ``torch.profiler.record_function`` while a profiler records, so its host
+    interval lies on the trace's timeline beside the device's operations
+    (whose timestamps the profiler converts to the host's clock); nested
+    spans nest there. With no profiler on it opens nothing: one shared
+    ``contextlib.nullcontext()`` (a ``record_function`` costs microseconds an
+    enter and exit even then, and an attack batch opens over a hundred). A
+    torch without the profiler's flag gets the ``record_function`` always."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _CLOSED
 
 
 @contextlib.contextmanager

@@ -170,10 +170,12 @@ def test_profile_pgd_and_eval_tables(tmp_path, monkeypatch):
                                                  "--iters", "1", "--out", str(tmp_path / "e")])):
         j, t = _run_both(name, port_main, args, tmp_path, monkeypatch)
         assert set(j) == top_keys <= set(t)
-        assert set(t) - top_keys == {"groups", "intervals", "busy_ms", "wall_ms", "idle_share"}
+        assert set(t) - top_keys == {"groups", "intervals", "busy_ms", "wall_ms", "idle_share",
+                                     "idle_by_span"}
         # a CPU run: a trace file, no device numbers
         assert os.path.exists(t["trace"]) and t["trace"].endswith(".pt.trace.json")
         assert t["device_total_ms"] is None and t["busy_ms"] is None and t["ops"] == []
+        assert t["idle_by_span"] is None
     assert op_keys == {"op", "total_ms", "count", "pct"}
 
 
@@ -222,4 +224,9 @@ def test_trace_table_groups_union_and_idle_share():
     assert text[0] == ("head what [card]: unprofiled 10.00 ms/call; one traced call: device "
                        "busy 4.00 ms (union of 5 kernel intervals), kernel time 4.50 ms, idle "
                        "share of the unprofiled wall 60.0%")
-    assert len(text) == 1 + 4 + 1 and "top kernel" in text[-1]
+    # the two gaps (2000-3000, 4500-6000 us) lie outside every program span
+    assert t["idle_by_span"] == [{"span": trace_table.OUTSIDE, "idle_ms": pytest.approx(2.5),
+                                  "gaps": 2}]
+    assert len(text) == 1 + 4 + 1 + 1 and "top kernel" in text[-1]
+    assert text[-2].split() == ["head:", "idle", "in", "outside", "the", "program's", "spans",
+                                "2.50", "ms", "2", "gaps"]

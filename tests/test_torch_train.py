@@ -368,19 +368,6 @@ def test_train_lora_adapter_base_frozen_and_loads_in_jax(mode, data, tmp_path):
     assert not model.training
 
 
-def test_step_timer_equals_jax(monkeypatch):
-    """The EMA step timer on a scripted clock, in both packages."""
-    out = {}
-    for name, mod in (("port", tobs), ("jax", jobs)):
-        ticks = iter([10.0, 10.5, 11.5, 11.75])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        timer = mod.StepTimer(ema=0.5)
-        assert timer.seconds_per_step is None and timer.images_per_second(8) is None
-        out[name] = ([timer.tick() for _ in range(4)], timer.seconds_per_step,
-                     timer.images_per_second(8))
-    assert out["port"] == out["jax"] == ([None, 0.5, 1.0, 0.25], 0.5, 16.0)
-
-
 def test_profile_trace_writes_a_trace_and_is_inert_without_a_dir(tmp_path):
     with tobs.profile_trace("") as prof:
         assert prof is None
