@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -24,9 +25,25 @@ class Normalizer:
     std: tuple[float, float, float]
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(self.mean, dtype=images.dtype, device=images.device)
-        std = torch.tensor(self.std, dtype=images.dtype, device=images.device)
+        on_card = images.device.type == "cuda"
+        mean, std = _constants(tuple(self.mean), tuple(self.std), images.dtype, on_card)
+        if on_card:
+            mean = mean.to(images.device, non_blocking=True)
+            std = std.to(images.device, non_blocking=True)
         return (images - mean) / std
+
+
+@functools.lru_cache(maxsize=64)
+def _constants(mean: tuple, std: tuple, dtype: torch.dtype, pinned: bool):
+    """``mean`` and ``std`` as host tensors, made once per values and dtype
+    (and shared: never written to); ``pinned`` for images on the card. A
+    copy from pinned memory does not wait for the card, where one from a
+    tensor made from a tuple (pageable) does, and PGD normalizes once a
+    step. Each call copies them to the card and frees the copies with the
+    call: the card holds no constant between calls (a training step's
+    memory peak counts every byte it holds)."""
+    out = (torch.tensor(mean, dtype=dtype), torch.tensor(std, dtype=dtype))
+    return tuple(t.pin_memory() for t in out) if pinned else out
 
 
 IMAGENET = Normalizer((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))

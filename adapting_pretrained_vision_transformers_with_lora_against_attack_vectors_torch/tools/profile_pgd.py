@@ -7,7 +7,11 @@ inside ``utils.observability.profile_trace`` (the trace file under
 ``--out``), and prints ``tools/trace_table.py``'s table: device ms per kernel
 group, the top kernels, the device's busy time, the idle share against
 the unprofiled wall, and the idle gaps by the attack's span (its start,
-each step's forward, backward and update) that was open when each began. ``--table_json`` writes the table. The port has no
+each step's forward, backward and update; on the card a graphed step's
+replay, update and the step itself) that was open when each began, and
+the attack's step counters (``attacks.whitebox``'s ``GRAPH_CAPTURES``,
+``GRAPH_REPLAYS``, ``EAGER_STEPS``) over the warm-up call and over the
+table's calls. ``--table_json`` writes the table. The port has no
 scanned encoder, so ``--scan`` is refused.
 
 Usage: python -m <port>.tools.profile_pgd [--backbone google_vit] [--batch 64]
@@ -22,8 +26,21 @@ import sys
 
 import torch
 
+from ..attacks import whitebox
 from ..kernels import _build
 from . import bench_zoo, timing, trace_table
+
+STEP_COUNTERS = ("GRAPH_CAPTURES", "GRAPH_REPLAYS", "EAGER_STEPS")
+
+
+def step_counts() -> dict:
+    """The attack's step counters: ``{name: count}``."""
+    return {n: getattr(whitebox, n) for n in STEP_COUNTERS}
+
+
+def counts_line(what: str, before: dict, after: dict) -> str:
+    return f"profile_pgd: PGD steps over {what}: " + ", ".join(
+        f"{n} {after[n] - before[n]}" for n in STEP_COUNTERS)
 
 
 def main(argv=None) -> int:
@@ -46,12 +63,17 @@ def main(argv=None) -> int:
 
     call, _ = bench_zoo.build(args.backbone, args.batch, args.steps, device)
     gen = lambda i: torch.Generator(device).manual_seed(i)  # noqa: E731
-    timing.fetch_sum(call([gen(0)]))  # warm-up: kernels built and loaded
+    counts = [step_counts()]
+    timing.fetch_sum(call([gen(0)]))  # warm-up: kernels built and loaded, the step captured
+    counts.append(step_counts())
     table = trace_table.trace_call(lambda: timing.fetch_sum(call([gen(1)])), args.out, device,
                                    top=args.top)
+    counts.append(step_counts())
     for line in trace_table.lines(table, "profile_pgd", f"{args.backbone} PGD-{args.steps} "
                                   f"B={args.batch} bf16", timing.device_kind(device), top=args.top):
         print(line)
+    print(counts_line("the warm-up call", *counts[:2]))
+    print(counts_line("the table's calls (timed and traced)", *counts[1:]))
     print(f"trace: {table['trace']}")
     if args.table_json:
         trace_table.write(table, args.table_json)

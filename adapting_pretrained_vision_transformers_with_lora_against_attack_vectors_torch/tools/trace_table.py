@@ -9,10 +9,11 @@ function of this repo, then the library's), the top kernels by name (the
 (the device's busy time), against the unprofiled wall of one call, the
 idle share, and the idle gaps between kernels by the program's span
 (``utils.observability.span``) that was innermost when each gap began:
-which phase of the step kept the card waiting. The profiler's device-side
-mirrors of host ranges are not kernels and are left out. A trace without
-CUDA events (a CPU run) has no device numbers: they are None, never a CPU
-time under a device name.
+which phase of the step kept the card waiting (a PGD step that is one
+CUDA-graph replay: ``apvt.attack.replay``, ``apvt.attack.update`` or the step
+between them). The profiler's device-side mirrors of host ranges are not
+kernels and are left out. A trace without CUDA events (a CPU run) has no
+device numbers: they are None, never a CPU time under a device name.
 """
 
 from __future__ import annotations

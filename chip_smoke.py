@@ -2475,10 +2475,11 @@ class Smoke:
             return pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
         cc_attention = cc_attention_packed(ka)
+        pgd_cc = self.make_pgd(entry, cfg, normalize)  # graphs of its own, captured replaced
 
         def replaced():
             with plain_path(self.vit, "attention_packed", cc_attention):
-                return run()
+                return pgd_cc(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
         adv, launches = self.counted({"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
                                      run)
@@ -3123,10 +3124,11 @@ class Smoke:
             return pgd(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
         wg_attention = wg_attention_packed(ka)
+        pgd_wg = self.make_pgd(entry, cfg, normalize)  # graphs of its own, captured replaced
 
         def replaced():
             with plain_path(self.vit, "attention_packed", wg_attention):
-                return run()
+                return pgd_wg(model, x, y, torch.Generator(self.dev).manual_seed(2))
 
         counters = {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")}
         adv, launches = self.counted(counters, run)
