@@ -99,6 +99,20 @@ def graphable(params, device) -> bool:
     return not torch.cuda.is_current_stream_capturing()
 
 
+_SIDE_STREAMS: dict = {}  # {device: the side stream of every warm-up step on it}
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """The one side stream of the graphs' warm-up steps on ``device``, made
+    on first use: cuBLAS keeps a workspace for each stream it has run on
+    until the process ends, so a new stream for each graph would keep its
+    workspaces after the attack that made them was freed."""
+    device = torch.device(device)
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 def weights_key(params) -> tuple:
     """The module and where its tensors live: a replaced parameter or buffer
     gives another key, so another graph."""
@@ -108,13 +122,14 @@ def weights_key(params) -> tuple:
 
 class _Graph:
     """One key's graph: its static input, labels and output, the side stream
-    of its warm-up steps, and the launch counts of one replay."""
+    of its warm-up steps (:func:`side_stream`), and the launch counts of one
+    replay."""
 
     def __init__(self, params, xn: torch.Tensor, labels: torch.Tensor):
         self.model = weakref.ref(params)
         self.x = torch.empty(xn.shape, dtype=xn.dtype, device=xn.device, requires_grad=True)
         self.labels = torch.empty_like(labels)
-        self.side = torch.cuda.Stream(xn.device)
+        self.side = side_stream(xn.device)
         self.warm = 0  # eager warm-up steps run
         self.graph = self.out = None
         self.counts: dict = {}

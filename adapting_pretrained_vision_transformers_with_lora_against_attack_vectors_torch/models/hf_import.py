@@ -17,7 +17,9 @@ Layout conversions: torch ``nn.Linear`` stores ``(out, in)``, the trees
 ``(in, out)``; a torch conv ``(O, I, kh, kw)`` becomes HWIO; the stride-P
 patch conv becomes the ``(P*P*C, D)`` patch-matmul kernel in (row, col,
 channel) pixel order; per-layer tensors stack on a leading depth axis (Swin:
-``(pairs, 2, ...)``).
+``(pairs, 2, ...)``). The ViT importers hold the learned position table to
+the config's tokens (197 rows at 224 px, 577 at 384) and raise
+``ValueError`` on a table of another size.
 
 :func:`load_checkpoint_state_dict` reads a file or an HF model directory:
 ``.safetensors`` with the port's own reader (``utils/checkpoint``), ``.pth``
@@ -107,6 +109,18 @@ def _nested(params) -> dict:
     return trees.unflatten_from_paths(trees.flatten_with_paths(params))
 
 
+def _position_table(pos: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """The checkpoint's learned position table ``(1, rows, D)``, whose rows
+    must be the config's tokens (the patches and the CLS token): a table of
+    another resolution (197 rows at 224 px, 577 at 384) is a named error
+    here, not a failed add downstream."""
+    if pos.dim() != 3 or pos.shape[1] != cfg.seq_len:
+        raise ValueError(f"position table {tuple(pos.shape)} != config's {cfg.seq_len} rows "
+                         f"({cfg.image_size} px, patch {cfg.patch_size}): a checkpoint of "
+                         "another image size?")
+    return pos
+
+
 def vit_params_from_hf(state_dict: Mapping, cfg: ViTConfig, *, dtype=torch.float32,
                        prefix: str = "vit.", allow_missing_head: bool = False) -> dict:
     """HF ``ViTForImageClassification`` state dict -> ViT param tree.
@@ -129,6 +143,7 @@ def vit_params_from_hf(state_dict: Mapping, cfg: ViTConfig, *, dtype=torch.float
     if (p, d) != (cfg.patch_size, cfg.hidden_dim):
         raise ValueError(f"checkpoint geometry ({d=}, {p=}) != config "
                          f"({cfg.hidden_dim}, {cfg.patch_size})")
+    pos = _position_table(get("vit.embeddings.position_embeddings"), cfg)
     stacked = {}
     for path, tmpl in _LAYER_MAP.items():
         layers = [get(tmpl.format(i=i)) for i in range(cfg.depth)]
@@ -152,7 +167,7 @@ def vit_params_from_hf(state_dict: Mapping, cfg: ViTConfig, *, dtype=torch.float
             "proj": {"w": _patch_kernel(conv_w, p),
                      "b": get("vit.embeddings.patch_embeddings.projection.bias")},
             "cls": get("vit.embeddings.cls_token"),
-            "pos": get("vit.embeddings.position_embeddings"),
+            "pos": pos,
         },
         "blocks": trees.unflatten_from_paths(stacked),
         "final_ln": {"scale": get("vit.layernorm.weight"), "bias": get("vit.layernorm.bias")},
@@ -383,6 +398,7 @@ def vit_params_from_timm(state_dict: Mapping, cfg: ViTConfig, *, dtype=torch.flo
     tensors split on the output axis."""
     sd = _as_f32(state_dict)
     get = _getter(sd, "timm ViT", dtype)
+    pos = _position_table(get("pos_embed"), cfg)
     per = {k: [] for k in _LAYER_MAP}
     for i in range(cfg.depth):
         bp = f"blocks.{i}"
@@ -414,7 +430,7 @@ def vit_params_from_timm(state_dict: Mapping, cfg: ViTConfig, *, dtype=torch.flo
             "proj": {"w": _patch_kernel(get("patch_embed.proj.weight"), cfg.patch_size),
                      "b": get("patch_embed.proj.bias")},
             "cls": get("cls_token"),
-            "pos": get("pos_embed"),
+            "pos": pos,
         },
         "blocks": trees.unflatten_from_paths({k: torch.stack(v) for k, v in per.items()}),
         "final_ln": {"scale": get("norm.weight"), "bias": get("norm.bias")},

@@ -1,6 +1,7 @@
 """Model registry: the five backbone families (ViT and DINOv1, Swin, ConvNeXt, YOLO11-cls).
 
-Counterpart of the JAX package's ``models/registry.py``. Each entry gives:
+Counterpart of the JAX package's ``models/registry.py``, with its names and
+one more: ``google_vit_384``, ViT-B/16 at 384 px. Each entry gives:
 
 * ``config(num_classes)`` — static architecture config
 * ``init(cfg, generator, device=None)`` — seeded params in the JAX layout
@@ -98,6 +99,8 @@ def _entry(name: str, family: str, module, base_cfg) -> ModelEntry:
 
 
 register(_vit_entry("google_vit", _vit.VIT_B16))
+# the same backbone fine-tuned at 384 px: 577 tokens, the packed attention's streamed forward
+register(_vit_entry("google_vit_384", _vit.VIT_B16_384))
 register(_vit_entry("vit_tiny", _vit.VIT_TINY))
 register(_vit_entry("vit_test", _vit.VIT_TEST))
 # DINOv1: architecturally ViT-B/16 (weights from the head-less DINO checkpoint)

@@ -94,6 +94,7 @@ class ViTConfig:
 
 
 VIT_B16 = ViTConfig()
+VIT_B16_384 = ViTConfig(image_size=384)  # google/vit-base-patch16-384: 577 tokens
 VIT_TINY = ViTConfig(hidden_dim=192, depth=12, num_heads=3, mlp_dim=768)
 VIT_TEST = ViTConfig(image_size=32, patch_size=8, hidden_dim=64, depth=2,
                      num_heads=2, mlp_dim=128, num_classes=10,

@@ -292,6 +292,36 @@ def test_vit_hf_geometry_and_class_count_are_checked(hf):
     _same(thf.vit_params_from_hf(thf.hf_from_vit_params(tree, VIT_CFG), VIT_CFG), _tnp(tree))
 
 
+# ViT-B/16 at 384 px with a CPU-sized width: a 577-row position table
+VIT_384 = dataclasses.replace(tvit.VIT_B16_384, hidden_dim=64, depth=2, num_heads=2, mlp_dim=128,
+                              num_classes=5, compute_dtype="float32")
+
+
+def test_a_577_row_hf_state_dict_round_trips_bit_for_bit():
+    tree = tvit.init(VIT_384, torch.Generator().manual_seed(2))
+    sd = thf.hf_from_vit_params(tree, VIT_384)
+    assert sd["vit.embeddings.position_embeddings"].shape == (1, 577, 64)
+    _same(thf.vit_params_from_hf(sd, VIT_384), _tnp(tree))
+
+
+@pytest.mark.parametrize("naming", ["hf", "timm"])
+def test_a_position_table_of_another_size_is_a_named_error(naming):
+    """A 224-px checkpoint (197 rows) given to the 384-px config, and a
+    384-px one (577 rows) given to the 224-px config, raise ``ValueError``
+    naming the position table, in HF and in timm naming."""
+    small_224 = dataclasses.replace(VIT_384, image_size=224)
+    for have, want in ((small_224, VIT_384), (VIT_384, small_224)):
+        tree = tvit.init(have, torch.Generator().manual_seed(3))
+        if naming == "hf":
+            sd, load = thf.hf_from_vit_params(tree, have), thf.vit_params_from_hf
+        else:
+            sd = {k: torch.from_numpy(np.array(v)) for k, v in _timm_vit_sd(tree, have).items()}
+            load = thf.vit_params_from_timm
+        with pytest.raises(ValueError, match=f"position table .*{want.seq_len} rows"):
+            load(sd, want)
+        _same(load(sd, have), _tnp(tree))  # its own config takes it
+
+
 @pytest.mark.parametrize("family", ["vit", "swin", "convnext"])
 def test_timm_maps_round_trip(family):
     """A timm-named state dict built from a tree imports back to that tree,

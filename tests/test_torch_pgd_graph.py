@@ -3,8 +3,8 @@ the normalization's constants (``attacks.common.Normalizer``).
 
 On the CPU: which attacks and models take the graph (:func:`graphable`,
 FGSM, a one-step PGD, a direct ``pgd`` call), the graphs' key and their
-eviction, the launch counters' bookkeeping and the graphed step's spans,
-with ``torch.cuda``'s graph and stream calls replaced by stand-ins and the
+eviction, the launch counters' bookkeeping, the graphed step's spans and
+the one side stream of attacks made in turn, with ``torch.cuda``'s graph and stream calls replaced by stand-ins and the
 counters bumped by hand; the chain back through the normalization against
 the eager step, bit for bit; the normalization's values and its host
 constants, made once per dtype.
@@ -12,12 +12,16 @@ constants, made once per dtype.
 Marked ``card``, skipped without one: on the card, bf16 PGD-3 at B=8 on a
 small ViT and a small Swin, graphed against eager, bit for bit, with the
 kernels' launch counters equal, a new capture for a second shape and for a
-replaced parameter, and the normalization's values from pinned constants. ``python -m pytest --noconftest tests/test_torch_pgd_graph.py``
+replaced parameter, and the normalization's values from pinned constants;
+ViT-B/16 at 384 px (577 tokens) graphed against eager, bit for bit, every
+packed forward on the streamed kernel; three attacks freed in turn leaving
+the same device memory. ``python -m pytest --noconftest tests/test_torch_pgd_graph.py``
 runs the file where JAX is not installed (this file does not import it).
 """
 
 import contextlib
 import dataclasses
+import gc
 from functools import partial
 from types import SimpleNamespace
 
@@ -27,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import common
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.attacks import whitebox
-from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import window_attention
+from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.kernels import attention, window_attention
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.models import swin, vit
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.ops.nn import LoRADropout
 from adapting_pretrained_vision_transformers_with_lora_against_attack_vectors_torch.tools import trace_table
@@ -88,6 +92,7 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(whitebox, "graphable", lambda params, device: True)
+    monkeypatch.setattr(whitebox, "_SIDE_STREAMS", {})
 
 
 def _mesh(data, model_axis):
@@ -239,6 +244,24 @@ def test_a_new_model_under_a_reused_key_is_captured_anew(model, fake_cuda, monke
     assert whitebox.GRAPH_CAPTURES - captures == 2 and len(graphs.graphs) == 1
 
 
+def test_attacks_made_in_turn_warm_up_on_one_side_stream(model, fake_cuda, monkeypatch):
+    """Every graph's warm-up steps on a device run on its one side stream:
+    cuBLAS keeps a workspace for each stream it has run on until the process
+    ends, so a stream made for each attack would outlive the attack."""
+    made = []
+
+    def stream(device=None):
+        made.append(SimpleNamespace(wait_stream=lambda other: None))
+        return made[-1]
+
+    monkeypatch.setattr(torch.cuda, "Stream", stream)
+    images, labels = _batch()
+    for k in range(3):
+        whitebox.make_pgd(vit.apply, vit.VIT_TEST, eps=EPS, alpha=ALPHA, steps=2)(
+            model, images, labels, torch.Generator().manual_seed(k))
+    assert len(made) == 1 and whitebox.side_stream(images.device) is made[0]
+
+
 def _spans(prof) -> list:
     return sorted(((ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
                    if ev.name.startswith(obs.SPAN_PREFIX)), key=lambda s: (s[1], -s[2]))
@@ -323,6 +346,56 @@ def test_on_the_card_graphed_pgd_is_eager_pgd_bit_for_bit(family, card):
         assert got == want and got, (got, want)
     assert whitebox.GRAPH_CAPTURES - captures == 1
     assert whitebox.GRAPH_REPLAYS - replays == 3 * 3 - whitebox.WARMUP_STEPS
+
+
+@pytest.mark.card
+def test_on_the_card_graphed_pgd_at_577_tokens_streams_every_forward_bit_for_bit(card):
+    """ViT-B/16 at 384 px (``google_vit_384``'s config, bf16 weights), three
+    PGD-2 batches at B=8: the eager warm-up steps, the capture and the
+    replays equal eager PGD bit for bit with equal launch counters, 12
+    packed forwards a step, each at N = 577 on the streamed kernel."""
+    cfg = vit.VIT_B16_384.with_classes(21)
+    assert attention.kernel_variant(torch.bfloat16, cfg.seq_len, cfg.head_dim, "fwd") == "wgmma_stream"
+    m = vit.params_from_jax(vit.init(cfg, torch.Generator().manual_seed(0)), cfg)
+    for p in m.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    m = m.to(card)
+    kw = dict(eps=EPS, alpha=ALPHA, steps=2)
+    run = whitebox.make_pgd(vit.apply, cfg, **kw)
+    captures, replays = whitebox.GRAPH_CAPTURES, whitebox.GRAPH_REPLAYS
+    for k in range(3):
+        images, labels = (t.to(card) for t in _batch(8, cfg.image_size, k + 1))
+        graphed, got = _counted(lambda: run(m, images, labels, torch.Generator(card).manual_seed(k)))
+        with common.frozen(m):
+            eager, want = _counted(lambda: whitebox.pgd(
+                partial(vit.apply, cfg), m, common.to_unit_floats(images), labels,
+                generator=torch.Generator(card).manual_seed(k), **kw))
+        diff = float((graphed - eager).abs().max())
+        assert torch.equal(graphed, eager), f"batch {k}: largest difference {diff}"
+        assert got == want, (got, want)
+        assert got[(attention, "FWD_LAUNCHES")] == 12 * kw["steps"], got
+    assert whitebox.GRAPH_CAPTURES - captures == 1
+    assert whitebox.GRAPH_REPLAYS - replays == 3 * 2 - whitebox.WARMUP_STEPS
+
+
+@pytest.mark.card
+def test_on_the_card_a_freed_attack_leaves_no_device_memory_behind(card):
+    """Three graphed attacks made, run and freed in turn: the device memory
+    left after each is the same (a side stream made for each attack left its
+    cuBLAS workspaces behind, 64 MiB an attack on the H100)."""
+    mod, cfg, m = _card_models(card)[0]
+    images, labels = (t.to(card) for t in _batch(8, cfg.image_size, 1))
+    left = []
+    for k in range(3):
+        run = whitebox.make_pgd(mod.apply, cfg, eps=EPS, alpha=ALPHA,
+                                steps=whitebox.WARMUP_STEPS + 2)
+        run(m, images, labels, torch.Generator(card).manual_seed(k))
+        del run
+        gc.collect()
+        torch.cuda.synchronize(card)
+        torch.cuda.empty_cache()
+        left.append(torch.cuda.memory_allocated(card))
+    assert left[0] == left[1] == left[2], left
 
 
 @pytest.mark.card
