@@ -55,7 +55,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..kernels import attention, attn_block, dwconv, mlp, window_attention
+from ..kernels import attention, attn_block, dwconv, layer_norm, mlp, window_attention
 from ..ops.nn import LoRADropout
 from ..parallel import mesh as pmesh
 from ..utils.observability import span
@@ -67,7 +67,7 @@ EAGER_STEPS = 0  # gradient steps run eagerly, a graph's warm-up steps among the
 
 WARMUP_STEPS = 3  # a new key's eager steps on a side stream before its capture
 MAX_GRAPHS = 2  # graphs an attack keeps, the least recently used dropped first
-COUNTED = (attention, attn_block, dwconv, mlp, window_attention)  # modules with launch counters
+COUNTED = (attention, attn_block, dwconv, layer_norm, mlp, window_attention)  # modules with launch counters
 
 
 def launch_counts() -> dict:

@@ -5,7 +5,9 @@ version only for a tensor on the CPU. Kernels are compiled from ``csrc/`` on
 first use, never at import. The two attention kernels are the only attention
 path of their backbones; the ConvNeXt kernels (``dwconv``, ``mlp``) are
 opt-in fields of ``ConvNeXtConfig`` (``use_dw_kernel``, ``fuse_ln_mlp``), as
-in the JAX package, with the library composition as the default.
+in the JAX package, with the library composition as the default. The
+LayerNorm kernel (``layer_norm``) replaces no TPU kernel: it takes every bf16
+LayerNorm of every backbone on the card (``ops.nn.layer_norm``).
 
 This package root holds the numerics shared by several kernels' plain
 versions, as the JAX package's ``kernels/__init__.py`` does: the f32

@@ -31,6 +31,7 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 
+from ..kernels import layer_norm as ln_kernel
 from .quant import int8_matmul
 
 Params = Mapping[str, Any]
@@ -155,9 +156,17 @@ def layer_norm_init(dim: int, *, dtype=torch.float32) -> dict:
 
 
 def layer_norm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm in float32, cast back to the input dtype."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps)
-    return out.to(x.dtype)
+    """LayerNorm over the last dimension in float32, rounded to the input dtype.
+
+    A tensor on the CPU, an f32 tensor (the kernel takes bf16 alone, by
+    design) and an empty one take the plain version: ``F.layer_norm`` on the
+    widened input, which on an f32 tensor is ``F.layer_norm`` itself. Every
+    other tensor on the card goes to ``kernels/layer_norm``'s one-pass kernel
+    (``layer_norm.takes``), which raises on what it does not take."""
+    scale, bias = p["scale"], p["bias"]
+    if ln_kernel.takes(x):
+        return ln_kernel.fused_layer_norm(x, scale, bias, eps)
+    return ln_kernel.layer_norm_reference(x, scale, bias, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

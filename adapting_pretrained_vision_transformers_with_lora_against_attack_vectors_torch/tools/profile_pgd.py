@@ -11,7 +11,10 @@ each step's forward, backward and update; on the card a graphed step's
 replay, update and the step itself) that was open when each began, and
 the attack's step counters (``attacks.whitebox``'s ``GRAPH_CAPTURES``,
 ``GRAPH_REPLAYS``, ``EAGER_STEPS``) over the warm-up call and over the
-table's calls. ``--table_json`` writes the table. The port has no
+table's calls, and the kernels' launches over the warm-up call, one batch
+(``whitebox.launch_counts``: the attention kernels' and the LayerNorm
+kernel's, read as an eager batch would count them). ``--table_json`` writes
+the table. The port has no
 scanned encoder, so ``--scan`` is refused.
 
 Usage: python -m <port>.tools.profile_pgd [--backbone google_vit] [--batch 64]
@@ -36,6 +39,16 @@ STEP_COUNTERS = ("GRAPH_CAPTURES", "GRAPH_REPLAYS", "EAGER_STEPS")
 def step_counts() -> dict:
     """The attack's step counters: ``{name: count}``."""
     return {n: getattr(whitebox, n) for n in STEP_COUNTERS}
+
+
+def launches_line(before: dict, after: dict) -> str:
+    """The kernels' launches between two ``whitebox.launch_counts()``: the
+    attention and LayerNorm counters always, any other that moved."""
+    always = ("attention", "window_attention", "layer_norm")
+    return "profile_pgd: kernel launches over the warm-up call (one batch): " + ", ".join(
+        f"{m.__name__.rsplit('.', 1)[-1]}.{k} {after[(m, k)] - before[(m, k)]}"
+        for m, k in after if m.__name__.rsplit(".", 1)[-1] in always
+        or after[(m, k)] != before[(m, k)])
 
 
 def counts_line(what: str, before: dict, after: dict) -> str:
@@ -63,9 +76,10 @@ def main(argv=None) -> int:
 
     call, _ = bench_zoo.build(args.backbone, args.batch, args.steps, device)
     gen = lambda i: torch.Generator(device).manual_seed(i)  # noqa: E731
-    counts = [step_counts()]
+    counts, launches = [step_counts()], [whitebox.launch_counts()]
     timing.fetch_sum(call([gen(0)]))  # warm-up: kernels built and loaded, the step captured
     counts.append(step_counts())
+    launches.append(whitebox.launch_counts())
     table = trace_table.trace_call(lambda: timing.fetch_sum(call([gen(1)])), args.out, device,
                                    top=args.top)
     counts.append(step_counts())
@@ -74,6 +88,7 @@ def main(argv=None) -> int:
         print(line)
     print(counts_line("the warm-up call", *counts[:2]))
     print(counts_line("the table's calls (timed and traced)", *counts[1:]))
+    print(launches_line(*launches))
     print(f"trace: {table['trace']}")
     if args.table_json:
         trace_table.write(table, args.table_json)

@@ -157,6 +157,12 @@ Phases, one line each (or a few):
    draws of their own (LN_SEEDS): forward and dx at MLP_TOL, the kernels'
    LayerNorm prologue (h, mean, rstd) against the plain version's and f64
    statistics, and the kernels against the plain version fed their own h;
+   the LayerNorm kernel (``csrc/layer_norm.cu``) at the cells' LayerNorms
+   (LN_SHAPES: Swin-B's stages and merges, ViT-B/16 at 224 and 384 px; bf16,
+   bf16 parameters, a generator of its own), y and dx within one bf16 ulp of
+   the composition it replaced at every element and LN_EQUAL of them equal,
+   dx twice bit for bit, and at ViT-B's shape with f32 parameters dgamma and
+   dbeta within LN_PARAM_RTOL of the f32 composition's, twice bit for bit;
 4. model, per backbone: merged bf16 state through the port's checkpoint
    writer/reader (byte-equal), then logits of the kernel path against the
    plain path (ViT, Swin: bf16 and f32, Swin's bias tables drawn at std 1.5)
@@ -175,7 +181,13 @@ Phases, one line each (or a few):
    no packed-attention launch and no parameter gradient; ViT-B/16 at 384 px
    (N = 577, the packed kernel's wgmma_stream code), random weights:
    logits against the plain attention, PGD-2 at batch 8 with 12 x 2
-   launches each way. Training: exact
+   launches each way; the LayerNorm kernel's launches in the ViT-B,
+   Swin-B and ConvNeXt-B attacks, 2 a block and the last (ViT-B: 25 x 11), 2
+   a block, the patch embedding's, one a merge and the last (Swin-B: 53 x
+   11), the stem's, 3 downsamples' and the last (ConvNeXt-B, the blocks' in
+   the LN-fused MLP: 5 x 11), each way, and no parameter gradient; one
+   forward of each ConvNeXt-B variant (CONVNEXT_VARIANTS) with 5 LayerNorm
+   launches, 41 where the MLP is not fused. Training: exact
    launch counts per step (full fine-tune: 12 parameter-gradient recomputes
    of each fused op; LoRA: none, and no half-block launch where LoRA factors
    are attached), finite gradients, every trainable leaf changed and every
@@ -232,7 +244,11 @@ Phases, one line each (or a few):
    by CUDA-graph replay (device time: at stage 4 an eager call's host work
    outlasts the kernel). ViT-B, Swin-B and YOLO11-cls PGD are timed over 3
    calls, ConvNeXt-B over 2 calls per variant and turn; each of TRAIN_RUNS
-   over 3 steps after a warm-up.
+   over 3 steps after a warm-up. The LayerNorm kernel at LN_SHAPES beside
+   the composition it replaced and stock ``F.layer_norm`` on bf16 operands
+   (with ATen's backward on them), by CUDA-graph replay, in turns, best of
+   3, each call on the next of operand sets past 128 MB (the L2 holds none
+   of a call's operands), against its bytes bound.
 
 7. the native PNG codec (``utils/native.py``, built with g++ from
    ``native/src``): encode -> decode bit exact on random images of
@@ -457,6 +473,14 @@ MLP_PARAM_STD = 0.5  # LN scale (around 1), LN bias, b1, b2
 # the LN-fused MLP under several input draws, each from a generator of its own
 LN_SEED_SHAPES = ((50176, 256, 1024), (200704, 128, 512))
 LN_SEEDS = tuple(range(100, 108))
+# the LayerNorm kernel (rows, C) at the cells' LayerNorms, B=64: Swin-B's four stages, its three
+# patch merges, ViT-B/16 at 224 and at 384 px; its phase-3 inputs from a generator of their own
+LN_SHAPES = ((200704, 128), (50176, 256), (12544, 512), (3136, 1024), (50176, 512),
+             (12544, 1024), (3136, 2048), (12608, 768), (36928, 768))
+LN_MAIN = (12608, 768)
+LN_SEED = 24
+LN_EQUAL = 0.99  # forward and dx: every element within one bf16 ulp, this share equal
+LN_PARAM_RTOL = 1e-5  # dgamma, dbeta with f32 parameters against the f32 composition's
 # the fused MLP without LayerNorm (T, D, M): the ViT-B/16 shape, Swin-B stage 1, a ragged case
 FMLP_SHAPES = ((12608, 768, 3072), (200704, 128, 512), (70, 128, 512))
 # the attention half-block (B, N, C, heads): ViT-B/16 and a ragged small case;
@@ -772,6 +796,7 @@ class Smoke:
 
         sys.path.insert(0, HERE)
         for attr, name in (("ka", "kernels.attention"), ("kw", "kernels.window_attention"),
+                           ("kln", "kernels.layer_norm"),
                            ("kd", "kernels.dwconv"), ("km", "kernels.mlp"),
                            ("kb", "kernels.attn_block"), ("steps", "train.steps"),
                            ("loop", "train.loop"), ("optim", "train.optim"),
@@ -824,10 +849,10 @@ class Smoke:
         import torch
 
         sources = ("attention_packed.cu", "window_attention.cu", "dwconv7.cu", "ln_mlp.cu",
-                   "attn_block.cu")
+                   "attn_block.cu", "layer_norm.cu")
         t0 = time.perf_counter()
         self.build_mod.load_all(sources)
-        for mod in (self.ka, self.kw, self.kd, self.km, self.kb):
+        for mod in (self.ka, self.kw, self.kd, self.km, self.kb, self.kln):
             mod._lib()
         wall = time.perf_counter() - t0
         for src in sources:
@@ -855,6 +880,16 @@ class Smoke:
                 if short:
                     print(f"phase 2 build: {src}: {short.group(1)} registers {used} at entry, "
                           f"spill stores {spill} bytes", flush=True)
+            # the LayerNorm kernels in one line: (kernel, lanes x vectors, parameter dtype,
+            # parameter gradients) registers / spill store bytes
+            ln = [f"{k}{lanes}x{vec}{'b' if 'bfloat' in p else 'f'}{params}:{used}/{spill}"
+                  for k, lanes, vec, p, params, spill, used in re.findall(
+                      r"Compiling entry function '\w+layer_norm_(fwd|bwd|param_grads)I(?:Li(\d+)E"
+                      r"Li(\d+)E)?(f|13__nv_bfloat16)(?:Lb([01])E)?\w*'(?:.*\n)+?.*?(\d+) bytes "
+                      r"spill stores.*\n.*Used (\d+) registers", ptxas)]
+            if ln:
+                print(f"phase 2 build: {src}: registers / spill stores " + " ".join(ln),
+                      flush=True)
         # the Hopper window and half-block kernels' dynamic shared memory, as
         # their launchers pass it (the wrapper's budget must be the launcher's)
         win = [self.kw._lib().apvt_win_attn_smem(i) for i in range(2)]
@@ -1249,6 +1284,83 @@ class Smoke:
                 check(all(k <= 2 * pl + 1e-7 for k, pl in dev.values()),
                       f"ln_mlp {tag}: the kernel's LayerNorm statistics are further from f64 "
                       f"than the plain version's ({dev})")
+
+    def layer_norm_operands(self, shape, param_dtype, gen):
+        """bf16 rows around 0.5 at std 2, the scale around 1 and the bias in
+        ``param_dtype``, a bf16 cotangent; drawn from ``gen``."""
+        import torch
+
+        rows, c = shape
+        x = (torch.randn(rows, c, device=self.dev, generator=gen) * 2.0 + 0.5).to(torch.bfloat16)
+        scale = (1.0 + 0.5 * torch.randn(c, device=self.dev, generator=gen)).to(param_dtype)
+        bias = (0.5 * torch.randn(c, device=self.dev, generator=gen)).to(param_dtype)
+        dy = torch.randn(rows, c, device=self.dev, generator=gen).to(torch.bfloat16)
+        return x, scale, bias, dy
+
+    def ln_counters(self) -> dict:
+        kln = self.kln
+        return {"ln_fwd": (kln, "FWD_LAUNCHES"), "ln_bwd": (kln, "BWD_LAUNCHES"),
+                "ln_param_grads": (kln, "PARAM_GRAD_LAUNCHES")}
+
+    def layer_norm_vs_plain(self) -> dict:
+        """The LayerNorm kernel against its plain version (the composition it
+        replaced) at LN_SHAPES with bf16 parameters, as the attack cells hold
+        them: every element of y and dx within one bf16 ulp (below 2^-8 of
+        the tensor's largest value, one ulp of that floor), LN_EQUAL of them
+        equal, dx reproducible; at LN_MAIN with f32 parameters (the full
+        fine-tune's) dgamma and dbeta within LN_PARAM_RTOL of the f32
+        composition's, and reproducible."""
+        import torch
+
+        kln, eps, err = self.kln, 1e-6, {"fwd": 0.0, "bwd": 0.0}
+        gen = torch.Generator(self.dev).manual_seed(LN_SEED)
+
+        def ulps(got, want):
+            got, want = got.detach().float(), want.detach().float()
+            m = torch.clamp(torch.maximum(got.abs(), want.abs()),
+                            min=2.0 ** -8 * float(want.abs().max()))
+            _, e = torch.frexp(m)
+            return (float(((got - want).abs() / torch.ldexp(torch.ones_like(m), e - 8)).max()),
+                    float((got == want).float().mean()), float((got - want).abs().max()))
+
+        for shape in LN_SHAPES:
+            x, scale, bias, dy = self.layer_norm_operands(shape, torch.bfloat16, gen)
+            y, mean, rstd = kln.fused_layer_norm_fwd(x, scale, bias, eps)
+            dx = kln.fused_layer_norm_bwd(x, dy, mean, rstd, scale, False)[0]
+            again = kln.fused_layer_norm_bwd(x, dy, mean, rstd, scale, False)[0]
+            xr = x.detach().requires_grad_(True)
+            want = kln.layer_norm_reference(xr, scale, bias, eps)
+            (want_dx,) = torch.autograd.grad(want, xr, dy)
+            torch.cuda.synchronize()
+            (uy, ey, ay), (ud, ed, ad) = ulps(y, want), ulps(dx, want_dx)
+            tag = f"{shape} [{kln.kernel_variant(x.dtype, shape[1])}]"
+            check(bool(torch.isfinite(y).all() and torch.isfinite(dx).all()),
+                  f"layer_norm {tag}: non-finite values")
+            check(uy <= 1.0 and ud <= 1.0 and ey >= LN_EQUAL and ed >= LN_EQUAL,
+                  f"layer_norm {tag}: y {uy:.2f} ulps, {ey:.4%} equal; dx {ud:.2f} ulps, "
+                  f"{ed:.4%} equal (limits 1 ulp, {LN_EQUAL:.0%})")
+            check(torch.equal(dx, again), f"layer_norm {tag}: dx not reproducible")
+            err = {"fwd": max(err["fwd"], ay), "bwd": max(err["bwd"], ad)}
+            print(f"phase 3 layer_norm vs plain {tag} bf16, bf16 parameters: y within {uy:.2f} "
+                  f"bf16 ulp, {ey:.4%} equal (max|err| {ay:.3e}); dx within {ud:.2f} ulp, "
+                  f"{ed:.4%} equal (max|err| {ad:.3e}); dx reproducible", flush=True)
+        x, scale, bias, dy = self.layer_norm_operands(LN_MAIN, torch.float32, gen)
+        got = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in (scale, bias)]
+            got.append(torch.autograd.grad(kln.fused_layer_norm(x, *leaves, eps), leaves, dy))
+        want_leaves = [t.clone().requires_grad_(True) for t in (scale, bias)]
+        want = torch.autograd.grad(kln.layer_norm_reference(x, *want_leaves, eps), want_leaves,
+                                   dy)
+        errs = [close(a, b, LN_PARAM_RTOL * float(b.abs().max()), LN_PARAM_RTOL,
+                      f"layer_norm {name} {LN_MAIN}") for name, a, b in
+                zip(("dscale", "dbias"), got[0], want)]
+        check(all(torch.equal(a, b) for a, b in zip(*got)),
+              f"layer_norm parameter gradients {LN_MAIN}: not reproducible")
+        print(f"phase 3 layer_norm parameter gradients {LN_MAIN}, f32 parameters: dscale max|err| "
+              f"{errs[0]:.3e}, dbias {errs[1]:.3e} against the f32 composition's (rtol "
+              f"{LN_PARAM_RTOL:g}); reproducible", flush=True)
+        return err
 
     def param_grads_vs_autograd(self, got, fn, leaves, dy, what: str) -> float:
         """A ``*_param_grads`` result against autograd through the plain version
@@ -2953,6 +3065,92 @@ class Smoke:
              "ms": kb, "plain_ms": pb, "bound_ms": bb, "bound_by": bb_by, "library_ms": None,
              "composition_ms": cb}]
 
+    def time_layer_norm(self, launches) -> list[dict]:
+        """The LayerNorm kernel at LN_SHAPES, bf16 with bf16 parameters: the
+        kernel; its plain version, the composition it replaced (widen, f32
+        ``F.layer_norm``, round; backward: the cotangent widened, ATen's f32
+        LayerNorm backward on the saved f32 input, dx rounded); stock
+        ``F.layer_norm`` on the bf16 operands and ATen's backward on them
+        (the library call, which the port never makes). Device time by
+        CUDA-graph replay, in turns, best of 3, each call on the next of
+        buffers past 128 MB, so that the L2 holds none of its operands; the
+        bytes bound; the target (75% of the bound and faster than the
+        library from 12,544 rows up) met or missed."""
+        import itertools
+
+        import torch
+        import torch.nn.functional as F
+
+        kln, eps, rows_out = self.kln, 1e-6, {}
+        gen = torch.Generator(self.dev).manual_seed(LN_SEED + 1)
+        aten = torch.ops.aten
+        for shape in LN_SHAPES:
+            rows, c = shape
+            k = max(2, -(-(128 << 20) // (rows * c * 2)))
+            ops = [self.layer_norm_operands(shape, torch.bfloat16, gen) for _ in range(k)]
+            w, b = ops[0][1], ops[0][2]
+            wf, bf = w.float(), b.float()
+            ks = [kln.fused_layer_norm_fwd(x, w, b, eps) for x, *_ in ops]
+            xfs = [x.float() for x, *_ in ops]
+            fs = [aten.native_layer_norm(xf, [c], wf, bf, eps) for xf in xfs]
+            ls = [aten.native_layer_norm(x, [c], w, b, eps) for x, *_ in ops]
+            turn = itertools.count()
+
+            def nxt():
+                return next(turn) % k
+
+            def plain_bwd():
+                j = nxt()
+                return aten.native_layer_norm_backward(
+                    ops[j][3].float(), xfs[j], [c], fs[j][1], fs[j][2], wf, bf,
+                    [True, False, False])[0].to(torch.bfloat16)
+
+            def library_bwd():
+                j = nxt()
+                return aten.native_layer_norm_backward(ops[j][3], ops[j][0], [c], ls[j][1],
+                                                       ls[j][2], w, b, [True, False, False])[0]
+
+            def kernel_bwd():
+                j = nxt()
+                return kln.fused_layer_norm_bwd(ops[j][0], ops[j][3], ks[j][1], ks[j][2], w,
+                                                False)
+
+            tf = rivals({"kernel": lambda: kln.fused_layer_norm_fwd(ops[nxt()][0], w, b, eps),
+                         "plain": lambda: kln.layer_norm_reference(ops[nxt()][0], w, b, eps),
+                         "library": lambda: F.layer_norm(ops[nxt()][0], (c,), w, b, eps)},
+                        iters=2 * k, timer=graph_ms)
+            tb = rivals({"kernel": kernel_bwd, "plain": plain_bwd, "library": library_bwd},
+                        iters=2 * k, timer=graph_ms)
+            bf_ms = kln.bytes_moved(rows, c, "fwd") / PEAK_BYTES * 1e3
+            bb_ms = kln.bytes_moved(rows, c, "bwd") / PEAK_BYTES * 1e3
+            share = (bf_ms / tf["kernel"], bb_ms / tb["kernel"])
+            target = ("" if rows < 12544 else "; target (75% of the bound, faster than the "
+                      "library) " + ("met" if min(share) >= 0.75 and tf["kernel"] < tf["library"]
+                                     and tb["kernel"] < tb["library"] else "missed"))
+            rows_out[shape] = (tf, tb, bf_ms, bb_ms)
+            print(f"phase 6 layer_norm {shape} bf16 [{kln.kernel_variant(torch.bfloat16, c)}]: "
+                  f"kernel fwd {tf['kernel']:.4f} ms ({share[0]:.1%} of the bound) bwd "
+                  f"{tb['kernel']:.4f} ms ({share[1]:.1%}); plain, the composition it replaced, "
+                  f"fwd {tf['plain']:.4f} ms bwd {tb['plain']:.4f} ms "
+                  f"({tf['plain'] / tf['kernel']:.2f}x / {tb['plain'] / tb['kernel']:.2f}x); "
+                  f"library F.layer_norm on bf16 operands fwd {tf['library']:.4f} ms bwd "
+                  f"{tb['library']:.4f} ms ({tf['library'] / tf['kernel']:.2f}x / "
+                  f"{tb['library'] / tb['kernel']:.2f}x); bound fwd {bf_ms:.4f} ms bwd "
+                  f"{bb_ms:.4f} ms (bytes); in turns, best of 3, CUDA-graph replay over {k} "
+                  f"operand sets{target} {self.card}", flush=True)
+            del ops, ks, xfs, fs, ls
+        tf, tb, bf_ms, bb_ms = rows_out[LN_MAIN]
+        src, variant = f"{PKG}/csrc/layer_norm.cu", kln.kernel_variant(torch.bfloat16, LN_MAIN[1])
+        return [
+            {"name": "layer_norm_fwd", "route": "cuda", "source": src, "variant": variant,
+             "replaces": None, "launches": launches["ln_fwd"], "ms": tf["kernel"],
+             "plain_ms": tf["plain"], "bound_ms": bf_ms, "bound_by": "bytes",
+             "library_ms": tf["library"]},
+            {"name": "layer_norm_bwd", "route": "cuda", "source": src, "variant": variant,
+             "replaces": None, "launches": launches["ln_bwd"], "ms": tb["kernel"],
+             "plain_ms": tb["plain"], "bound_ms": bb_ms, "bound_by": "bytes",
+             "library_ms": tb["library"]}]
+
     def time_fused_mlp(self, launches) -> list[dict]:
         """The fused MLP without LayerNorm at the ViT-B shape: kernels, plain,
         bound, and the bf16 library composition (``F.linear`` -> ``F.gelu`` ->
@@ -3204,6 +3402,24 @@ class Smoke:
             vcfg = dataclasses.replace(off, **fields)
             out[label] = (vcfg, entry.from_tree(model_tree, vcfg))
         return out
+
+    def convnext_layer_norms(self, entry, cfg, model_tree, normalize, images_u8) -> None:
+        """One bf16 forward of each ConvNeXt variant: every LayerNorm outside the
+        LN-fused MLP launches the kernel (the stem's, the downsamples', the last,
+        and the blocks' where the MLP is not fused, after the library depthwise
+        conv's permuted result too), and none takes the plain version."""
+        import torch
+
+        blocks, others = sum(cfg.depths), len(cfg.depths) + 1
+        x = normalize(self.common.to_unit_floats(images_u8))
+        for label, (vcfg, model) in self.convnext_variants(entry, cfg, model_tree).items():
+            with torch.no_grad():
+                _, got = self.counted(self.ln_counters(), lambda: entry.apply(vcfg, model, x))
+            want = {"ln_fwd": others + (0 if vcfg.fuse_ln_mlp else blocks), "ln_bwd": 0,
+                    "ln_param_grads": 0}
+            check(got == want, f"convnext {label}: LayerNorm launches {got} (want {want})")
+            print(f"phase 5 convnext {label} bf16 B={images_u8.shape[0]} forward: LayerNorm "
+                  f"launches {got}", flush=True)
 
     def make_pgd(self, entry, cfg, normalize):
         return self.whitebox.make_pgd(entry.apply, cfg, eps=EPS, alpha=ALPHA, steps=PGD_STEPS,
@@ -4410,14 +4626,20 @@ def main(argv=None) -> None:
     s.short_stream_vs_wg()
     s.dwconv_edges()
     s.ln_mlp_seeds()
+    err_ln = s.layer_norm_vs_plain()
 
     ka, kw, kd, km = s.ka, s.kw, s.kd, s.km
     vit_entry, vit_cfg, vit_model, vit_tree, vit_norm, vit_model_tree = s.model(
         "google_vit", s.vit, "attention_packed", ka.attention_packed_reference)
+    # LayerNorm launches a pass: two a block and the last (ViT); two a block, the patch
+    # embedding's, one a merge and the last (Swin)
+    passes = PGD_STEPS + 1
+    vit_ln = (2 * vit_cfg.depth + 1) * passes
     vit_l, vit_pgd, vit_x, vit_y, _, _ = s.attack(
         "google_vit", vit_entry, vit_cfg, vit_model, vit_norm,
-        {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES")},
-        {"fwd": vit_cfg.depth * (PGD_STEPS + 1), "bwd": vit_cfg.depth * (PGD_STEPS + 1)})
+        {"fwd": (ka, "FWD_LAUNCHES"), "bwd": (ka, "BWD_LAUNCHES"), **s.ln_counters()},
+        {"fwd": vit_cfg.depth * passes, "bwd": vit_cfg.depth * passes, "ln_fwd": vit_ln,
+         "ln_bwd": vit_ln, "ln_param_grads": 0})
     s.vit_fields(vit_entry, vit_cfg, vit_model_tree, vit_norm, vit_model)
     full_l = s.train_full(vit_entry, vit_tree, vit_norm)
     lora_l = s.train_lora(vit_entry, vit_tree, vit_norm)
@@ -4438,9 +4660,11 @@ def main(argv=None) -> None:
     blocks = sum(swin_cfg.depths)
     win_counters = {"fwd": (kw, "FWD_LAUNCHES"), "bwd": (kw, "BWD_LAUNCHES"),
                     "dbias": (kw, "DBIAS_CALLS")}
+    swin_ln = (2 * blocks + len(swin_cfg.depths) + 1) * passes
     swin_l, swin_pgd, swin_x, swin_y, adv_f, adv_p = s.attack(
-        "swin", swin_entry, swin_cfg, swin_model, swin_norm, win_counters,
-        {"fwd": blocks * (PGD_STEPS + 1), "bwd": blocks * (PGD_STEPS + 1), "dbias": 0})
+        "swin", swin_entry, swin_cfg, swin_model, swin_norm, {**win_counters, **s.ln_counters()},
+        {"fwd": blocks * passes, "bwd": blocks * passes, "dbias": 0, "ln_fwd": swin_ln,
+         "ln_bwd": swin_ln, "ln_param_grads": 0})
     swin_compose_s = s.compose("swin", swin_entry, swin_cfg, swin_tree, swin_x, swin_y, adv_f,
                                adv_p, win_counters, {"fwd": blocks, "bwd": 0, "dbias": 0})
     swin_fused = s.swin_fused_mlp(swin_entry, swin_cfg, swin_model_tree, swin_norm, swin_model,
@@ -4454,10 +4678,14 @@ def main(argv=None) -> None:
                     "dw_dw": (kd, "DW_CALLS"), "mlp_fwd": (km, "FWD_LAUNCHES"),
                     "mlp_bwd": (km, "BWD_LAUNCHES"), "mlp_param_grads": (km, "PARAM_GRAD_CALLS")}
     per_step = blocks * (PGD_STEPS + 1)
+    # LayerNorm launches a pass with the LN-fused MLP: the stem's, the downsamples', the last
+    cnx_ln = (len(cnx_cfg.depths) + 1) * passes
     cnx_l, _, cnx_x, cnx_y, adv_f, adv_p = s.attack(
-        "convnext", cnx_entry, cnx_cfg, cnx_model, cnx_norm, cnx_counters,
+        "convnext", cnx_entry, cnx_cfg, cnx_model, cnx_norm, {**cnx_counters, **s.ln_counters()},
         {"dw_fwd": per_step, "dw_dx": per_step, "dw_dw": 0, "mlp_fwd": per_step,
-         "mlp_bwd": per_step, "mlp_param_grads": 0})
+         "mlp_bwd": per_step, "mlp_param_grads": 0, "ln_fwd": cnx_ln, "ln_bwd": cnx_ln,
+         "ln_param_grads": 0})
+    s.convnext_layer_norms(cnx_entry, cnx_cfg, cnx_model_tree, cnx_norm, cnx_x)
     cnx_compose_s = s.compose(
         "convnext", cnx_entry, cnx_cfg, cnx_tree, cnx_x, cnx_y, adv_f, adv_p, cnx_counters,
         {"dw_fwd": blocks, "dw_dx": 0, "dw_dw": 0, "mlp_fwd": blocks, "mlp_bwd": 0,
@@ -4520,7 +4748,7 @@ def main(argv=None) -> None:
     # head-major kernel; the attack paths' counts are in the phase 5 lines
     kernels = (s.time_attention(vit_l) + s.time_window(swin_l) + s.time_dwconv(cnx_l)
                + s.time_mlp(cnx_l) + s.time_fused_mlp(lora_l) + s.time_attn_block(full_l)
-               + s.time_bhnd(bhnd_l))
+               + s.time_bhnd(bhnd_l) + s.time_layer_norm(vit_l))
     for name, wall in (("swin", swin_compose_s), ("convnext", cnx_compose_s),
                        ("yolo11-cls", yolo_compose_s)):
         print(f"phase 6 eval-compose {name} 4x3 matrix (B={BATCH} per dataset): wall "
@@ -4567,6 +4795,7 @@ def main(argv=None) -> None:
             "fused_mlp_fwd": err_f["fwd"], "fused_mlp_bwd": err_f["bwd"],
             "attn_block_fwd": err_a["fwd"], "attn_block_bwd": err_a["bwd"],
             "fused_attention_fwd": err_h["fwd"], "fused_attention_bwd": err_h["bwd"],
+            "layer_norm_fwd": err_ln["fwd"], "layer_norm_bwd": err_ln["bwd"],
             **s.tp_errs, **s.parity_errs, **s.long_errs}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
